@@ -19,8 +19,22 @@ Phases, each printing its lines:
 6. ViT-B/16, B=8, kernel path against plain;
 7. Swin-T bf16, fused and unfused, against its plain path, and images/s
    at B=64 in fp32 and bf16 (plain fp32 beside it);
-8. one JSON line of the kernels, then the last line
+8. RWKV6-3B at full width and depth (jittered random weights): 4 prompts
+   of 512 tokens, then 32 greedy decode steps, then 1 prompt of 333
+   tokens with 8 steps, in fp32 teacher-forced on the plain path's
+   tokens (logits at prefill and every step, greedy picks, final WKV
+   states), 321 / 0 / 97 / 32 launches per prefill and per step; bf16
+   each layer on the plain bf16 path's input against the same layer in
+   fp32 (beside a control in float8_e5m2), and at full depth as readings
+   (and, for scale, the plain bf16 prefill against the plain fp32 one);
+   prefill and decode tokens/s;
+9. one JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
+decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
+and the B=4 decode step with a starting state) against its plain
+version, and sums them per prefill and per decode step.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -44,14 +58,23 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 # the fp32 sums differs (and rsqrtf/expf/tanhf against torch's), so a
 # few ulps times sqrt(K) — far below 1e-4.
 FP32_TOL = 1e-4
-# fp32 logits after 12 blocks: the per-kernel differences above compound
-# through the residual stream; judged against the logits' scale.
+# fp32 logits after 12 Swin blocks or 32 RWKV6 layers (and the final WKV
+# states): the per-kernel differences above compound through the
+# residual stream and the recurrence; judged against the logits' scale.
 LOGIT_TOL = 1e-3
 # bf16 kernel against the plain fp32 version fed the same bf16 inputs:
 # bf16 keeps 8 bits of mantissa (relative step 2^-8 = 3.9e-3), and the
 # kernel rounds at its own points (the normed prologue operand, the
 # attention probabilities, the output); judged against max(1, max|ref|).
 BF16_TOL = 3e-2
+# bf16 RWKV6-3B, each layer on the plain bf16 path's input to it, held
+# against the same layer in fp32 (the bf16 weights upcast) as
+# rms(err) / rms(out). A sound bf16 path reads bf16's own rounding
+# compounded inside the layer, whatever points it rounds at; the limit
+# sits between the kernel path's largest reading and the least reading
+# of a control in lower precision, the plain bf16 output rounded to
+# float8_e5m2 (2 mantissa bits) (PERF.md, PR 12 findings).
+BF16_LAYER_TOL = 1.5e-2
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 off the tensor cores,
 # bf16 on them, and the device memory rate.
@@ -62,6 +85,7 @@ REPLACES = {
     "rowwise_matmul": "src/repro/kernels/rowwise_matmul.py:142",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "layernorm": "src/repro/kernels/layernorm.py:58",
+    "wkv": "src/repro/kernels/wkv.py:66",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
@@ -114,11 +138,15 @@ def launch_overheads(device):
     from repro_torch.kernels.flash_attention import flash_attention_p
     from repro_torch.kernels.layernorm import layernorm_p
     from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+    from repro_torch.kernels.wkv import wkv_p
 
     x, w, b = (torch.randn(*s, device=device) for s in
                ((64, 64), (64, 64), (64,)))
     q = torch.randn(1, 1, 64, 32, device=device)
+    r = -torch.rand(1, 16, 1, 64, device=device)
     return {
+        # no single library call computes WKV6
+        "wkv": (host_us(lambda: wkv_p(r, r, r, r, r[0, 0])), None),
         "rowwise_matmul": (host_us(lambda: rowwise_matmul_p(
             x, w, bias=b, residual=x)), host_us(
             lambda: torch.addmm(b, x, w) + x)),
@@ -159,29 +187,35 @@ def err_ok(out, want, tol):
 # ------------------------------ cases ----------------------------------
 
 
+COUNTS = ("fused", "unfused", "prefill", "decode")
+
+
 class Case:
     """One kernel call at one shape: how to run the kernel, its plain
     version, the reference its output is checked against, and the
     library call that computes the same function."""
 
     def __init__(self, kernel, name, run, plain, check, library,
-                 flops, nbytes_, fused=0, unfused=0):
+                 flops, nbytes_, **counts):
         self.kernel, self.name = kernel, name
         self.run, self.plain, self.check, self.library = (
             run, plain, check, library)
         self.flops, self.nbytes = flops, nbytes_
-        self.fused, self.unfused = fused, unfused
+        # launches per Swin-T forward (fused, unfused) and per RWKV6-3B
+        # prefill at B=4 x 512 and decode step at B=4
+        self.counts = {k: counts.get(k, 0) for k in COUNTS}
 
 
 def _rand(gen, shape, dtype, device, scale=1.0):
     import torch
-    t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    t = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
     return t.to(device=device, dtype=dtype)
 
 
 def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
                 norm=None, beta=True, residual=False, gated=False,
-                out_f32=False, fused=0, unfused=0):
+                out_f32=False, **counts):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -232,12 +266,12 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
         plain_on(torch.float32 if dtype != torch.float32 else None),
         library, 2 * m * n * k * (2 if gated else 1),
         nbytes(x, w, wg, b, bg, res, g, be, out=(m * n, out_dtype)),
-        fused, unfused)
+        **counts)
 
 
 def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
                    bias=None, causal=False, window=0, q_offset=0, skv=None,
-                   fused=0, unfused=0):
+                   **counts):
     """q/k/v as the main path gives them: views of one fused qkv output
     (nw, t, (heads + 2 hkv) hd), split and reshaped per head."""
     import torch
@@ -281,10 +315,10 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
         plain_on(torch.float32 if dtype != torch.float32 else None),
         lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
         4 * nw * heads * hd * int(allowed.sum().item()),
-        nbytes(q, k, v, bias, out=(q.numel(), dtype)), fused, unfused)
+        nbytes(q, k, v, bias, out=(q.numel(), dtype)), **counts)
 
 
-def layernorm_case(name, m, d, dtype, gen, device, *, fused=0, unfused=0):
+def layernorm_case(name, m, d, dtype, gen, device, **counts):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -303,7 +337,7 @@ def layernorm_case(name, m, d, dtype, gen, device, *, fused=0, unfused=0):
         lambda: layernorm_p(x, g, b), plain_on(None),
         plain_on(torch.float32 if dtype != torch.float32 else None),
         lambda: F.layer_norm(x, (d,), g, b, 1e-6), 7 * m * d,
-        nbytes(x, g, b, out=(x.numel(), dtype)), fused, unfused)
+        nbytes(x, g, b, out=(x.numel(), dtype)), **counts)
 
 
 def swin_cases(cfg, batch, dtype, gen, device):
@@ -385,19 +419,101 @@ def swin_cases(cfg, batch, dtype, gen, device):
     return cases
 
 
+def wkv_case(name, b, s, cfg, dtype, gen, device, *, with_s0=False,
+             **counts):
+    """The WKV recurrence at the config's heads (RWKV6-3B: 40 of 64),
+    r/k/v/lw in ``dtype`` (the model feeds fp32), decays spread over
+    both clamp ends; checked against the plain chunked scan on fp32
+    copies of the same inputs, y and the final state each."""
+    import torch
+    from repro_torch.kernels.wkv import wkv_p
+    from repro_torch.models.rwkv6 import CLAMP, wkv_chunked
+
+    p = cfg.rwkv.head_dim
+    h = cfg.d_model // p
+    r, k, v = (_rand(gen, (b, s, h, p), dtype, device) for _ in range(3))
+    lw = torch.clamp(-torch.exp(_rand(gen, (b, s, h, p), torch.float32,
+                                      device, 2.0)), -CLAMP, -1e-6).to(dtype)
+    u = _rand(gen, (h, p), torch.float32, device, 0.5)
+    s0 = _rand(gen, (b, h, p, p), torch.float32, device) if with_s0 else None
+    f32 = [t.float() for t in (r, k, v, lw)]
+    # what this run's data needs: per chunk of n real tokens, A and A @ v
+    # (2 n^2 P each) and rd @ S and the state update (2 n P^2 each)
+    chunks = [min(16, s - t0) for t0 in range(0, s, 16)]
+    flops = b * h * sum(4 * n * p * (n + p) for n in chunks)
+    return Case(
+        "wkv", f"{name} B={b} S={s} H={h} P={p}" + (" +s0" if with_s0
+                                                   else ""),
+        lambda: wkv_p(r, k, v, lw, u, s0=s0),
+        lambda: wkv_chunked(*f32, u, s0=s0),
+        lambda: wkv_chunked(*f32, u, s0=s0), None, flops,
+        nbytes(r, k, v, lw, u, s0, out=(r.numel(), dtype)) + b * h * p * p * 4,
+        **counts)
+
+
+def rwkv_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of an RWKV6-3B prefill at B=4 x 512
+    (M=2048) and of a decode step at B=4 (M=4), with its launches per
+    prefill and per step, plus a ragged WKV call (B=1 x 333)."""
+    import torch
+    d, f, lora, n_layers = (cfg.d_model, cfg.d_ff, cfg.rwkv.decay_lora,
+                            cfg.n_layers)
+    # the model feeds the recurrence fp32 in either dtype (rwkv6.apply
+    # casts r, k, v): the bf16 WKV cases hold the kernel's bf16-input leg
+    # and are on no model path
+    n_wkv = n_layers if dtype == torch.float32 else 0
+    cases = []
+    for m, key in ((4 * 512, "prefill"), (4, "decode")):
+        cases += [
+            # wr wk wv wg wo of the time-mix and wr of the channel-mix
+            matmul_case(f"rwkv.{key} d x d", m, d, d, dtype, gen, device,
+                        bias=False, **{key: 6 * n_layers}),
+            matmul_case(f"rwkv.{key} lora_a fp32-out", m, d, lora, dtype, gen,
+                        device, bias=False, out_f32=True, **{key: n_layers}),
+            matmul_case(f"rwkv.{key} lora_b fp32-out", m, lora, d, dtype, gen,
+                        device, bias=False, out_f32=True, **{key: n_layers}),
+            matmul_case(f"rwkv.{key} cmix wk+relu2", m, d, f, dtype, gen,
+                        device, bias=False, act="relu2", **{key: n_layers}),
+            matmul_case(f"rwkv.{key} cmix wv", m, f, d, dtype, gen, device,
+                        bias=False, **{key: n_layers}),
+            # norm1, the time-mix ln, norm2
+            layernorm_case(f"rwkv.{key} ln", m, d, dtype, gen, device,
+                           **{key: 3 * n_layers}),
+        ]
+    # the head and the final norm run on the last position only
+    cases += [
+        matmul_case("rwkv lm_head fp32-out", 4, d, cfg.vocab, dtype, gen,
+                    device, bias=False, out_f32=True, prefill=1, decode=1),
+        layernorm_case("rwkv final_norm", 4, d, dtype, gen, device,
+                       prefill=1, decode=1),
+        wkv_case("rwkv.prefill wkv", 4, 512, cfg, dtype, gen, device,
+                 prefill=n_wkv),
+        wkv_case("rwkv.decode wkv", 4, 1, cfg, dtype, gen, device,
+                 with_s0=True, decode=n_wkv),
+        wkv_case("rwkv ragged wkv", 1, 333, cfg, dtype, gen, device),
+    ]
+    return cases
+
+
 def run_cases(cases, dtype_name, tol, timed=True):
     rows = []
     for case in cases:
-        err, ok = err_ok(case.run(), case.check(), tol)
+        out, want = case.run(), case.check()
+        if not isinstance(out, tuple):          # wkv: (y, final state)
+            out, want = (out,), (want,)
+        errs = [err_ok(o, w, tol) for o, w in zip(out, want)]
+        err, ok = max(e for e, _ in errs), all(o for _, o in errs)
         row = {"kernel": case.kernel, "case": case.name, "dtype": dtype_name,
-               "fused": case.fused, "unfused": case.unfused,
-               "max_abs_err": err, "tol": tol}
+               **case.counts, "max_abs_err": err, "tol": tol}
+        if len(errs) > 1:
+            row["errs"] = [e for e, _ in errs]
         b_ms, b_by = bound(case.flops, case.nbytes, dtype_name)
         row.update(flops=case.flops, bytes=case.nbytes, bound_ms=b_ms,
                    bound_by=b_by)
         if timed:
             row.update(ms=cuda_time(case.run), plain_ms=cuda_time(case.plain),
-                       library_ms=cuda_time(case.library))
+                       library_ms=(cuda_time(case.library) if case.library
+                                   else None))
         say("kernels", " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in row.items() if k not in ("flops", "bytes", "tol")))
@@ -415,8 +531,10 @@ def launches():
     from repro_torch.kernels.flash_attention import flash_attention_p
     from repro_torch.kernels.layernorm import layernorm_p
     from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+    from repro_torch.kernels.wkv import wkv_p
     return {"rowwise_matmul": rowwise_matmul_p,
-            "flash_attention": flash_attention_p, "layernorm": layernorm_p}
+            "flash_attention": flash_attention_p, "layernorm": layernorm_p,
+            "wkv": wkv_p}
 
 
 def counted(fn):
@@ -472,7 +590,324 @@ def images_per_s(model, images, iters=10):
     return images.shape[0] * iters / (time.perf_counter() - t0)
 
 
+# ------------------------------ RWKV6-3B --------------------------------
+
+
+def jitter_rwkv(tree, gen):
+    """Spread the initializer's constant leaves so the checks exercise
+    them: ``w0`` uniform over [-16, 2] (with the decay LoRA, -exp(w0 +
+    lora) then reaches both clamp ends, -3.5 and -1e-6), the LoRA's
+    zero ``w_lora_b``, the token-shift mixes, ``u`` and every norm."""
+    import torch
+
+    def rand(t):
+        return torch.rand(t.shape, generator=gen, device=gen.device).to(t)
+
+    for stage in tree["stages"]:
+        for blk in stage["stacked"].values():
+            tm, ffn = blk["tmix"], blk["ffn"]
+            tm["w0"].copy_(rand(tm["w0"]) * 18 - 16)
+            for t in (tm["mu"], ffn["mu_k"], ffn["mu_r"]):
+                t.copy_(rand(t))
+            tm["u"].add_(_rand(gen, tm["u"].shape, tm["u"].dtype,
+                               tm["u"].device, 0.5))
+            for t in (tm["w_lora_b"], tm["ln_g"], tm["ln_b"],
+                      *blk["norm1"].values(), *blk["norm2"].values()):
+                t.add_(_rand(gen, t.shape, t.dtype, t.device, 0.1))
+    for t in tree["final_norm"].values():
+        t.add_(_rand(gen, t.shape, t.dtype, t.device, 0.1))
+
+
+def to_bf16(tree, key=None):
+    """The tree in bf16 but for the fp32 leaves of the JAX package's bf16
+    RWKV6 model (``u``, ``w0``)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_bf16(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_bf16(v) for v in tree]
+    return tree if key in ("u", "w0") else tree.to(torch.bfloat16)
+
+
+def check_serving(phase, model, prompts, n_steps, tol, want_counts):
+    """Greedy serving of a batch: the plain path on the card picks the
+    tokens (prefill, then ``n_steps`` decode steps); the kernel path runs
+    teacher-forced on them. Its logits at prefill and at every step must
+    sit within tol * max(1, max|logit|) of the plain path's, its greedy
+    picks must equal the plain path's (a top-2 gap below the tolerance
+    is reported, not failed), its final WKV states must agree, and each
+    prefill and step must launch ``want_counts``. With ``tol=None`` the
+    logits, picks and states are readings, held only to be finite."""
+    import torch
+    from repro_torch.core import runtime
+    b, s = prompts.shape
+    with torch.no_grad():
+        with runtime.use_impl("ref"):
+            lg, cache = model.prefill(prompts)
+            want, toks = [lg], [lg.argmax(-1)]
+            lengths = torch.full((b,), s, dtype=torch.int32,
+                                 device=prompts.device)
+            for i in range(n_steps):
+                lg, cache = model.decode_step(cache, toks[-1][:, None],
+                                              lengths + i)
+                want.append(lg)
+                toks.append(lg.argmax(-1))
+        want_states = cache
+        got_lg, counts = counted(lambda: model.prefill(prompts))
+        got, cache = [got_lg[0]], got_lg[1]
+        all_counts = [counts]
+        for i in range(n_steps):
+            (lg, cache), counts = counted(
+                lambda i=i: model.decode_step(cache, toks[i][:, None],
+                                              lengths + i))
+            got.append(lg)
+            all_counts.append(counts)
+    limit = float("inf") if tol is None else tol
+    ties, scale, step_errs = 0, 1.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        err, ok = err_ok(g, w, limit)
+        step_errs.append(err)
+        scale = max(scale, w.abs().max().item())
+        if g.shape != w.shape or not ok:
+            raise AssertionError(f"{phase}: logits at step {i} off by {err}")
+        picked = g.argmax(-1)
+        for row in torch.nonzero(picked != toks[i]).flatten().tolist():
+            top2 = w[row].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap > limit * max(1.0, w.abs().max().item()):
+                raise AssertionError(f"{phase}: step {i} row {row} picks "
+                                     f"{picked[row].item()}, plain path "
+                                     f"{toks[i][row].item()} (gap {gap})")
+            ties += 1
+    s_err, s_ok = err_ok(cache[0]["0"]["rwkv_t"]["wkv"],
+                         want_states[0]["0"]["rwkv_t"]["wkv"], limit)
+    bad = [c for c in all_counts if c != want_counts]
+    worst = max(step_errs)
+    held = ("readings only; greedy picks differ at " if tol is None else
+            f"tol={tol}*max(1,max|logit|); greedy picks equal but for ")
+    say(phase, f"B={b} S={s} + {n_steps} steps: logits max|logit|="
+               f"{scale:.4g} max_abs_err={worst:.4g} (prefill "
+               f"{step_errs[0]:.4g}, last step {step_errs[-1]:.4g}) "
+               f"{held}{ties} rows; final wkv states max_abs_err="
+               f"{s_err:.4g}; launches per prefill {all_counts[0]}, per "
+               f"step {all_counts[-1]}")
+    if not s_ok:
+        raise AssertionError(f"{phase}: final WKV states off by {s_err}")
+    if bad:
+        raise AssertionError(f"{phase}: launches {bad[0]}, want "
+                             f"{want_counts}")
+    return {"max_abs_err": worst, "step_errs": step_errs,
+            "max_logit": scale, "near_ties": ties,
+            "state_err": s_err, "counts": all_counts[0],
+            "decode_counts": all_counts[-1],
+            "tokens": torch.stack(toks, 1).tolist()}
+
+
+def bf16_layers(model16, prompts):
+    """Each layer of the bf16 model at prefill, run on the plain bf16
+    path's input to it (so no error carries from layer to layer), against
+    the same layer in fp32 on the same weights and input, as rms(err) /
+    rms(out): the kernel path (held to ``BF16_LAYER_TOL``), the plain
+    bf16 path (bf16's own rounding, for scale) and a control in lower
+    precision. Returns the worst reading over layers of each path and
+    the control's least."""
+    import torch
+    from repro_torch.core import runtime
+    from repro_torch.models import blocks, lm
+    cfg, tree = model16.cfg, model16.params.tree()
+    reads = {"kernels": [], "plain": [], "control": []}
+    with torch.no_grad():
+        x = lm._add_positions(lm.embed(tree, prompts, cfg), cfg)
+        for stage, sp in zip(cfg.stages(), tree["stages"]):
+            for rep in range(stage.repeat):
+                for i, blk in enumerate(stage.body):
+                    key = str(i)
+                    bp = (lm._tree_map(lambda a, r=rep: a[r],
+                                       sp["stacked"][key])
+                          if key in sp["stacked"] else sp["shared"][key])
+
+                    def run(params, inp, blk=blk):
+                        return blocks.apply_block(blk, params, inp, cfg=cfg,
+                                                  mode="prefill")[0]
+                    with runtime.use_impl("ref"):
+                        plain = run(bp, x)
+                        want = run(lm._tree_map(lambda a: a.float(), bp),
+                                   x.float())
+                    ways = {"kernels": run(bp, x), "plain": plain,
+                            "control": plain.to(torch.float8_e5m2)}
+                    for way, o in ways.items():
+                        d = o.float() - want
+                        if not torch.isfinite(d).all():
+                            raise AssertionError(f"bf16 layer {rep}: {way} "
+                                                 "output not finite")
+                        reads[way].append((d.square().mean().sqrt()
+                                           / want.square().mean().sqrt())
+                                          .item())
+                    x = plain
+    out = {"kernels_max": max(reads["kernels"]),
+           "plain_max": max(reads["plain"]),
+           "control_min": min(reads["control"]), "per_layer": reads}
+    say("rwkv-bf16", "each layer on the plain bf16 input, against the same "
+                     "layer in fp32, rms(err)/rms(out): kernels max "
+                     f"{out['kernels_max']:.4g}, plain bf16 max "
+                     f"{out['plain_max']:.4g}, control (plain bf16 output "
+                     f"in float8_e5m2) min {out['control_min']:.4g}; tol "
+                     f"{BF16_LAYER_TOL}")
+    if out["kernels_max"] > BF16_LAYER_TOL:
+        raise AssertionError(f"bf16 layers: kernel path reads "
+                             f"{out['kernels_max']}")
+    if out["control_min"] <= BF16_LAYER_TOL:
+        raise AssertionError("bf16 layers: the control passes the limit")
+    return out
+
+
+def lm_rates(model, prompts, steps=8):
+    """Prefill tokens/s of the batch and decode tokens/s at its batch
+    size (host clock around synchronised calls, after the checks have
+    warmed every path)."""
+    import torch
+    b, s = prompts.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(prompts)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        tok = lg.argmax(-1)[:, None]
+        lengths = torch.full((b,), s, dtype=torch.int32,
+                             device=prompts.device)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, cache = model.decode_step(cache, tok, lengths + i)
+            tok = lg.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    return b * s / t_pre, b * steps / t_dec
+
+
+def rwkv_phase(smi):
+    """RWKV6-3B at full width and depth on the card: serving checks in
+    fp32 and bf16, then prefill and decode rates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config("rwkv6-3b")
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_rwkv(model.params.tree(),
+                    torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("rwkv", f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+                f"{cfg.d_model // cfg.rwkv.head_dim} heads of "
+                f"{cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+                f"{n_params / 1e9:.3f} B parameters, fp32, built in "
+                f"{time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                            device="cuda")
+    prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
+                            device="cuda")
+    counts = {"rowwise_matmul": 321, "flash_attention": 0, "layernorm": 97,
+              "wkv": 32}
+    out = {"params": n_params,
+           "fp32_b4": check_serving("rwkv-fp32", model, prompts, 32,
+                                    LOGIT_TOL, counts),
+           "fp32_b1": check_serving("rwkv-fp32", model, prompt1, 8,
+                                    LOGIT_TOL, counts)}
+    model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
+                               device="cuda")
+    # at full depth bf16's rounding, carried through 32 layers, reads
+    # within 13% of the kernel path's error (PERF.md), so no limit on the
+    # logits tells a fault from rounding: readings here, and the bf16
+    # path is held layer by layer
+    out["bf16_b4"] = check_serving("rwkv-bf16", model16, prompts, 8, None,
+                                   counts)
+    out["bf16_layers"] = bf16_layers(model16, prompts)
+    # what bf16 alone does to the same prefill, kernels left out: the
+    # scale of the full-depth readings
+    with torch.no_grad(), runtime.use_impl("ref"):
+        out["bf16_rounding"] = err_ok(model16.prefill(prompts)[0],
+                                      model.prefill(prompts)[0], BF16_TOL)[0]
+    say("rwkv-bf16", "plain bf16 against plain fp32 (same weights rounded)"
+                     f", prefill logits: max_abs_err="
+                     f"{out['bf16_rounding']:.4g}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32": lm_rates(model, prompts),
+             "bf16": lm_rates(model16, prompts)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with runtime.use_impl("ref"):
+        rates["plain_fp32"] = lm_rates(model, prompts)
+    out.update(rates=rates, peak_memory_gib=peak_gb,
+               seconds=time.perf_counter() - t_phase)
+    say("throughput", "RWKV6-3B prefill tokens/s at B=4 x 512: " + ", ".join(
+        f"{k} {v[0]:.1f}" for k, v in rates.items()) + "; decode tokens/s "
+        "at B=4: " + ", ".join(f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
+        f"resident) | {smi}")
+    say("rwkv", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+def kernel_line(rows, name, key, launches, path):
+    """One kernel's entry of the kernels JSON line: its fp32 cases summed
+    over the calls of one ``key`` run (``fused``: a Swin-T forward,
+    ``prefill``: an RWKV6-3B prefill), each times its launches there."""
+    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "fp32"]
+    per = [r for r in mine if r[key]]
+
+    def total(k):
+        return sum(r[key] * r[k] for r in per)
+
+    b_ops = total("flops") / PEAK_FLOPS["fp32"]
+    b_bytes = total("bytes") / PEAK_BYTES
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "library_ms": (None if any(r["library_ms"] is None for r in per)
+                           else total("library_ms")),
+            "path": path}
+
+
+def rwkv_tables(rows):
+    """Per kernel, per RWKV6-3B prefill (B=4 x 512) and per decode step
+    (B=4), fp32 and bf16: launches and the summed event / plain / library
+    ms and bound of its cases. The bf16 model runs its recurrence in
+    fp32, so the bf16 tables have no wkv row: the fp32 one holds."""
+    out = {}
+    for key in ("prefill", "decode"):
+        for dt in ("fp32", "bf16"):
+            for name in REPLACES:
+                per = [r for r in rows if r["kernel"] == name and r[key]
+                       and r["dtype"] == dt]
+                if not per:
+                    continue
+
+                def total(k, per=per):
+                    if any(r[k] is None for r in per):
+                        return None
+                    return sum(r[key] * r[k] for r in per)
+
+                out[f"{key} {dt} {name}"] = {
+                    "launches": sum(r[key] for r in per),
+                    **{k: total(k) for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms")}}
+    for k, v in out.items():
+        say("rwkv-table", f"{k}: " + " ".join(
+            f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in v.items()))
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -480,6 +915,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.swin_t import CONFIG, VIT_CONFIG
     from repro_torch.core import runtime
     from repro_torch.kernels import _build
@@ -518,9 +954,17 @@ def main() -> int:
                      "fp32", FP32_TOL)
     rows += run_cases(swin_cases(CONFIG, 8, torch.bfloat16, gen, dev),
                       "bf16", BF16_TOL)
+    # the RWKV6-3B operands (~0.5 G normals) come from a CUDA generator
+    rwkv_cfg, gen = get_config("rwkv6-3b"), torch.Generator(
+        device=dev).manual_seed(3)
+    rows += run_cases(rwkv_cases(rwkv_cfg, torch.float32, gen, dev), "fp32",
+                      FP32_TOL)
+    rows += run_cases(rwkv_cases(rwkv_cfg, torch.bfloat16, gen, dev), "bf16",
+                      BF16_TOL)
     overheads = launch_overheads(dev)
     say("kernels", "host µs per call (wrapper / library): " + ", ".join(
-        f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in overheads.items()))
+        f"{k} {a:.1f} / " + ("none" if b is None else f"{b:.1f}")
+        for k, (a, b) in overheads.items()))
 
     # 4./5. full-width Swin-T, fused and unfused
     rng = np.random.default_rng(0)
@@ -532,12 +976,14 @@ def main() -> int:
         (8, CONFIG.img_size, CONFIG.img_size, 3)).astype(np.float32)).to(dev)
     fused, main_counts = check_forward(
         "swin-fused", model, images,
-        {"rowwise_matmul": 53, "flash_attention": 12, "layernorm": 1},
+        {"rowwise_matmul": 53, "flash_attention": 12, "layernorm": 1,
+         "wkv": 0},
         LOGIT_TOL)
     with runtime.use_pipeline_fusion(False):
         unfused, _ = check_forward(
             "swin-unfused", model, images,
-            {"rowwise_matmul": 53, "flash_attention": 0, "layernorm": 25},
+            {"rowwise_matmul": 53, "flash_attention": 0, "layernorm": 25,
+             "wkv": 0},
             LOGIT_TOL)
     err, ok = err_ok(unfused, fused, LOGIT_TOL)
     say("swin-unfused", f"against fused: max_abs_err={err:.4g}")
@@ -554,7 +1000,7 @@ def main() -> int:
         .astype(np.float32)).to(dev)
     check_forward("vit-b16", vit, vimages,
                   {"rowwise_matmul": 50, "flash_attention": 12,
-                   "layernorm": 1}, LOGIT_TOL)
+                   "layernorm": 1, "wkv": 0}, LOGIT_TOL)
 
     # 7. bf16 forward, then throughput at B=64
     model16 = SwinTransformer(CONFIG, device=dev, dtype=torch.bfloat16,
@@ -564,11 +1010,11 @@ def main() -> int:
     # bf16 kernel path against the bf16 plain path on the card
     check_forward("swin-bf16", model16, images.to(torch.bfloat16),
                   {"rowwise_matmul": 53, "flash_attention": 12,
-                   "layernorm": 1}, BF16_TOL)
+                   "layernorm": 1, "wkv": 0}, BF16_TOL)
     with runtime.use_pipeline_fusion(False):
         check_forward("swin-bf16-unfused", model16, images.to(torch.bfloat16),
                       {"rowwise_matmul": 53, "flash_attention": 0,
-                       "layernorm": 25}, BF16_TOL)
+                       "layernorm": 25, "wkv": 0}, BF16_TOL)
     big = torch.from_numpy(rng.standard_normal(
         (64, CONFIG.img_size, CONFIG.img_size, 3)).astype(np.float32)).to(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -582,35 +1028,36 @@ def main() -> int:
                       f"{thr['plain_fp32']:.1f}; peak memory {peak_gb:.2f} "
                       f"GiB | {smi}")
 
-    # 8. the kernels line and the result
-    kernels = []
-    for name in REPLACES:
-        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "fp32"]
-        per_fwd = [r for r in mine if r["fused"]]
+    # 8. RWKV6-3B at full width and depth
+    rwkv = rwkv_phase(smi)
+    tables = rwkv_tables(rows)
+    for key, counts in (("prefill", rwkv["fp32_b4"]["counts"]),
+                        ("decode", rwkv["fp32_b4"]["decode_counts"])):
+        listed = {name: tables.get(f"{key} fp32 {name}", {}).get(
+            "launches", 0) for name in REPLACES}
+        if listed != counts:
+            raise AssertionError(f"the {key} cases list {listed} launches, "
+                                 f"the model ran {counts}")
 
-        def total(key, rows_=per_fwd):
-            return sum(r["fused"] * r[key] for r in rows_)
-
-        b_ops = sum(r["fused"] * r["flops"] for r in per_fwd) / \
-            PEAK_FLOPS["fp32"] * 1e3
-        b_bytes = sum(r["fused"] * r["bytes"] for r in per_fwd) / \
-            PEAK_BYTES * 1e3
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": main_counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": total("library_ms")})
+    # 9. the kernels line and the result
+    swin = "one fused Swin-T forward, B=8, fp32"
+    kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
+               for name in ("rowwise_matmul", "flash_attention",
+                            "layernorm")]
+    kernels.append(kernel_line(rows, "wkv", "prefill",
+                               rwkv["fp32_b4"]["counts"]["wkv"],
+                               "one RWKV6-3B prefill, B=4 x 512, fp32"))
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps({"card": smi, "cases": rows,
                                "host_us_per_call": overheads,
                                "throughput_images_per_s": thr,
                                "peak_memory_gib": peak_gb,
+                               "rwkv": rwkv, "rwkv_tables": tables,
                                "kernels": kernels}, indent=1))
-    say("done", f"per-case details in {OUT.relative_to(ROOT)}; kernel ms "
-                "below are sums over one fused Swin-T forward at B=8, fp32")
+    say("done", f"{time.perf_counter() - t_start:.1f} s in all; "
+                f"per-case details in {OUT.relative_to(ROOT)}; kernel ms "
+                f"below are sums over {swin} (the wkv row: over one "
+                "RWKV6-3B prefill at B=4 x 512, fp32)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.configs.swin_t import SwinConfig, ViTConfig
 from repro_torch.core import runtime
+from repro_torch.core.types import ModelConfig
+from repro_torch.models.lm import padded_vocab
 
 
 def _tensor(leaf, device):
@@ -33,7 +35,39 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
+def _shape(leaf):
+    return tuple((leaf["q"] if isinstance(leaf, dict) else leaf).shape)
+
+
+def _check_lm(tree, cfg: ModelConfig):
+    """Layer count, width and padded vocab of an LM tree against cfg."""
+    d, vp = cfg.d_model, padded_vocab(cfg)
+    if _shape(tree["embed"]) != (vp, d):
+        raise ValueError(f"embed {_shape(tree['embed'])} does not fit "
+                         f"{cfg.name}: want {(vp, d)}")
+    if not cfg.tie_embeddings and _shape(tree["lm_head"]) != (d, vp):
+        raise ValueError(f"lm_head {_shape(tree['lm_head'])} does not fit "
+                         f"{cfg.name}: want {(d, vp)}")
+    stages = cfg.stages()
+    if len(tree["stages"]) != len(stages):
+        raise ValueError(f"tree has {len(tree['stages'])} stages; "
+                         f"{cfg.name} has {len(stages)}")
+    for si, (stage, sp) in enumerate(zip(stages, tree["stages"])):
+        for i, blk in enumerate(stage.body):
+            group = sp["shared" if blk.shared else "stacked"]
+            g = group[str(i)]["norm1"]["g"]
+            want = (d,) if blk.shared else (stage.repeat, d)
+            if tuple(g.shape) != want:
+                raise ValueError(f"stage {si} block {i}: norm1 "
+                                 f"{tuple(g.shape)}; {cfg.name} wants "
+                                 f"{want} ({cfg.n_layers} layers, d "
+                                 f"{d})")
+
+
 def _check(tree, cfg):
+    if isinstance(cfg, ModelConfig):
+        _check_lm(tree, cfg)
+        return
     if isinstance(cfg, SwinConfig):
         depths = tuple(len(s["blocks"]) for s in tree["stages"])
         merges = sum("merge" in s for s in tree["stages"])
@@ -45,7 +79,7 @@ def _check(tree, cfg):
             raise ValueError(f"tree has {len(tree['blocks'])} blocks; "
                              f"{cfg.name} wants {cfg.depth}")
     else:
-        raise TypeError(f"no vision config: {type(cfg).__name__}")
+        raise TypeError(f"no model config: {type(cfg).__name__}")
     if tree["patch_w"].shape != (cfg.patch * cfg.patch * cfg.in_chans,
                                  cfg.embed_dim):
         raise ValueError(f"patch_w {tuple(tree['patch_w'].shape)} does "
@@ -53,10 +87,16 @@ def _check(tree, cfg):
 
 
 def from_jax_params(tree, cfg, device="cuda"):
-    """The JAX package's Swin/ViT parameter tree (numpy leaves) as a tree
-    of tensors on ``device``. Keys the JAX initializer leaves out (the
-    last stage's ``merge``) stay out; ``None`` leaves (``norm_g`` and
-    ``norm_b`` before they are set) stay ``None``."""
+    """The JAX package's parameter tree (numpy leaves) as a tree of
+    tensors on ``device``, each leaf in its own dtype (the fp32 ``u`` and
+    ``w0`` of a bf16 RWKV6 tree stay fp32).
+
+    ``cfg`` a ``SwinConfig``/``ViTConfig``: the vision tree; keys the JAX
+    initializer leaves out (the last stage's ``merge``) stay out, and
+    ``None`` leaves (``norm_g``/``norm_b`` before they are set) stay
+    ``None``. ``cfg`` a ``ModelConfig``: the LM tree ``{"embed",
+    "stages": [{"stacked", "shared"}], "final_norm", "lm_head"}``,
+    checked for its layer count, d_model and padded vocab."""
     device = runtime.resolve_device(device)
     out = _convert(tree, device)
     _check(out, cfg)

@@ -32,6 +32,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+from repro_torch.kernels.wkv import wkv_p
 
 
 class NormSpec(NamedTuple):
@@ -134,6 +135,20 @@ def layernorm(x, gamma, beta=None, *, eps=1e-6, kind="layer",
     fn = ref.layernorm_ref if impl == "ref" else layernorm_p
     out = fn(x2, gamma, beta, eps=eps, kind=kind)
     return out.reshape(*lead, x.shape[-1])
+
+
+def wkv(r, k, v, lw, u, *, s0=None, chunk: int = 16,
+        impl: Optional[str] = None):
+    """RWKV6 recurrence -> (y, final state). Under ``use_impl("ref")``
+    or for CPU tensors the plain chunked scan ``rwkv6.wkv_chunked``; for
+    CUDA tensors the kernel, with or without a starting state ``s0``
+    (the JAX package takes its kernel only without ``s0``; here every
+    decode step runs on the kernel too)."""
+    impl = impl or runtime.resolve_impl()
+    if impl == "ref" or r.device.type == "cpu":
+        from repro_torch.models.rwkv6 import wkv_chunked
+        return wkv_chunked(r, k, v, lw, u, chunk=chunk, s0=s0)
+    return wkv_p(r, k, v, lw, u, s0=s0, chunk=chunk)
 
 
 def patch_embed(img, w, b=None, *, patch: int = 4,

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.swin_t import CONFIG, VIT_CONFIG, SwinConfig, ViTConfig
 from repro_torch.core import runtime
+from repro_torch.core.params import ParamTree
 from repro_torch.kernels import ops
 
 
@@ -327,41 +328,6 @@ def vit_forward(params, images, cfg: ViTConfig):
 # --------------------------- nn.Module wrappers ------------------------
 
 
-class _ParamTree(nn.Module):
-    """A parameter tree (dicts, lists, tensors, None) held as frozen
-    ``nn.Parameter``s, so ``.to()``/``state_dict()`` see every leaf;
-    :meth:`tree` gives the nested dicts back for the functional
-    forwards."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        self._keys = list(tree)
-        for key, value in tree.items():
-            if isinstance(value, torch.Tensor):
-                self.register_parameter(
-                    key, nn.Parameter(value, requires_grad=False))
-            elif isinstance(value, dict):
-                self.add_module(key, _ParamTree(value))
-            elif isinstance(value, list):
-                self.add_module(key, nn.ModuleList(
-                    _ParamTree(v) for v in value))
-            elif value is None:
-                self.register_parameter(key, None)
-            else:
-                raise TypeError(f"{key}: {type(value).__name__} leaf")
-
-    def tree(self) -> dict:
-        out = {}
-        for key in self._keys:
-            value = getattr(self, key)
-            if isinstance(value, _ParamTree):
-                value = value.tree()
-            elif isinstance(value, nn.ModuleList):
-                value = [v.tree() for v in value]
-            out[key] = value
-        return out
-
-
 class SwinTransformer(nn.Module):
     """Swin forward as a module. ``params``: a tree as ``init_swin`` or
     ``from_jax_params`` make it; by default a random one drawn from
@@ -375,7 +341,7 @@ class SwinTransformer(nn.Module):
             params = init_swin(cfg, generator or torch.Generator()
                                .manual_seed(0), device=device, dtype=dtype)
         self.cfg = cfg
-        self.params = _ParamTree(params)
+        self.params = ParamTree(params)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return swin_forward(self.params.tree(), images, self.cfg)
@@ -392,7 +358,7 @@ class VisionTransformer(nn.Module):
             params = init_vit(cfg, generator or torch.Generator()
                               .manual_seed(0), device=device, dtype=dtype)
         self.cfg = cfg
-        self.params = _ParamTree(params)
+        self.params = ParamTree(params)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return vit_forward(self.params.tree(), images, self.cfg)

@@ -7,18 +7,21 @@ out):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 fp32 tolerance 1e-4 against max(1, max|plain|): only the order of the
-fp32 sums differs.
+fp32 sums differs. bf16 WKV inputs: 3e-2, y is rounded to bf16 (8-bit
+mantissa) where the plain version keeps fp32.
 """
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
 from repro_torch.core import runtime
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
-from repro_torch.models import vision
+from repro_torch.kernels.wkv import wkv_p
+from repro_torch.models import lm, rwkv6, vision
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +112,68 @@ def test_swin_forward_on_kernels(dev, fuse):
         with runtime.use_impl("ref"):
             want = model(x)
     _close(got, want, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("shape", [(2, 45, 3, 16), (1, 7, 2, 64),
+                                   (4, 1, 40, 64), (1, 333, 4, 64),
+                                   (2, 17, 2, 32)], ids=str)
+def test_wkv_kernel(dev, shape, with_s0, dtype):
+    b, s, h, p = shape
+    g = torch.Generator(device="cpu").manual_seed(4)
+    r, k, v = (torch.randn(b, s, h, p, generator=g).to(dev, dtype)
+               for _ in range(3))
+    lw = torch.clamp(-torch.exp(2 * torch.randn(b, s, h, p, generator=g)),
+                     -rwkv6.CLAMP, -1e-6).to(dev, dtype)
+    u = torch.randn(h, p, generator=g).to(dev)
+    s0 = (torch.randn(b, h, p, p, generator=g).to(dev) if with_s0
+          else None)
+    before = wkv_p.launches
+    y, s_fin = wkv_p(r, k, v, lw, u, s0=s0)
+    assert wkv_p.launches == before + 1
+    assert y.dtype == dtype and s_fin.dtype == torch.float32
+    want_y, want_s = rwkv6.wkv_chunked(*(t.float() for t in (r, k, v, lw)),
+                                       u, s0=s0)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    _close(y, want_y, tol)
+    _close(s_fin, want_s, 1e-4)
+
+
+def test_rwkv_prefill_and_decode_on_kernels(dev):
+    """Reduced RWKV6 with its decay LoRA, token-shift mixes and ``w0``
+    spread (some channels clamp at -3.5, some at -1e-6): a ragged
+    prefill and three decode steps on the kernels against the plain
+    path on the card, teacher-forced on the same tokens."""
+    cfg = get_reduced("rwkv6-3b")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
+                             generator=g)
+    with torch.no_grad():
+        for blk in model.params.tree()["stages"][0]["stacked"].values():
+            tmix, ffn = blk["tmix"], blk["ffn"]
+            tmix["w0"].copy_(torch.rand(tmix["w0"].shape, generator=g) * 18
+                             - 16)
+            tmix["w_lora_b"].copy_(
+                0.1 * torch.randn(tmix["w_lora_b"].shape, generator=g))
+            for t in (tmix["mu"], ffn["mu_k"], ffn["mu_r"]):
+                t.copy_(torch.rand(t.shape, generator=g))
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
+    with torch.no_grad():
+        got, cache = model.prefill(toks[:, :21])
+        with runtime.use_impl("ref"):
+            want, want_cache = model.prefill(toks[:, :21])
+        _close(got, want, 1e-3)
+        lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
+        for t in range(21, 24):
+            before = wkv_p.launches
+            got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
+            assert wkv_p.launches == before + cfg.n_layers
+            with runtime.use_impl("ref"):
+                want, want_cache = model.decode_step(
+                    want_cache, toks[:, t:t + 1], lengths)
+            _close(got, want, 1e-3)
+            lengths = lengths + 1
+        _close(cache[0]["0"]["rwkv_t"]["wkv"],
+               want_cache[0]["0"]["rwkv_t"]["wkv"], 1e-3)

@@ -11,13 +11,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
 from repro_torch.core import runtime
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
-from repro_torch.models import vision
+from repro_torch.kernels.wkv import wkv_p
+from repro_torch.models import lm, vision
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -32,7 +34,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.models.vision, "
-        "repro_torch.kernels.ops, repro_torch.convert\n"
+        "repro_torch.kernels.ops, repro_torch.convert, "
+        "repro_torch.models.lm, repro_torch.models.rwkv6, "
+        "repro_torch.kernels.wkv\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -90,6 +94,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         runtime.resolve_device()
     assert vision.SwinTransformer(cfg, device="cpu")(
         torch.zeros(1, 56, 56, 3)).shape == (1, 10)
+    lcfg = get_reduced("rwkv6-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.LanguageModel(lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_lm(lcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(lcfg, 1)
+    model = lm.LanguageModel(lcfg, device="cpu")
+    assert model.greedy(torch.zeros(1, 3, dtype=torch.long), 2).shape == (
+        1, 2)
 
 
 def test_impl_switch_is_auto_or_ref():
@@ -118,17 +132,24 @@ def test_wrappers_refuse_what_no_kernel_takes():
         layernorm_p(x.to("meta"), torch.ones(8, device="meta"))
     with pytest.raises(ValueError, match="kind"):
         layernorm_p(x, torch.ones(8), kind="group")
+    r = torch.randn(1, 5, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))
 
 
 def test_cpu_path_builds_nothing():
-    before = (rowwise_matmul_p.launches, flash_attention_p.launches,
-              layernorm_p.launches)
+    def counts():
+        return (rowwise_matmul_p.launches, flash_attention_p.launches,
+                layernorm_p.launches, wkv_p.launches)
+
+    before = counts()
     rowwise_matmul_p(torch.randn(4, 8), torch.randn(8, 6))
     q = torch.randn(1, 2, 4, 16)
     flash_attention_p(q, q, q)
     layernorm_p(torch.randn(4, 8), torch.ones(8))
-    assert (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches) == before
+    r = -torch.rand(1, 5, 2, 16)
+    wkv_p(r, r, r, r, torch.ones(2, 16))
+    assert counts() == before
     assert _build.library.cache_info().currsize == 0
 
 
