@@ -7,12 +7,22 @@ its plain PyTorch version.
 Phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of ``src/repro_torch/csrc`` into ``build/repro_torch``;
+2. the build of ``src/repro_torch/csrc`` into ``build/repro_torch``:
+   registers and spills from ``ptxas.log``, and the count of tensor-core
+   instructions (``HGMMA`` / ``IGMMA`` / ``IMMA`` / ``HMMA``) in each
+   matmul kernel from ``cuobjdump -sass``;
 3. each kernel against its plain version at every distinct Swin-T shape
    and mode (B=8), in fp32 and in bf16, plus a gated matmul and an
    LM-style attention (causal + window + GQA + q_offset): error beside
    its tolerance, kernel / plain / library ms (CUDA events, after
-   warm-up), and the bound;
+   warm-up; calls of M <= 16 rows rotate copies of their weights past
+   the 50 MB L2, so each reads its weights from HBM as the model does),
+   the bound, and the matmul design the call took (skinny, wgmma or
+   ffma); then the int8 W8A8 leg at every distinct Swin-T matmul shape
+   and at RWKV6-3B's widths at M=2048 and M=4, held against the exact
+   plain version (float64 products on the card), ``torch._int_mm`` as
+   its library yardstick where that takes the shape; host µs per
+   wrapper call;
 4. full-width Swin-T, fused, B=8 fp32: kernel path against
    ``use_impl("ref")`` on the card, launch counts 53 / 12 / 1;
 5. the same unfused: counts 53 / 0 / 25, and agreement with fused;
@@ -28,8 +38,15 @@ Phases, each printing its lines:
    fp32 (beside a control in float8_e5m2), and at full depth as readings
    (and, for scale, the plain bf16 prefill against the plain fp32 one);
    prefill and decode tokens/s;
-9. one JSON line of the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+   (B=8), as often as a fused forward runs each (53 launches, counted),
+   and its device time by matmul design (profiler);
+10. the matmul per design and dtype, summed over a Swin-T forward, an
+   RWKV6-3B prefill and a decode step (``design-table`` lines); one JSON
+   line of the kernels (the int8 leg a row of its own), then the last
+   line ``{"ok": true, "device": {...}}``. Before the tables: the skinny
+   design against the M > 16 design of each dtype at M = 4 .. 16
+   (``threshold`` line, device µs from the profiler).
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -76,9 +93,15 @@ BF16_TOL = 3e-2
 # float8_e5m2 (2 mantissa bits) (PERF.md, PR 12 findings).
 BF16_LAYER_TOL = 1.5e-2
 
+# int8 W8A8 kernel against the plain version on the same int8 inputs:
+# the int32 sums are exact on both sides (the plain version multiplies
+# in float64 on the card, exact below 2^53), so only the fp32 dequant
+# and activation differ, by a few ulps.
+INT8_TOL = 1e-5
+
 # H100 SXM peaks (NVIDIA's data sheet, dense): fp32 off the tensor cores,
-# bf16 on them, and the device memory rate.
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# bf16 and int8 on them, and the device memory rate.
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 REPLACES = {
@@ -88,6 +111,10 @@ REPLACES = {
     "wkv": "src/repro/kernels/wkv.py:66",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+# calls of at most this many rows are timed with their weights cold in
+# L2: copies rotated past the 50 MB L2
+COLD_M = 16
+COLD_BYTES = 120e6
 
 
 def say(phase, msg):
@@ -142,6 +169,8 @@ def launch_overheads(device):
 
     x, w, b = (torch.randn(*s, device=device) for s in
                ((64, 64), (64, 64), (64,)))
+    xb, wb, bb = (t.to(torch.bfloat16) for t in (x, w, b))
+    x4 = x[:4]
     q = torch.randn(1, 1, 64, 32, device=device)
     r = -torch.rand(1, 16, 1, 64, device=device)
     return {
@@ -150,12 +179,44 @@ def launch_overheads(device):
         "rowwise_matmul": (host_us(lambda: rowwise_matmul_p(
             x, w, bias=b, residual=x)), host_us(
             lambda: torch.addmm(b, x, w) + x)),
+        # the wgmma design encodes its TMA maps per call
+        "rowwise_matmul wgmma bf16": (host_us(lambda: rowwise_matmul_p(
+            xb, wb, bias=bb, residual=xb)), host_us(
+            lambda: torch.addmm(bb, xb, wb) + xb)),
+        # the skinny design allocates its split-K workspace per call
+        "rowwise_matmul skinny M=4": (host_us(lambda: rowwise_matmul_p(
+            x4, w, bias=b, residual=x4)), host_us(
+            lambda: torch.addmm(b, x4, w) + x4)),
         "flash_attention": (host_us(lambda: flash_attention_p(
             q, q, q, causal=False)), host_us(
             lambda: F.scaled_dot_product_attention(q, q, q))),
         "layernorm": (host_us(lambda: layernorm_p(x, b, b)), host_us(
             lambda: F.layer_norm(x, (64,), b, b, 1e-6))),
     }
+
+
+def tensor_core_counts(library):
+    """Tensor-core instructions (``HGMMA``, ``IGMMA``, ``QGMMA``, ``HMMA``,
+    ``IMMA``) in each matmul kernel of the library, from
+    ``cuobjdump -sass``, keyed by the kernel's mangled name from its stem
+    ``rowwise_matmul_kernel`` on."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : \S*?(rowwise_matmul_kernel\w*?)E*v",
+                          line)
+        if "Function :" in line:
+            name = found.group(1) if found else None
+            if name:
+                counts[name] = {}
+            continue
+        op = re.search(r"\b(HGMMA|IGMMA|QGMMA|HMMA|IMMA)\b", line)
+        if name and op:
+            counts[name][op.group(1)] = counts[name].get(op.group(1), 0) + 1
+    return counts
 
 
 def bound(flops, nbytes, dtype_name):
@@ -204,6 +265,7 @@ class Case:
         # launches per Swin-T forward (fused, unfused) and per RWKV6-3B
         # prefill at B=4 x 512 and decode step at B=4
         self.counts = {k: counts.get(k, 0) for k in COUNTS}
+        self.op = None
 
 
 def _rand(gen, shape, dtype, device, scale=1.0):
@@ -216,57 +278,98 @@ def _rand(gen, shape, dtype, device, scale=1.0):
 def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
                 norm=None, beta=True, residual=False, gated=False,
                 out_f32=False, **counts):
+    """One matmul call. int8: W8A8 operands (x and w int8 from the
+    quantizers, fp32 scales and vectors); its plain version multiplies
+    in float64, exact. M <= COLD_M: the kernel, plain and library calls
+    each take the next of enough weight copies to pass the L2."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
+    from repro_torch.core import quant
     from repro_torch.kernels import ref
     from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 
-    x = _rand(gen, (m, k), dtype, device)
-    w = _rand(gen, (k, n), dtype, device, k ** -0.5)
-    wg = _rand(gen, (k, n), dtype, device, k ** -0.5) if gated else None
-    b = _rand(gen, (n,), dtype, device, 0.1) if bias else None
-    bg = _rand(gen, (n,), dtype, device, 0.1) if gated and bias else None
-    res = _rand(gen, (m, n), dtype, device) if residual else None
-    g = (1 + _rand(gen, (k,), dtype, device, 0.1)) if norm else None
-    be = _rand(gen, (k,), dtype, device, 0.1) if norm and beta else None
-    out_dtype = torch.float32 if out_f32 else dtype
-    ops = dict(bias=b, activation=act, w_gate=wg, bias_gate=bg, residual=res)
+    int8 = dtype == torch.int8
+    vec = torch.float32 if int8 else dtype
+    x = _rand(gen, (m, k), vec, device)
+    w = _rand(gen, (k, n), vec, device, k ** -0.5)
+    wg = _rand(gen, (k, n), vec, device, k ** -0.5) if gated else None
+    b = _rand(gen, (n,), vec, device, 0.1) if bias else None
+    bg = _rand(gen, (n,), vec, device, 0.1) if gated and bias else None
+    res = _rand(gen, (m, n), vec, device) if residual else None
+    g = (1 + _rand(gen, (k,), vec, device, 0.1)) if norm else None
+    be = _rand(gen, (k,), vec, device, 0.1) if norm and beta else None
+    out_dtype = torch.float32 if out_f32 or int8 else dtype
+    scales = {}
+    if int8:
+        x, scales["x_scale"] = quant.quantize_per_row(x)
+        w, scales["w_scale"] = quant.quantize_per_channel(w)
+        if gated:
+            wg, scales["wg_scale"] = quant.quantize_per_channel(wg)
+    ops = dict(bias=b, activation=act, bias_gate=bg, residual=res, **scales)
+    weights = [(w, wg)]
+    if m <= COLD_M:
+        size = sum(t.numel() * t.element_size() for t in (w, wg)
+                   if t is not None)
+        weights += [tuple(None if t is None else t.clone() for t in (w, wg))
+                    for _ in range(int(-(-COLD_BYTES // size)) - 1)]
+    turn = itertools.cycle(weights)
 
-    def plain_on(cast):
+    def plain_on(cast, rotate):
         c = (lambda t: None if t is None else t.to(cast)) if cast else (
             lambda t: t)
-        return lambda: ref.pipeline_ref(
-            c(x), c(w), **{key: c(v) if isinstance(v, torch.Tensor) else v
-                           for key, v in ops.items()},
-            norm_kind=norm, gamma=c(g), beta=c(be),
-            out_dtype=cast or out_dtype)
+
+        def run():
+            wt, wgt = next(turn) if rotate else weights[0]
+            return ref.pipeline_ref(
+                c(x), c(wt), w_gate=c(wgt),
+                **{key: c(v) if isinstance(v, torch.Tensor)
+                   and v.is_floating_point() and key not in scales else v
+                   for key, v in ops.items()},
+                norm_kind=norm, gamma=c(g), beta=c(be),
+                out_dtype=cast or out_dtype)
+        return run
 
     act_fn = ref.ACTIVATIONS[act]
 
     def library():
+        wt, wgt = next(turn)
+        if int8:
+            return torch._int_mm(x, wt)
         xin = x
         if norm == "layer":
             xin = F.layer_norm(x, (k,), g, be, 1e-6)
         elif norm == "rms":
             xin = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * g
             xin = xin + be if be is not None else xin
-        h = torch.addmm(b, xin, w) if b is not None else xin @ w
+        h = torch.addmm(b, xin, wt) if b is not None else xin @ wt
         if gated:
-            gg = torch.addmm(bg, xin, wg) if bg is not None else xin @ wg
+            gg = torch.addmm(bg, xin, wgt) if bg is not None else xin @ wgt
             h = act_fn(gg) * h
         else:
             h = act_fn(h)
         return h + res if res is not None else h
 
-    return Case(
-        "rowwise_matmul", f"{name} M={m} K={k} N={n}",
-        lambda: rowwise_matmul_p(x, w, **ops, prologue=norm, gamma=g,
-                                 pbeta=be, out_dtype=out_dtype),
-        plain_on(None),
-        plain_on(torch.float32 if dtype != torch.float32 else None),
-        library, 2 * m * n * k * (2 if gated else 1),
-        nbytes(x, w, wg, b, bg, res, g, be, out=(m * n, out_dtype)),
+    # torch._int_mm, the int8 yardstick (the product alone), takes
+    # M > 16 and K, N multiples of 8
+    has_library = not int8 or (m > 16 and k % 8 == 0 and n % 8 == 0)
+
+    def run():
+        wt, wgt = next(turn)
+        return rowwise_matmul_p(x, wt, w_gate=wgt, **ops, prologue=norm,
+                                gamma=g, pbeta=be, out_dtype=out_dtype)
+
+    case = Case(
+        "rowwise_matmul", f"{name} M={m} K={k} N={n}", run,
+        plain_on(None, True),
+        plain_on(torch.float32 if dtype == torch.bfloat16 else None, False),
+        library if has_library else None, 2 * m * n * k * (2 if gated else 1),
+        nbytes(x, w, wg, b, bg, res, g, be, *scales.values(),
+               out=(m * n, out_dtype)),
         **counts)
+    case.op = dict(x=x, w=w, wg=wg, ops=ops, out_dtype=out_dtype)
+    return case
 
 
 def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
@@ -495,7 +598,143 @@ def rwkv_cases(cfg, dtype, gen, device):
     return cases
 
 
+def int8_cases(cfg, rwkv_cfg, batch, gen, device):
+    """The int8 W8A8 leg at every distinct Swin-T matmul shape (B=8, with
+    its launches per fused forward, which the int8 path replays) and at
+    RWKV6-3B's matmul widths at M=2048 and M=4, plus a gated call."""
+    import torch
+    i8 = torch.int8
+    res, c = cfg.img_size // cfg.patch, cfg.embed_dim
+    cases = [matmul_case("int8 patch", batch * res * res,
+                         cfg.patch ** 2 * cfg.in_chans, c, i8, gen, device,
+                         fused=1)]
+    for si, depth in enumerate(cfg.depths):
+        m, s = batch * res * res, f"int8 s{si + 1}"
+        cases += [
+            matmul_case(f"{s}.qkv", m, c, 3 * c, i8, gen, device,
+                        fused=depth),
+            matmul_case(f"{s}.proj+res", m, c, c, i8, gen, device,
+                        residual=True, fused=depth),
+            matmul_case(f"{s}.mlp1+gelu", m, c, 4 * c, i8, gen, device,
+                        act="gelu", fused=depth),
+            matmul_case(f"{s}.mlp2+res", m, 4 * c, c, i8, gen, device,
+                        residual=True, fused=depth),
+        ]
+        if si < len(cfg.depths) - 1:
+            cases.append(matmul_case(f"{s}.merge", m // 4, 4 * c, 2 * c, i8,
+                                     gen, device, bias=False, fused=1))
+            res, c = res // 2, c * 2
+    cases += [
+        matmul_case("int8 head", batch, c, cfg.num_classes, i8, gen, device,
+                    fused=1),
+        matmul_case("int8 gated+silu", 1024, 384, 1536, i8, gen, device,
+                    act="silu", gated=True),
+    ]
+    d, f, lora = rwkv_cfg.d_model, rwkv_cfg.d_ff, rwkv_cfg.rwkv.decay_lora
+    rgen = torch.Generator(device=device).manual_seed(4)
+    for m in (4 * 512, 4):
+        cases += [
+            matmul_case(f"int8 rwkv d x d M={m}", m, d, d, i8, rgen, device,
+                        bias=False),
+            matmul_case(f"int8 rwkv lora_a M={m}", m, d, lora, i8, rgen,
+                        device, bias=False),
+            matmul_case(f"int8 rwkv lora_b M={m}", m, lora, d, i8, rgen,
+                        device, bias=False),
+            matmul_case(f"int8 rwkv cmix wk+relu2 M={m}", m, d, f, i8, rgen,
+                        device, bias=False, act="relu2"),
+            matmul_case(f"int8 rwkv cmix wv M={m}", m, f, d, i8, rgen,
+                        device, bias=False),
+        ]
+    cases.append(matmul_case("int8 rwkv lm_head", 4, d, rwkv_cfg.vocab, i8,
+                             rgen, device, bias=False))
+    return cases
+
+
+def threshold_readings(device):
+    """Device µs per call of the skinny design against the M > 16 design
+    of each dtype (wgmma for bf16, ffma for fp32) at M = 4 .. 16, at the
+    RWKV6-3B d x d shape with its weights cold in L2: the measurement
+    behind ``SKINNY_PICK_M``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import rowwise_matmul as rm
+    out = {}
+    for dt, other in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+        ws = [(torch.randn(2560, 2560, device=device) * 0.02).to(dt)
+              for _ in range(int(-(-COLD_BYTES // (2560 * 2560 * 2))) + 1)]
+        pick = rm.SKINNY_PICK_M[dt]
+        for m in (4, 8, 12, 16):
+            x = torch.randn(m, 2560, device=device).to(dt)
+            # the picker's threshold moved so that M takes each design
+            for design, upto in (("skinny", 16), (other, 0)):
+                def run():
+                    for w in ws:
+                        rm.rowwise_matmul_p(x, w)
+                rm.SKINNY_PICK_M[dt] = upto
+                try:
+                    run()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(5):
+                            run()
+                        torch.cuda.synchronize()
+                finally:
+                    rm.SKINNY_PICK_M[dt] = pick
+                us = sum(getattr(e, "self_device_time_total", 0.0)
+                         for e in prof.key_averages()
+                         if "rowwise_matmul_kernel" in e.key)
+                out[f"{dt} M={m} {design}"] = us / (5 * len(ws))
+    say("threshold", "device µs per call, M x 2560 x 2560, weights cold: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def int8_path(cases):
+    """``ops.matmul_int8`` at every Swin-T matmul shape, each as often as
+    a fused forward runs it, with the launch counts set to 0 just before
+    and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    swin = [c for c in cases if c.counts["fused"]]
+
+    def drive():
+        outs = []
+        for case in swin:
+            o, kw = case.op, case.op["ops"]
+            for _ in range(case.counts["fused"]):
+                outs.append(ops.matmul_int8(
+                    o["x"], o["w"], kw["x_scale"], kw["w_scale"],
+                    bias=kw["bias"], activation=kw["activation"],
+                    residual=kw["residual"]))
+        return outs
+    outs, counts = counted(drive)
+    want = {"rowwise_matmul": sum(c.counts["fused"] for c in swin),
+            "flash_attention": 0, "layernorm": 0, "wkv": 0}
+    finite = all(torch.isfinite(o).all().item() for o in outs)
+    # the path's device time by matmul design, from the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drive()
+        torch.cuda.synchronize()
+    device_ms = {}
+    for evt in prof.key_averages():
+        if "rowwise_matmul_kernel" in evt.key:
+            design = ("skinny" if "skinny" in evt.key else
+                      "wgmma" if "wgmma" in evt.key else "ffma")
+            device_ms[design] = device_ms.get(design, 0.0) + getattr(
+                evt, "self_device_time_total",
+                getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+    say("int8-path", f"ops.matmul_int8 at every Swin-T matmul shape, B=8: "
+                     f"launches {counts}, outputs finite: {finite}, device "
+                     "ms by design " + ", ".join(
+                         f"{k} {v:.4f}" for k, v in device_ms.items()))
+    if counts != want or not finite:
+        raise AssertionError(f"int8 path: launches {counts}, want {want}")
+    return counts, device_ms
+
+
 def run_cases(cases, dtype_name, tol, timed=True):
+    from repro_torch.kernels.rowwise_matmul import pick_design
     rows = []
     for case in cases:
         out, want = case.run(), case.check()
@@ -505,6 +744,9 @@ def run_cases(cases, dtype_name, tol, timed=True):
         err, ok = max(e for e, _ in errs), all(o for _, o in errs)
         row = {"kernel": case.kernel, "case": case.name, "dtype": dtype_name,
                **case.counts, "max_abs_err": err, "tol": tol}
+        if case.kernel == "rowwise_matmul":
+            row["design"] = pick_design(case.op["x"].shape[0],
+                                        case.op["x"].dtype)
         if len(errs) > 1:
             row["errs"] = [e for e, _ in errs]
         b_ms, b_by = bound(case.flops, case.nbytes, dtype_name)
@@ -515,7 +757,8 @@ def run_cases(cases, dtype_name, tol, timed=True):
                        library_ms=(cuda_time(case.library) if case.library
                                    else None))
         say("kernels", " ".join(
-            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            f"{k}={v:.4g}" if isinstance(v, float) else
+            f"{k}={'none' if v is None else v}"
             for k, v in row.items() if k not in ("flops", "bytes", "tol")))
         if not ok:
             raise AssertionError(f"{case.kernel} {case.name} {dtype_name}: "
@@ -853,19 +1096,21 @@ def rwkv_phase(smi):
     return out
 
 
-def kernel_line(rows, name, key, launches, path):
-    """One kernel's entry of the kernels JSON line: its fp32 cases summed
-    over the calls of one ``key`` run (``fused``: a Swin-T forward,
+def kernel_line(rows, name, key, launches, path, dtype="fp32",
+                label=None, source=None):
+    """One kernel's entry of the kernels JSON line: its ``dtype`` cases
+    summed over the calls of one ``key`` run (``fused``: a Swin-T forward,
     ``prefill``: an RWKV6-3B prefill), each times its launches there."""
-    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "fp32"]
+    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype]
     per = [r for r in mine if r[key]]
 
     def total(k):
         return sum(r[key] * r[k] for r in per)
 
-    b_ops = total("flops") / PEAK_FLOPS["fp32"]
+    b_ops = total("flops") / PEAK_FLOPS[dtype]
     b_bytes = total("bytes") / PEAK_BYTES
-    return {"name": name, "route": "cuda", "source": SOURCES[name],
+    return {"name": label or name, "route": "cuda",
+            "source": source or SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
@@ -874,6 +1119,38 @@ def kernel_line(rows, name, key, launches, path):
             "library_ms": (None if any(r["library_ms"] is None for r in per)
                            else total("library_ms")),
             "path": path}
+
+
+def design_tables(rows):
+    """The matmul per design, per dtype, summed over one run of each
+    path (``fused``: a Swin-T forward at B=8, ``prefill`` / ``decode``:
+    an RWKV6-3B prefill at B=4 x 512 / decode step at B=4; the int8
+    cases over their Swin-T shapes, as the int8 path runs them): launches
+    and event / plain / library ms and the bound, each case times its
+    launches."""
+    out = {}
+    for key in ("fused", "prefill", "decode"):
+        for dt in ("fp32", "bf16", "int8"):
+            for design in ("skinny", "wgmma", "ffma"):
+                per = [r for r in rows if r["kernel"] == "rowwise_matmul"
+                       and r[key] and r["dtype"] == dt
+                       and r.get("design") == design]
+                if not per:
+                    continue
+
+                def total(k, per=per):
+                    if any(r[k] is None for r in per):
+                        return None
+                    return sum(r[key] * r[k] for r in per)
+                out[f"{key} {dt} {design}"] = {
+                    "launches": sum(r[key] for r in per),
+                    **{k: total(k) for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "flops", "bytes")}}
+    for k, v in out.items():
+        say("design-table", f"{k}: " + " ".join(
+            f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
+            for a, b in v.items()))
+    return out
 
 
 def rwkv_tables(rows):
@@ -938,15 +1215,33 @@ def main() -> int:
     _build.build()
     _build.library()
     log = (_build.BUILD_DIR / "ptxas.log").read_text()
-    spills = [m for m in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        if m != ("0", "0")]
+    spills, fn = [], None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        fn = found.group(1) if found else fn
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found and found.groups() != ("0", "0"):
+            spills.append((fn, *found.groups()))
     regs = [int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
             if "Used " in ln and " registers" in ln]
     say("build", f"{_build.LIBRARY.relative_to(ROOT)} in "
                  f"{time.perf_counter() - t0:.1f} s; {len(regs)} kernels, "
                  f"max {max(regs, default=0)} registers, "
                  f"{len(spills)} with spills")
+    mma = tensor_core_counts(_build.LIBRARY)
+    for kernel, ops_ in mma.items():
+        say("build", f"tensor-core instructions in {kernel}: "
+                     + (", ".join(f"{k} {v}" for k, v in ops_.items())
+                        or "none (CUDA cores)"))
+    # held at the end, so that a run with a spilling kernel still reports
+    # every phase
+    build_faults = [f"kernels spill registers: {spills}"] if spills else []
+    if not all(mma[k] for k in mma if "wgmma" in k):
+        build_faults.append("a wgmma kernel holds no tensor-core "
+                            "instruction")
+    for fault in build_faults:
+        say("build", f"FAULT: {fault}")
 
     # 3. each kernel against its plain version
     gen = torch.Generator().manual_seed(0)
@@ -961,9 +1256,15 @@ def main() -> int:
                       FP32_TOL)
     rows += run_cases(rwkv_cases(rwkv_cfg, torch.bfloat16, gen, dev), "bf16",
                       BF16_TOL)
+    i8_cases = int8_cases(CONFIG, rwkv_cfg, 8, torch.Generator().manual_seed(5),
+                          dev)
+    rows += run_cases(i8_cases, "int8", INT8_TOL)
     overheads = launch_overheads(dev)
+    # the host's speed varies from machine to machine; the ratio to the
+    # library call is the steadier reading
     say("kernels", "host µs per call (wrapper / library): " + ", ".join(
-        f"{k} {a:.1f} / " + ("none" if b is None else f"{b:.1f}")
+        f"{k} {a:.1f} / " + ("none" if b is None else f"{b:.1f} "
+                             f"({a / b:.2f}x)")
         for k, (a, b) in overheads.items()))
 
     # 4./5. full-width Swin-T, fused and unfused
@@ -1039,7 +1340,12 @@ def main() -> int:
             raise AssertionError(f"the {key} cases list {listed} launches, "
                                  f"the model ran {counts}")
 
-    # 9. the kernels line and the result
+    # 9. the int8 path
+    i8_counts, i8_device_ms = int8_path(i8_cases)
+    threshold = threshold_readings(dev)
+    designs = design_tables(rows)
+
+    # 10. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention",
@@ -1047,13 +1353,24 @@ def main() -> int:
     kernels.append(kernel_line(rows, "wkv", "prefill",
                                rwkv["fp32_b4"]["counts"]["wkv"],
                                "one RWKV6-3B prefill, B=4 x 512, fp32"))
+    kernels.append(kernel_line(
+        rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
+        "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
+        label="rowwise_matmul int8 W8A8",
+        source="src/repro_torch/csrc/rowwise_matmul_wgmma.cu"))
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps({"card": smi, "cases": rows,
                                "host_us_per_call": overheads,
+                               "tensor_core_instructions": mma,
                                "throughput_images_per_s": thr,
                                "peak_memory_gib": peak_gb,
                                "rwkv": rwkv, "rwkv_tables": tables,
+                               "design_tables": designs,
+                               "int8_path_device_ms": i8_device_ms,
+                               "skinny_threshold_us": threshold,
                                "kernels": kernels}, indent=1))
+    if build_faults:
+        raise AssertionError("; ".join(build_faults))
     say("done", f"{time.perf_counter() - t_start:.1f} s in all; "
                 f"per-case details in {OUT.relative_to(ROOT)}; kernel ms "
                 f"below are sums over {swin} (the wkv row: over one "

@@ -4,7 +4,8 @@
 // true K. It is the counterpart of rownorm in the JAX package
 // (src/repro/kernels/layernorm.py), which the TPU shares between the
 // standalone norm kernel and the matmul kernel's norm prologue; here too
-// both kernels call the same two functions: row_stats, then normalize.
+// both kernels call the same two functions: row_stats (or
+// row_stats_rows, several rows at once), then normalize.
 //
 // activate: the five epilogue activations of the row-wise matmul
 // (_ACTIVATIONS in src/repro/kernels/rowwise_matmul.py), GELU in its
@@ -16,7 +17,7 @@
 
 namespace rk {
 
-enum DType { F32 = 0, BF16 = 1 };
+enum DType { F32 = 0, BF16 = 1, I8 = 2 };
 enum Norm { NORM_NONE = 0, NORM_LAYER = 1, NORM_RMS = 2 };
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2, ACT_RELU = 3,
            ACT_RELU2 = 4 };
@@ -74,12 +75,53 @@ __device__ RowStats row_stats(const T* row, int k, int kind, float eps) {
   return {mean, rsqrtf(var + eps)};
 }
 
-// One normalized element i of a row: (x - mean) * rstd * gamma (+ beta).
-__device__ __forceinline__ float normalize(float x, RowStats s,
-                                           const float* gamma,
-                                           const float* beta, int i) {
-  const float y = (x - s.mean) * s.rstd * gamma[i];
-  return beta ? y + beta[i] : y;
+// The statistics of R rows at once, rows row0 .. row0 + R - 1 of x (row
+// stride ldx; those at or past m are skipped), by one whole warp: the
+// same sums in the same order as row_stats, row by row, but with the R
+// rows' loads interleaved so that their latencies overlap. Lane 0 writes
+// out[0 .. R-1].
+template <int R, typename T>
+__device__ void row_stats_rows(const T* x, long long ldx, int row0, int m,
+                               int k, int kind, float eps, RowStats* out) {
+  const int lane = threadIdx.x & 31;
+  float mean[R], q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mean[r] = q[r] = 0.f;
+  if (kind == NORM_LAYER) {
+    for (int i = lane; i < k; i += 32)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (row0 + r < m) mean[r] += to_f32(x[(row0 + r) * ldx + i]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) mean[r] = warp_sum(mean[r]) / k;
+  }
+  for (int i = lane; i < k; i += 32)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (row0 + r < m) {
+        const float c = to_f32(x[(row0 + r) * ldx + i]) - mean[r];
+        q[r] += c * c;
+      }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float var = warp_sum(q[r]) / k;
+    if (lane == 0 && row0 + r < m) out[r] = {mean[r], rsqrtf(var + eps)};
+  }
+}
+
+// Element i of a vector stored in fp32 (f32 true) or bf16: the kernels
+// read biases and norm gains in the dtype the caller keeps them in.
+__device__ __forceinline__ float vec_at(const void* v, long long i,
+                                        bool f32) {
+  return f32 ? static_cast<const float*>(v)[i]
+             : __bfloat162float(static_cast<const __nv_bfloat16*>(v)[i]);
+}
+
+// One normalized element of a row: (x - mean) * rstd * gamma + beta
+// (beta 0 where there is none).
+__device__ __forceinline__ float normalize(float x, RowStats s, float gamma,
+                                           float beta) {
+  return (x - s.mean) * s.rstd * gamma + beta;
 }
 
 __device__ __forceinline__ float activate(float x, int act) {

@@ -1,196 +1,215 @@
-// Row-wise matmul with the fused sublayer pipeline, for Hopper.
+// Row-wise matmul with the fused sublayer pipeline, for Hopper: the C
+// entry point, and the fp32 design for M > 16.
 //
 // Replaces the TPU kernel rowwise_matmul_p
 // (src/repro/kernels/rowwise_matmul.py: body _pipeline_kernel, epilogue
-// _apply_epilogue), float modes: optional LayerNorm/RMSNorm prologue,
-// x(M,K) @ w(K,N) accumulated in fp32, then bias -> activation (or the
-// gated act(x@wg + bg) * (x@w + b)) -> residual -> cast to the output
-// dtype. The int8 mode is not ported yet (the Python wrapper raises).
+// _apply_epilogue), every mode: optional LayerNorm/RMSNorm prologue,
+// x(M,K) @ w(K,N) accumulated in fp32 (int32 for int8 W8A8), then int8
+// dequant -> bias -> activation (or the gated act(x@wg + bg) *
+// (x@w + b)) -> residual -> cast to the output dtype. The wrapper
+// (kernels/rowwise_matmul.py) picks one of three designs by M and dtype
+// (rowwise_matmul.cuh); each call is one launch.
 //
-// Design, against what the TPU kernel relied on:
+// What all three do against what the TPU kernel relied on:
 //  * The TPU carried the accumulator across its innermost k grid axis.
-//    Here one block owns a 64 x 64 output tile and loops over the
-//    whole K itself, so the epilogue runs once after the loop and no
-//    block ever needs another's partial sums.
-//  * The TPU norm prologue held a full-K row panel in VMEM. A block's
-//    shared memory cannot hold 64 rows of K=768 fp32 beside its tiles,
-//    so the block first takes each of its rows' statistics in fp32
-//    (rk::row_stats, one warp per row, reading the rows through L2),
-//    then normalizes every x element as its tile enters shared memory,
-//    rounding it to the streaming dtype before the dot as the TPU did.
-//    There is no K above which the prologue cannot run.
+//    Here a block loops over K itself (ffma, wgmma), or the K splits of
+//    a column tile are summed by the last block to finish, in a fixed
+//    order (skinny), so the epilogue runs once per element.
+//  * The TPU norm prologue held a full-K row panel in VMEM. Here a
+//    block first takes its rows' statistics in fp32 (rk::row_stats, one
+//    warp per row, rows read through L2), then normalizes each x
+//    element as its tile enters shared memory, rounding it to the
+//    streaming dtype before the dot as the TPU did. No K limit.
 //  * The TPU padded ragged shapes in HBM. Here every load and store is
 //    masked at the edge (K=48 patch-embed, N=1000 head, M=49B rows).
 //  * Operands are read with their row strides, so the halves of a
 //    pre-fused [wg | wi] panel need no copy.
 //
-// Bound: operations at Swin-T's shapes (the products run on the CUDA
-// cores in fp32 FFMA, also for bf16 inputs, which keeps fp32 parity:
-// no TF32). Each thread holds a 4 x 4 (x2 when gated) accumulator tile
-// in registers and reads 8 operands from shared memory per 16 FMAs.
-// The global loads are not double-buffered; the small tile's few
-// registers let several blocks share an SM and hide their latency (a
-// 128 x 128 tile with 8 x 8 per thread runs slower on the H100 at 2
-// blocks per SM, see PERF.md). wgmma/TMA pipelines and split-K are
-// later work.
-#include "common.cuh"
+// The ffma design (fp32, M > 16). Bound: operations, on the CUDA cores
+// (67 TFLOP/s): the products stay exact fp32 FFMA, no TF32, so fp32
+// parity holds at 1e-4. A block owns a 64 x 64 output tile, each of its
+// 256 threads 4 x 4 outputs (x 2 gated, with two accumulators) in
+// registers, read from shared memory as float4s. The next 16-deep k
+// tile is loaded into registers while the current one is multiplied
+// from shared memory, then stored into the other of two shared buffers:
+// one barrier per k tile. Three blocks share an SM (two gated), so one
+// block's fill and epilogue overlap the others' products. A 128 x 128
+// tile (8 x 8 a thread, one block per SM) measured no faster at
+// RWKV6-3B's prefill shapes and slower at Swin-T's, where its grids
+// leave SMs idle (PERF.md, the matmul's findings).
+#include "rowwise_matmul.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int TM = 4, TN = 4;
+constexpr int FT = 64, FK = 16, FTHREADS = 256;  // tile, k tile, threads
 
-struct MatmulArgs {
-  const void* x;
-  const void* w;
-  const void* wg;
-  const float* bias;
-  const float* bias_g;
-  const void* res;
-  const float* gamma;
-  const float* beta;
-  void* out;
-  long long ldx, ldw, ldwg, ldres, ldout;
-  int m, n, k, norm, act, res_f32, out_f32;
-  float eps;
+struct F4 {
+  float v[4];
 };
 
-// A BM x BN output tile per block; thread (ty, tx) of 16 x 16 owns rows
-// ty + 16 i and columns tx + 16 j, so reads of a shared tile row are
-// conflict-free and stores coalesce in runs of 16.
-template <typename T, bool GATED>
-__global__ void __launch_bounds__(THREADS)
-    rowwise_matmul_kernel(const MatmulArgs a) {
-  __shared__ float xs[BK][BM + 1];  // x tile, transposed, padded
-  __shared__ __align__(16) float ws[BK][BN];
-  __shared__ __align__(16) float wgs[GATED ? BK : 1][BN];
-  __shared__ rk::RowStats stats[BM];
-
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  const T* wg = static_cast<const T*>(a.wg);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  if (a.norm != rk::NORM_NONE) {
-    for (int r = tid / 32; r < BM; r += THREADS / 32) {
-      const int row = m0 + r;
-      if (row < a.m) {
-        const rk::RowStats s = rk::row_stats(x + row * a.ldx, a.k, a.norm,
-                                             a.eps);
-        if ((tid & 31) == 0) stats[r] = s;
-      }
-    }
-    __syncthreads();
+// Four consecutive floats of row `row` from column `col` of an (rows,
+// cols) operand with row stride ld, masked at the edges; one 16-byte load
+// where the whole quad is inside and aligned.
+__device__ __forceinline__ F4 load4(const float* p, long long ld, int row,
+                                    int col, int rows, int cols, bool vec) {
+  F4 r = {{0.f, 0.f, 0.f, 0.f}};
+  if (row >= rows) return r;
+  const float* src = p + row * ld + col;
+  if (vec && col + 3 < cols) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    r.v[0] = v.x, r.v[1] = v.y, r.v[2] = v.z, r.v[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < cols) r.v[j] = __ldg(src + j);
   }
-
-  float acc[TM][TN] = {};
-  float accg[GATED ? TM : 1][GATED ? TN : 1] = {};
-
-  for (int k0 = 0; k0 < a.k; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK, row = m0 + r, col = k0 + c;
-      float v = 0.f;
-      if (row < a.m && col < a.k) {
-        v = rk::to_f32(x[row * a.ldx + col]);
-        if (a.norm != rk::NORM_NONE)
-          v = rk::round_to<T>(rk::normalize(v, stats[r], a.gamma, a.beta,
-                                            col));
-      }
-      xs[c][r] = v;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN, row = k0 + r, col = n0 + c;
-      const bool in = row < a.k && col < a.n;
-      ws[r][c] = in ? rk::to_f32(w[row * a.ldw + col]) : 0.f;
-      if constexpr (GATED)
-        wgs[r][c] = in ? rk::to_f32(wg[row * a.ldwg + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float xa[TM], wb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) xa[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) wb[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
-      if constexpr (GATED) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) wb[j] = wgs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            accg[i][j] = fmaf(xa[i], wb[j], accg[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // The post-processing unit, once per output element.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= a.m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= a.n) continue;
-      float h = acc[i][j];
-      if (a.bias) h += a.bias[col];
-      if constexpr (GATED) {
-        float g = accg[i][j];
-        if (a.bias_g) g += a.bias_g[col];
-        h = rk::activate(g, a.act) * h;
-      } else {
-        h = rk::activate(h, a.act);
-      }
-      if (a.res) {
-        const long long o = row * a.ldres + col;
-        h += a.res_f32 ? static_cast<const float*>(a.res)[o]
-                       : rk::to_f32(static_cast<const T*>(a.res)[o]);
-      }
-      const long long o = row * a.ldout + col;
-      if (a.out_f32)
-        static_cast<float*>(a.out)[o] = h;
-      else
-        static_cast<T*>(a.out)[o] = rk::from_f32<T>(h);
-    }
-  }
+  return r;
 }
 
-template <typename T>
-void launch(const MatmulArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
-  if (a.wg)
-    rowwise_matmul_kernel<T, true><<<grid, THREADS, 0, stream>>>(a);
-  else
-    rowwise_matmul_kernel<T, false><<<grid, THREADS, 0, stream>>>(a);
+__device__ __forceinline__ void store4(float* dst, const F4& q) {
+  *reinterpret_cast<float4*>(dst) = make_float4(q.v[0], q.v[1], q.v[2],
+                                                q.v[3]);
+}
+
+__device__ __forceinline__ F4 read4(const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  return {{v.x, v.y, v.z, v.w}};
+}
+
+// Thread (ty, tx) of 16 x 16 owns rows 4 ty .. 4 ty + 3 and columns
+// 4 tx .. 4 tx + 3 of the tile. Loads: thread t brings x row t / 4,
+// columns 4 (t % 4) .. + 3 of the k tile (stored transposed), and w row
+// t / 16, columns 4 (t % 16) .. + 3.
+template <bool GATED>
+__global__ void __launch_bounds__(FTHREADS, GATED ? 2 : 3)
+    rowwise_matmul_kernel(const rk::MatmulArgs a) {
+  __shared__ __align__(16) float xs[2][FK][FT + 4];  // x tile, transposed
+  __shared__ __align__(16) float ws[2][FK][FT];
+  __shared__ __align__(16) float wgs[GATED ? 2 : 1][GATED ? FK : 1][FT];
+  __shared__ rk::RowStats stats[FT];
+
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
+  const float* wg = static_cast<const float*>(a.wg);
+  const int m0 = blockIdx.y * FT, n0 = blockIdx.x * FT;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool norm = a.norm != rk::NORM_NONE;
+  auto aligned = [](const void* p, long long ld) {
+    return (reinterpret_cast<size_t>(p) & 15) == 0 && (ld & 3) == 0;
+  };
+  const bool vx = aligned(x, a.ldx), vw = aligned(w, a.ldw),
+             vwg = GATED && aligned(wg, a.ldwg);
+
+  if (norm) {
+    // each of the 8 warps takes 8 rows, their loads interleaved
+    rk::row_stats_rows<8>(x, a.ldx, m0 + 8 * (tid / 32), a.m, a.k, a.norm,
+                          a.eps, stats + 8 * (tid / 32));
+    __syncthreads();
+  }
+
+  const int xr = tid / 4, xc = 4 * (tid % 4);    // this thread's x quad
+  const int wr = tid / 16, wc = 4 * (tid % 16);  // and w quad
+  F4 rx, rw, rwg;
+  auto load_tile = [&](int k0) {
+    rx = load4(x, a.ldx, m0 + xr, k0 + xc, a.m, a.k, vx);
+    rw = load4(w, a.ldw, k0 + wr, n0 + wc, a.k, a.n, vw);
+    if constexpr (GATED) rwg = load4(wg, a.ldwg, k0 + wr, n0 + wc, a.k, a.n,
+                                     vwg);
+  };
+  auto store_tile = [&](int buf, int k0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = rx.v[j];
+      if (norm && m0 + xr < a.m && k0 + xc + j < a.k)
+        v = rk::norm_elem<float>(v, stats[xr], rk::gain(a, k0 + xc + j));
+      xs[buf][xc + j][xr] = v;
+    }
+    store4(&ws[buf][wr][wc], rw);
+    if constexpr (GATED) store4(&wgs[buf][wr][wc], rwg);
+  };
+
+  float acc[4][4] = {}, accg[GATED ? 4 : 1][GATED ? 4 : 1] = {};
+  const int nt = (a.k + FK - 1) / FK;
+  load_tile(0);
+  store_tile(0, 0);
+  __syncthreads();
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nt) load_tile((t + 1) * FK);
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      const F4 xa = read4(&xs[buf][kk][4 * ty]);
+      const F4 wb = read4(&ws[buf][kk][4 * tx]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(xa.v[i], wb.v[j], acc[i][j]);
+      if constexpr (GATED) {
+        const F4 gb = read4(&wgs[buf][kk][4 * tx]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            accg[i][j] = fmaf(xa.v[i], gb.v[j], accg[i][j]);
+      }
+    }
+    if (t + 1 < nt) store_tile(buf ^ 1, (t + 1) * FK);
+    __syncthreads();
+  }
+
+  // the post-processing unit, once per output element
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + 4 * ty + i;
+    if (row >= a.m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + 4 * tx + j;
+      if (col >= a.n) continue;
+      const float g = GATED ? accg[GATED ? i : 0][GATED ? j : 0] : 0.f;
+      rk::finish(a, row, col, rk::post<GATED, false>(a, acc[i][j], g, row,
+                                                     col));
+    }
+  }
 }
 
 }  // namespace
 
+void rk_launch_ffma(const rk::MatmulArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.n + FT - 1) / FT, (a.m + FT - 1) / FT);
+  if (a.wg)
+    rowwise_matmul_kernel<true><<<grid, FTHREADS, 0, stream>>>(a);
+  else
+    rowwise_matmul_kernel<false><<<grid, FTHREADS, 0, stream>>>(a);
+}
+
+// Designs, as the wrapper numbers them.
+enum Design { FFMA = 0, SKINNY = 1, WGMMA = 2 };
+
 extern "C" int rk_rowwise_matmul(
     const void* x, const void* w, const void* wg, const void* bias,
     const void* bias_g, const void* res, const void* gamma, const void* beta,
-    void* out, long long ldx, long long ldw, long long ldwg, long long ldres,
-    long long ldout, int m, int n, int k, int norm, int act, int res_f32,
-    int out_f32, float eps, int dtype, void* stream) {
-  MatmulArgs a;
+    const void* x_scale, const void* w_scale, const void* wg_scale,
+    void* out, void* work, void* counters, long long ldx, long long ldw,
+    long long ldwg, long long ldres, long long ldout, int m, int n, int k,
+    int norm, int act, int dtype, int res_dt, int out_dt, int vec_f32,
+    int splits, int kc, float eps, int design, void* stream) {
+  rk::MatmulArgs a;
   a.x = x;
   a.w = w;
   a.wg = wg;
-  a.bias = static_cast<const float*>(bias);
-  a.bias_g = static_cast<const float*>(bias_g);
+  a.bias = bias;
+  a.bias_g = bias_g;
   a.res = res;
-  a.gamma = static_cast<const float*>(gamma);
-  a.beta = static_cast<const float*>(beta);
+  a.gamma = gamma;
+  a.beta = beta;
+  a.x_scale = static_cast<const float*>(x_scale);
+  a.w_scale = static_cast<const float*>(w_scale);
+  a.wg_scale = static_cast<const float*>(wg_scale);
   a.out = out;
+  a.work = work;
+  a.counters = static_cast<int*>(counters);
   a.ldx = ldx;
   a.ldw = ldw;
   a.ldwg = ldwg;
@@ -201,13 +220,26 @@ extern "C" int rk_rowwise_matmul(
   a.k = k;
   a.norm = norm;
   a.act = act;
-  a.res_f32 = res_f32;
-  a.out_f32 = out_f32;
+  a.dtype = dtype;
+  a.res_dt = res_dt;
+  a.out_dt = out_dt;
+  a.vec_f32 = vec_f32;
+  a.splits = splits;
+  a.kc = kc;
   a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rk::BF16)
-    launch<__nv_bfloat16>(a, s);
-  else
-    launch<float>(a, s);
+  switch (design) {
+    case SKINNY:
+      rk_launch_skinny(a, s);
+      break;
+    case WGMMA: {
+      const int err = rk_launch_wgmma(a, s);
+      if (err) return err;
+      break;
+    }
+    default:
+      if (dtype != rk::F32) return static_cast<int>(cudaErrorInvalidValue);
+      rk_launch_ffma(a, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -152,11 +152,21 @@ def ptr(t) -> int | None:
 
 
 def f32(t):
-    """An fp32 contiguous copy of a small operand (bias, norm gain), or
-    the tensor itself when it is one already."""
+    """An fp32 contiguous copy of a small operand, or the tensor itself
+    when it is one already."""
     if t is None or (t.dtype == torch.float32 and t.is_contiguous()):
         return t
     return t.to(torch.float32).contiguous()
+
+
+def vector(t):
+    """A small operand (bias, norm gain) as the kernels read it: fp32 or
+    bf16 as stored, unit stride; other dtypes become an fp32 copy."""
+    if t is None:
+        return t
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.to(torch.float32)
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def stream(device: torch.device) -> int:

@@ -18,7 +18,8 @@ KINDS = {"layer": 1, "rms": 2}
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 
 
 def rownorm(x, gamma, beta=None, *, kind: str, eps: float):
@@ -51,12 +52,16 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"layernorm_p: x {tuple(x.shape)} strides "
                          f"{x.stride()}, gamma {tuple(gamma.shape)}")
     dt = _build.dtype_code("layernorm_p", x.dtype)
-    g, b = _build.f32(gamma), _build.f32(beta)
+    # gamma and beta are read as stored, fp32 or bf16
+    g, b = _build.vector(gamma), _build.vector(beta)
+    vec_f32 = int(g.dtype == torch.float32) | (
+        2 * int(b is not None and b.dtype == torch.float32))
     out = torch.empty((m, d), dtype=x.dtype, device=dev)
     if m:
         err = _build.function("rk_layernorm", _ARGTYPES)(
             x.data_ptr(), x.stride(0), g.data_ptr(), _build.ptr(b),
-            out.data_ptr(), m, d, KINDS[kind], eps, dt, _build.stream(dev))
+            out.data_ptr(), m, d, KINDS[kind], eps, dt, vec_f32,
+            _build.stream(dev))
         _build.check(err, "layernorm_p")
         layernorm_p.launches += 1
     return out

@@ -15,7 +15,9 @@ The fusion between the ops of a transformer sublayer:
                                launch, outputs sliced per projection;
   * :func:`gate_up_proj`     — the stored [wg | wi] panel streams
                                through one launch whose epilogue
-                               computes ``act(g) * h``.
+                               computes ``act(g) * h``;
+  * :func:`matmul_int8`      — the W8A8 leg: int8 operands, int32
+                               accumulation, dequant in the epilogue.
 
 The CUDA matmul takes the norm prologue at any K (it takes the row
 statistics in a pass of its own), so the JAX package's fallback to the
@@ -118,6 +120,42 @@ def gate_up_proj(x: torch.Tensor, w, *, activation: str,
                     activation=activation, w_gate=w_gate,
                     bias_gate=bias_gate)
     return out.reshape(*lead, f)
+
+
+def matmul_int8(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor, *,
+                bias: Optional[torch.Tensor] = None,
+                activation: Optional[str] = None,
+                residual: Optional[torch.Tensor] = None,
+                wide_n: bool = False, impl: Optional[str] = None,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """W8A8 path: int8 xq (..., K) x int8 wq (K, N) -> int32 accumulation
+    -> dequant by ``x_scale`` (..., 1) per row and ``w_scale`` (1, N) per
+    channel -> bias -> activation -> ``residual`` -> ``out_dtype``.
+
+    Wide-N works by concatenating weights AND per-channel scales along N.
+    ``wide_n`` is accepted for the JAX signature and changes nothing
+    here: the JAX package uses it only to plan the TPU's VMEM, and the
+    CUDA kernel picks its own tiles. Under ``impl="ref"`` the plain
+    :func:`ref.matmul_int8_ref`, then the residual add, as in JAX.
+    """
+    del wide_n
+    impl = impl or runtime.resolve_impl()
+    x2, lead = _flatten_leading(xq)
+    n = wq.shape[1]
+    s2 = x_scale.reshape(-1, 1)
+    res2 = None if residual is None else residual.reshape(-1, n)
+    if impl == "ref":
+        out = ref.matmul_int8_ref(x2, wq, s2, w_scale, bias=bias,
+                                  activation=activation, out_dtype=out_dtype)
+        if res2 is not None:
+            out = (out.to(torch.float32)
+                   + res2.to(torch.float32)).to(out_dtype)
+    else:
+        out = rowwise_matmul_p(x2, wq, x_scale=s2, w_scale=w_scale,
+                               bias=bias, activation=activation,
+                               residual=res2, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
 
 
 def attention(q, k, v, *, causal=True, window: int = 0, scale=None,

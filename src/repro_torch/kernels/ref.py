@@ -32,6 +32,19 @@ def _dot_f32(x, w):
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
+def _dot_i32(xq, wq):
+    """int8 (..., K) @ (K, N), the exact int32 sum, returned in fp32 (the
+    int32 rounded to nearest, as the JAX epilogue's astype rounds it).
+    The CPU multiplies in int32; CUDA has no int32 matmul, so the card
+    multiplies in float64, exact while |sum| <= 127 * 127 * K < 2**53.
+    fp32 would not be: it is exact only to 2**24, passed at K ~ 1040."""
+    if xq.device.type == "cpu":
+        acc = torch.matmul(xq.to(torch.int32), wq.to(torch.int32))
+    else:
+        acc = torch.matmul(xq.to(torch.float64), wq.to(torch.float64))
+    return acc.to(torch.float32)
+
+
 def matmul_ref(x, w, *, bias=None, activation=None, out_dtype=None):
     out_dtype = out_dtype or x.dtype
     acc = _dot_f32(x, w)
@@ -40,20 +53,43 @@ def matmul_ref(x, w, *, bias=None, activation=None, out_dtype=None):
     return ACTIVATIONS[activation](acc).to(out_dtype)
 
 
+def matmul_int8_ref(xq, wq, x_scale, w_scale, *, bias=None,
+                    activation=None, out_dtype=torch.float32):
+    """W8A8: the exact int32 product of int8 xq (M, K) and wq (K, N),
+    dequantized by x_scale (M, 1) and w_scale (1, N), then bias and
+    activation in fp32 (:func:`pipeline_ref`'s int8 mode)."""
+    return pipeline_ref(xq, wq, bias=bias, activation=activation,
+                        x_scale=x_scale, w_scale=w_scale,
+                        out_dtype=out_dtype)
+
+
 def pipeline_ref(x, w, *, bias=None, activation=None, w_gate=None,
                  bias_gate=None, residual=None, norm_kind=None,
-                 gamma=None, beta=None, eps=1e-6, out_dtype=None):
+                 gamma=None, beta=None, eps=1e-6, out_dtype=None,
+                 x_scale=None, w_scale=None, wg_scale=None):
     """The fused block pipeline as a composition: optional pre-norm
     (cast back to the streaming dtype), one or two (gated) matmuls,
-    bias/activation/gating, residual add, cast."""
-    out_dtype = out_dtype or x.dtype
+    bias/activation/gating, residual add, cast.
+
+    int8 W8A8 mode when ``x_scale`` is given (x, w, w_gate int8): the
+    exact int32 products, each dequantized by ``x_scale`` and its own
+    weight scale (``w_scale``, ``wg_scale``) before its bias, as the
+    JAX kernel's epilogue orders it; fp32 output by default."""
+    int8 = x_scale is not None
+    out_dtype = out_dtype or (torch.float32 if int8 else x.dtype)
     if norm_kind is not None:
         x = layernorm_ref(x, gamma, beta, eps=eps, kind=norm_kind)
-    h = _dot_f32(x, w)
+    if int8:
+        def dot(wt, scale):
+            return _dot_i32(x, wt) * x_scale * scale
+    else:
+        def dot(wt, _scale):
+            return _dot_f32(x, wt)
+    h = dot(w, w_scale)
     if bias is not None:
         h = h + bias.to(torch.float32)
     if w_gate is not None:
-        g = _dot_f32(x, w_gate)
+        g = dot(w_gate, wg_scale)
         if bias_gate is not None:
             g = g + bias_gate.to(torch.float32)
         h = ACTIVATIONS[activation](g) * h

@@ -6,7 +6,7 @@ sequence and one decode step after it (random weights from a CUDA
 generator with seed 0, tokens from seed 1), under ``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
-name.
+name (the matmul's also by design: skinny, wgmma, ffma).
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --batch 8 64 --dtype fp32 bf16 --impl auto ref --out chiprun_out/profile.json
@@ -43,6 +43,10 @@ OWN = {"rowwise_matmul_kernel": "rowwise_matmul",
        "attention_kernel": "flash_attention",
        "layernorm_kernel": "layernorm",
        "wkv_kernel": "wkv"}
+# the matmul's designs by kernel name (the first stem that matches)
+MATMUL_DESIGNS = {"rowwise_matmul_kernel_skinny": "skinny",
+                  "rowwise_matmul_kernel_wgmma": "wgmma",
+                  "rowwise_matmul_kernel": "ffma"}
 
 
 def _device_us(evt) -> float:
@@ -78,17 +82,22 @@ def profile_call(fn, items: int, iters: int = 3) -> dict:
     busy = sum(ms for ms, _ in by_name.values())
     if busy == 0:
         raise RuntimeError("the profiler saw no device time")
-    own = defaultdict(float)
+    own, designs = defaultdict(float), defaultdict(float)
     for name, (ms, _) in by_name.items():
         for tag, kernel in OWN.items():
             if tag in name:
                 own[kernel] += ms
+        design = next((d for tag, d in MATMUL_DESIGNS.items() if tag in name),
+                      None)
+        if design:
+            designs[design] += ms
     rows = sorted(([name, ms, calls] for name, (ms, calls) in
                    by_name.items()), key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall_ms),
             "items_per_s": items / wall_ms * 1e3,
             "own_kernels_ms": dict(own),
+            "matmul_designs_ms": dict(designs),
             "other_device_ms": busy - sum(own.values()),
             "top": rows[:15]}
 
@@ -100,7 +109,10 @@ def _report(res, what):
           f"{res['idle_share']:.3f}, own kernels "
           + ", ".join(f"{k} {v:.3f}" for k, v in
                       res["own_kernels_ms"].items())
-          + f", other device {res['other_device_ms']:.3f} ms", flush=True)
+          + f", other device {res['other_device_ms']:.3f} ms; matmul by "
+          "design " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                res["matmul_designs_ms"].items()),
+          flush=True)
     for row_name, ms, calls in res["top"][:8]:
         print(f"    {ms:8.3f} ms  {calls:6.1f}x  {row_name[:90]}")
 

@@ -7,18 +7,21 @@ out):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 fp32 tolerance 1e-4 against max(1, max|plain|): only the order of the
-fp32 sums differs. bf16 WKV inputs: 3e-2, y is rounded to bf16 (8-bit
-mantissa) where the plain version keeps fp32.
+fp32 sums differs. bf16: 3e-2, the output (and the WKV y) is rounded to
+bf16 (8-bit mantissa) where the plain version keeps fp32. int8: 1e-5,
+the int32 sums are exact (the plain version multiplies in float64 on
+the card), so only the fp32 dequant and activations differ.
 """
 import pytest
 import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
-from repro_torch.core import runtime
-from repro_torch.kernels import ref
+from repro_torch.core import quant, runtime
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
+from repro_torch.kernels import rowwise_matmul as rm
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.kernels.wkv import wkv_p
 from repro_torch.models import lm, rwkv6, vision
@@ -69,6 +72,132 @@ def test_matmul_kernel(dev, mode, shape):
     want = ref.pipeline_ref(x, w, norm_kind=kw.pop("prologue"),
                             beta=kw.pop("pbeta", None), **kw)
     _close(got, want)
+
+
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.int8: 1e-5}
+MODES = [dict(), dict(prologue="layer", beta=True), dict(prologue="rms"),
+         dict(activation="gelu"), dict(activation="silu", gated=True),
+         dict(activation="relu2", residual=True)]
+
+
+def _matmul_case(dev, m, k, n, dtype, mode, *, strided=False, seed=0):
+    """Operands of one matmul call and its plain version's output (fp32).
+    ``strided``: w (and w_gate) are the halves of one [wg | wi] panel."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dev)
+    mode = dict(mode)
+    int8 = dtype == torch.int8
+    vec = torch.float32 if int8 else dtype
+    kw = dict(bias=r(n, scale=0.1).to(vec),
+              activation=mode.pop("activation", None),
+              prologue=mode.pop("prologue", None))
+    gated = mode.pop("gated", False)
+    if kw["prologue"]:
+        kw["gamma"] = (1 + r(k, scale=0.1)).to(vec)
+        kw["pbeta"] = r(k, scale=0.1).to(vec) if mode.pop("beta", False) \
+            else None
+    panel = r(k, 2 * n, scale=k ** -0.5)
+    if int8:
+        xq, xs = quant.quantize_per_row(r(m, k))
+        pq, ps = quant.quantize_per_channel(panel)
+        x, kw["x_scale"] = xq, xs
+        w, kw["w_scale"] = pq[:, n:], ps[:, n:].contiguous()
+        if gated:
+            kw["w_gate"], kw["wg_scale"] = pq[:, :n], ps[:, :n].contiguous()
+    else:
+        x, panel = r(m, k).to(dtype), panel.to(dtype)
+        w = panel[:, n:]
+        if gated:
+            kw["w_gate"] = panel[:, :n]
+    if not strided:
+        w = w.contiguous()
+        if gated:
+            kw["w_gate"] = kw["w_gate"].contiguous()
+    if gated:
+        kw["bias_gate"] = r(n, scale=0.1).to(vec)
+    if mode.pop("residual", False):
+        kw["residual"] = r(m, n).to(vec)
+    want = ref.pipeline_ref(
+        x, w, norm_kind=kw["prologue"], beta=kw.get("pbeta"),
+        out_dtype=torch.float32,
+        **{key: v for key, v in kw.items()
+           if key not in ("prologue", "pbeta")})
+    return x, w, kw, want
+
+
+# M on both sides of the skinny design's pick (16 fp32, 4 bf16 and
+# int8) and at prefill rows
+DESIGN_SHAPES = [(m, k, n) for m in (1, 4, 5, 16, 17, 49, 130, 2048)
+                 for k, n in ((48, 96), (200, 70), (768, 1000))]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=str)
+@pytest.mark.parametrize("shape", DESIGN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=str)
+def test_matmul_designs(dev, dtype, shape, mode):
+    """Every mode x dtype on both sides of the skinny threshold and at
+    prefill rows, ragged K and N, against the plain version; each call
+    one launch."""
+    m, k, n = shape
+    if dtype == torch.int8 and "prologue" in mode:
+        pytest.skip("the int8 mode has no norm prologue (JAX asserts it)")
+    x, w, kw, want = _matmul_case(dev, m, k, n, dtype, mode)
+    before = rowwise_matmul_p.launches
+    got = rowwise_matmul_p(x, w, **kw)
+    assert rowwise_matmul_p.launches == before + 1
+    _close(got, want, TOLS[dtype])
+
+
+@pytest.mark.parametrize("skinny_upto", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=str)
+@pytest.mark.parametrize("m", [1, 16, 130])
+def test_matmul_designs_either_side(dev, monkeypatch, skinny_upto, dtype, m):
+    """The skinny design and the other design of each dtype at the same
+    M (the picker's threshold moved to 0 or 16 rows), gated over the
+    strided halves of one [wg | wi] panel, and twice: the outputs repeat
+    bitwise."""
+    monkeypatch.setitem(rm.SKINNY_PICK_M, dtype, skinny_upto)
+    for mode in (dict(activation="silu", gated=True),
+                 dict(activation="gelu", residual=True)):
+        x, w, kw, want = _matmul_case(dev, m, 1000, 200, dtype, mode,
+                                      strided=True, seed=7)
+        got = rowwise_matmul_p(x, w, **kw)
+        again = rowwise_matmul_p(x, w, **kw)
+        _close(got, want, TOLS[dtype])
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=str)
+def test_matmul_split_k_repeats_bitwise(dev, dtype):
+    """The skinny design at decode shapes, split over many blocks: ten
+    calls give the same bits (the splits are summed in a fixed order)."""
+    x, w, kw, want = _matmul_case(dev, 4, 8960, 2560, dtype,
+                                  dict(activation="relu2"))
+    outs = [rowwise_matmul_p(x, w, **kw) for _ in range(10)]
+    _close(outs[0], want, TOLS[dtype])
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_matmul_int8_op(dev):
+    """``ops.matmul_int8`` with leading dims, concatenated wide-N scales
+    and a residual, on the kernel against ``impl="ref"``."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(2, 37, 384, generator=g).to(dev)
+    w = torch.randn(384, 1152, generator=g).to(dev) * 0.05
+    res = torch.randn(2, 37, 1152, generator=g).to(dev)
+    xq, xs = quant.quantize_per_row(x)
+    wq, ws = quant.quantize_per_channel(w)
+    b = torch.randn(1152, generator=g).to(dev)
+    got = ops.matmul_int8(xq, wq, xs, ws, bias=b, activation="gelu",
+                          residual=res, wide_n=True)
+    want = ops.matmul_int8(xq, wq, xs, ws, bias=b, activation="gelu",
+                           residual=res, impl="ref")
+    _close(got, want, 1e-5)
 
 
 @pytest.mark.parametrize("case", [

@@ -118,9 +118,16 @@ def test_impl_switch_is_auto_or_ref():
 
 def test_wrappers_refuse_what_no_kernel_takes():
     x, w = torch.randn(4, 8), torch.randn(8, 6)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # scales select the int8 W8A8 mode: float operands are refused
+    with pytest.raises(TypeError, match="int8"):
         rowwise_matmul_p(x, w, x_scale=torch.ones(4, 1),
                          w_scale=torch.ones(1, 6))
+    xq, wq = x.to(torch.int8), w.to(torch.int8)
+    with pytest.raises(TypeError, match="x_scale"):
+        rowwise_matmul_p(xq, wq, x_scale=torch.ones(4, 1, dtype=torch.int32),
+                         w_scale=torch.ones(1, 6))
+    with pytest.raises(TypeError, match="x_scale"):
+        rowwise_matmul_p(xq, wq, w_scale=torch.ones(1, 6))
     with pytest.raises(ValueError, match="activation"):
         rowwise_matmul_p(x, w, activation="tanh")
     with pytest.raises(ValueError, match="no kernel"):
@@ -151,6 +158,28 @@ def test_cpu_path_builds_nothing():
     wkv_p(r, r, r, r, torch.ones(2, 16))
     assert counts() == before
     assert _build.library.cache_info().currsize == 0
+
+
+def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch):
+    """A CPU int8 call runs the plain version and builds nothing; an int8
+    call on any other device goes to the kernel path (here refused: no
+    kernel for a meta tensor), never to the plain version."""
+    from repro_torch.kernels import ref
+    xq = torch.randint(-127, 128, (4, 8), dtype=torch.int8)
+    wq = torch.randint(-127, 128, (8, 6), dtype=torch.int8)
+    xs, ws = torch.rand(4, 1), torch.rand(1, 6)
+    before = rowwise_matmul_p.launches
+    out = rowwise_matmul_p(xq, wq, x_scale=xs, w_scale=ws)
+    assert out.dtype == torch.float32 and out.shape == (4, 6)
+    assert rowwise_matmul_p.launches == before
+    assert _build.library.cache_info().currsize == 0
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+    monkeypatch.setattr(ref, "pipeline_ref", plain)
+    with pytest.raises(ValueError, match="no kernel"):
+        rowwise_matmul_p(xq.to("meta"), wq.to("meta"),
+                         x_scale=xs.to("meta"), w_scale=ws.to("meta"))
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
