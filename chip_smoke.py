@@ -10,16 +10,18 @@ Phases, each printing its lines:
 2. the build of ``src/repro_torch/csrc`` into ``build/repro_torch``:
    registers and spills from ``ptxas.log``, and the count of tensor-core
    instructions (``HGMMA`` / ``IGMMA`` / ``IMMA`` / ``HMMA``) in each
-   matmul kernel from ``cuobjdump -sass``;
+   matmul and attention kernel from ``cuobjdump -sass``;
 3. each kernel against its plain version at every distinct Swin-T shape
    and mode (B=8), in fp32 and in bf16, plus a gated matmul and an
    LM-style attention (causal + window + GQA + q_offset): error beside
    its tolerance, kernel / plain / library ms (CUDA events, after
    warm-up; calls of M <= 16 rows rotate copies of their weights past
    the 50 MB L2, so each reads its weights from HBM as the model does),
-   the bound, and the matmul design the call took (skinny, wgmma or
-   ffma); then the int8 W8A8 leg at every distinct Swin-T matmul shape
-   and at RWKV6-3B's widths at M=2048 and M=4, held against the exact
+   the bound, and the design the call took (matmul: skinny, wgmma or
+   ffma; attention: mma or ffma; WKV: chunk or step); the attention of
+   ViT-B/16 (B=8) and of a Swin-T forward at B=64; then the int8 W8A8
+   leg at every distinct Swin-T matmul shape and at RWKV6-3B's widths
+   at M=2048 and M=4, held against the exact
    plain version (float64 products on the card), ``torch._int_mm`` as
    its library yardstick where that takes the shape; host µs per
    wrapper call;
@@ -41,12 +43,15 @@ Phases, each printing its lines:
 9. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler);
-10. the matmul per design and dtype, summed over a Swin-T forward, an
+10. the matmul, attention and WKV per design and dtype, summed over a
+   Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward, an
    RWKV6-3B prefill and a decode step (``design-table`` lines); one JSON
    line of the kernels (the int8 leg a row of its own), then the last
-   line ``{"ok": true, "device": {...}}``. Before the tables: the skinny
-   design against the M > 16 design of each dtype at M = 4 .. 16
-   (``threshold`` line, device µs from the profiler).
+   line ``{"ok": true, "device": {...}}``. Before the tables, each
+   picker's boundary (``threshold`` lines, device µs from the
+   profiler): the matmul's skinny design against the M > 16 design of
+   each dtype at M = 4 .. 16, and WKV's step design against its chunk
+   design at S = 1 .. 32 tokens.
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -197,17 +202,17 @@ def launch_overheads(device):
 
 def tensor_core_counts(library):
     """Tensor-core instructions (``HGMMA``, ``IGMMA``, ``QGMMA``, ``HMMA``,
-    ``IMMA``) in each matmul kernel of the library, from
+    ``IMMA``) in each matmul and attention kernel of the library, from
     ``cuobjdump -sass``, keyed by the kernel's mangled name from its stem
-    ``rowwise_matmul_kernel`` on."""
+    (``rowwise_matmul_kernel``, ``attention_kernel``) on."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        found = re.search(r"Function : \S*?(rowwise_matmul_kernel\w*?)E*v",
-                          line)
+        found = re.search(r"Function : \S*?((?:rowwise_matmul|attention)"
+                          r"_kernel\w*?)E*v", line)
         if "Function :" in line:
             name = found.group(1) if found else None
             if name:
@@ -248,7 +253,10 @@ def err_ok(out, want, tol):
 # ------------------------------ cases ----------------------------------
 
 
-COUNTS = ("fused", "unfused", "prefill", "decode")
+# launches per Swin-T forward at B=8 (fused, unfused), per RWKV6-3B
+# prefill at B=4 x 512 and decode step at B=4, per ViT-B/16 forward at
+# B=8, and per fused Swin-T forward at B=64 (attention only)
+COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64")
 
 
 class Case:
@@ -257,13 +265,11 @@ class Case:
     library call that computes the same function."""
 
     def __init__(self, kernel, name, run, plain, check, library,
-                 flops, nbytes_, **counts):
-        self.kernel, self.name = kernel, name
+                 flops, nbytes_, design=None, **counts):
+        self.kernel, self.name, self.design = kernel, name, design
         self.run, self.plain, self.check, self.library = (
             run, plain, check, library)
         self.flops, self.nbytes = flops, nbytes_
-        # launches per Swin-T forward (fused, unfused) and per RWKV6-3B
-        # prefill at B=4 x 512 and decode step at B=4
         self.counts = {k: counts.get(k, 0) for k in COUNTS}
         self.op = None
 
@@ -288,7 +294,8 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
     import torch.nn.functional as F
     from repro_torch.core import quant
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+    from repro_torch.kernels.rowwise_matmul import (pick_design,
+                                                    rowwise_matmul_p)
 
     int8 = dtype == torch.int8
     vec = torch.float32 if int8 else dtype
@@ -367,7 +374,7 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
         library if has_library else None, 2 * m * n * k * (2 if gated else 1),
         nbytes(x, w, wg, b, bg, res, g, be, *scales.values(),
                out=(m * n, out_dtype)),
-        **counts)
+        design=pick_design(m, dtype), **counts)
     case.op = dict(x=x, w=w, wg=wg, ops=ops, out_dtype=out_dtype)
     return case
 
@@ -380,7 +387,8 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_p
+    from repro_torch.kernels.flash_attention import (flash_attention_p,
+                                                     pick_design)
 
     nw, t, hd = qkv_shape
     skv = skv or t
@@ -418,7 +426,8 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
         plain_on(torch.float32 if dtype != torch.float32 else None),
         lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
         4 * nw * heads * hd * int(allowed.sum().item()),
-        nbytes(q, k, v, bias, out=(q.numel(), dtype)), **counts)
+        nbytes(q, k, v, bias, out=(q.numel(), dtype)),
+        design=pick_design(dtype), **counts)
 
 
 def layernorm_case(name, m, d, dtype, gen, device, **counts):
@@ -446,22 +455,15 @@ def layernorm_case(name, m, d, dtype, gen, device, **counts):
 def swin_cases(cfg, batch, dtype, gen, device):
     """Every distinct kernel call of a Swin forward, with its launches
     per fused and per unfused forward, plus the extra modes."""
-    import torch
-    from repro_torch.models import vision
-
     cases = []
     res = cfg.img_size // cfg.patch
     c = cfg.embed_dim
-    w = cfg.window
-    t = w * w
     cases.append(matmul_case(
         "patch", batch * res * res, cfg.patch ** 2 * cfg.in_chans, c, dtype,
         gen, device, fused=1, unfused=1))
-    for si, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+    for si, depth in enumerate(cfg.depths):
         m = batch * res * res
         s = f"s{si + 1}"
-        nw_img = (res // w) ** 2
-        shifted = depth // 2 if res > w else 0
         cases += [
             matmul_case(f"{s}.qkv+ln", m, c, 3 * c, dtype, gen, device,
                         norm="layer", fused=depth),
@@ -482,28 +484,13 @@ def swin_cases(cfg, batch, dtype, gen, device):
             layernorm_case(f"{s}.ln", m, c, dtype, gen, device,
                            unfused=2 * depth),
         ]
-        blk = {"rel_bias": _rand(gen, ((2 * w - 1) ** 2, heads), dtype,
-                                 device, 0.02)}
-        rel_idx = vision._rel_pos_index(w, torch.device(device))
-        mask = (vision._shift_mask(res, res, w, w // 2, torch.device(device))
-                if res > w else None)
-        nw = batch * nw_img
-        hd = c // heads
-        cases.append(attention_case(
-            f"{s}.window", (nw, t, hd), heads, heads, dtype, gen, device,
-            bias=vision._rel_bias(blk, rel_idx, heads, 0, mask),
-            fused=depth - shifted))
-        if shifted:
-            cases.append(attention_case(
-                f"{s}.shifted", (nw, t, hd), heads, heads, dtype, gen,
-                device, bias=vision._rel_bias(blk, rel_idx, heads, w // 2,
-                                              mask), fused=shifted))
         if si < len(cfg.depths) - 1:
             cases.append(matmul_case(
                 f"{s}.merge", m // 4, 4 * c, 2 * c, dtype, gen, device,
                 bias=False, fused=1, unfused=1))
             res //= 2
             c *= 2
+    cases += swin_attention_cases(cfg, batch, dtype, gen, device, "fused")
     cases.append(layernorm_case("final", batch * res * res, c, dtype, gen,
                                 device, fused=1, unfused=1))
     cases.append(matmul_case("head", batch, c, cfg.num_classes, dtype, gen,
@@ -522,6 +509,39 @@ def swin_cases(cfg, batch, dtype, gen, device):
     return cases
 
 
+def swin_attention_cases(cfg, batch, dtype, gen, device, key):
+    """The window attention of each Swin stage at ``batch`` images, with
+    the bias the block gives it (the relative-position table gathered per
+    window geometry, plus the shift mask per window position in shifted
+    blocks), and its launches per fused forward under ``key``."""
+    import torch
+    from repro_torch.models import vision
+
+    cases = []
+    res, c, w = cfg.img_size // cfg.patch, cfg.embed_dim, cfg.window
+    for si, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+        shifted = depth // 2 if res > w else 0
+        blk = {"rel_bias": _rand(gen, ((2 * w - 1) ** 2, heads), dtype,
+                                 device, 0.02)}
+        rel_idx = vision._rel_pos_index(w, torch.device(device))
+        mask = (vision._shift_mask(res, res, w, w // 2, torch.device(device))
+                if res > w else None)
+        nw = batch * (res // w) ** 2
+        shape = (nw, w * w, c // heads)
+        tag = f"s{si + 1}" + ("" if batch == 8 else f" B={batch}")
+        cases.append(attention_case(
+            f"{tag}.window", shape, heads, heads, dtype, gen, device,
+            bias=vision._rel_bias(blk, rel_idx, heads, 0, mask),
+            **{key: depth - shifted}))
+        if shifted:
+            cases.append(attention_case(
+                f"{tag}.shifted", shape, heads, heads, dtype, gen, device,
+                bias=vision._rel_bias(blk, rel_idx, heads, w // 2, mask),
+                **{key: shifted}))
+        res, c = res // 2, c * 2
+    return cases
+
+
 def wkv_case(name, b, s, cfg, dtype, gen, device, *, with_s0=False,
              **counts):
     """The WKV recurrence at the config's heads (RWKV6-3B: 40 of 64),
@@ -529,7 +549,7 @@ def wkv_case(name, b, s, cfg, dtype, gen, device, *, with_s0=False,
     both clamp ends; checked against the plain chunked scan on fp32
     copies of the same inputs, y and the final state each."""
     import torch
-    from repro_torch.kernels.wkv import wkv_p
+    from repro_torch.kernels.wkv import pick_design, wkv_p
     from repro_torch.models.rwkv6 import CLAMP, wkv_chunked
 
     p = cfg.rwkv.head_dim
@@ -551,7 +571,7 @@ def wkv_case(name, b, s, cfg, dtype, gen, device, *, with_s0=False,
         lambda: wkv_chunked(*f32, u, s0=s0),
         lambda: wkv_chunked(*f32, u, s0=s0), None, flops,
         nbytes(r, k, v, lw, u, s0, out=(r.numel(), dtype)) + b * h * p * p * 4,
-        **counts)
+        design=pick_design(s), **counts)
 
 
 def rwkv_cases(cfg, dtype, gen, device):
@@ -650,13 +670,28 @@ def int8_cases(cfg, rwkv_cfg, batch, gen, device):
     return cases
 
 
+def device_us(fn, tag, calls):
+    """Device µs per call of the kernels whose name holds ``tag``, over
+    ``calls`` calls of ``fn`` under the profiler (after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages() if tag in e.key) / calls
+
+
 def threshold_readings(device):
     """Device µs per call of the skinny design against the M > 16 design
     of each dtype (wgmma for bf16, ffma for fp32) at M = 4 .. 16, at the
     RWKV6-3B d x d shape with its weights cold in L2: the measurement
     behind ``SKINNY_PICK_M``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import rowwise_matmul as rm
     out = {}
     for dt, other in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
@@ -672,20 +707,53 @@ def threshold_readings(device):
                         rm.rowwise_matmul_p(x, w)
                 rm.SKINNY_PICK_M[dt] = upto
                 try:
-                    run()
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(5):
-                            run()
-                        torch.cuda.synchronize()
+                    out[f"{dt} M={m} {design}"] = device_us(
+                        run, "rowwise_matmul_kernel", 5) / len(ws)
                 finally:
                     rm.SKINNY_PICK_M[dt] = pick
-                us = sum(getattr(e, "self_device_time_total", 0.0)
-                         for e in prof.key_averages()
-                         if "rowwise_matmul_kernel" in e.key)
-                out[f"{dt} M={m} {design}"] = us / (5 * len(ws))
     say("threshold", "device µs per call, M x 2560 x 2560, weights cold: "
         + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def wkv_threshold_readings(cfg, device):
+    """Device µs per call of WKV's step design against its chunk design
+    at S = 1 .. 32 tokens, B=4 at the config's heads, fp32, with a
+    starting state (the decode step's shape at S=1): the measurement
+    behind ``STEP_PICK_S``. Each design's output is held against the
+    plain scan as well."""
+    import torch
+    from repro_torch.kernels import wkv as wk
+    from repro_torch.models.rwkv6 import CLAMP, wkv_chunked
+    p = cfg.rwkv.head_dim
+    h = cfg.d_model // p
+    gen = torch.Generator(device=device).manual_seed(6)
+    pick, out = wk.STEP_PICK_S, {}
+    for s in (1, 2, 4, 8, 16, 32):
+        r, k, v = (_rand(gen, (4, s, h, p), torch.float32, device)
+                   for _ in range(3))
+        lw = torch.clamp(-torch.exp(_rand(gen, (4, s, h, p), torch.float32,
+                                          device, 2.0)), -CLAMP, -1e-6)
+        u = _rand(gen, (h, p), torch.float32, device, 0.5)
+        s0 = _rand(gen, (4, h, p, p), torch.float32, device)
+        want = wkv_chunked(r, k, v, lw, u, s0=s0)
+        for design, upto in (("step", 1 << 30), ("chunk", 0)):
+            wk.STEP_PICK_S = upto
+            try:
+                got = wk.wkv_p(r, k, v, lw, u, s0=s0)
+                out[f"S={s} {design}"] = device_us(
+                    lambda: wk.wkv_p(r, k, v, lw, u, s0=s0), "wkv_kernel",
+                    20)
+            finally:
+                wk.STEP_PICK_S = pick
+            for g, w in zip(got, want):
+                err, ok = err_ok(g, w, FP32_TOL)
+                if not ok:
+                    raise AssertionError(f"wkv {design} at S={s}: max abs "
+                                         f"err {err}")
+    say("threshold", f"wkv device µs per call, B=4 x {h} heads of {p}, "
+        f"fp32, with s0 (STEP_PICK_S={pick}): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out.items()))
     return out
 
 
@@ -734,7 +802,6 @@ def int8_path(cases):
 
 
 def run_cases(cases, dtype_name, tol, timed=True):
-    from repro_torch.kernels.rowwise_matmul import pick_design
     rows = []
     for case in cases:
         out, want = case.run(), case.check()
@@ -743,10 +810,8 @@ def run_cases(cases, dtype_name, tol, timed=True):
         errs = [err_ok(o, w, tol) for o, w in zip(out, want)]
         err, ok = max(e for e, _ in errs), all(o for _, o in errs)
         row = {"kernel": case.kernel, "case": case.name, "dtype": dtype_name,
-               **case.counts, "max_abs_err": err, "tol": tol}
-        if case.kernel == "rowwise_matmul":
-            row["design"] = pick_design(case.op["x"].shape[0],
-                                        case.op["x"].dtype)
+               **case.counts, "max_abs_err": err, "tol": tol,
+               "design": case.design}
         if len(errs) > 1:
             row["errs"] = [e for e, _ in errs]
         b_ms, b_by = bound(case.flops, case.nbytes, dtype_name)
@@ -1122,30 +1187,31 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
 
 
 def design_tables(rows):
-    """The matmul per design, per dtype, summed over one run of each
-    path (``fused``: a Swin-T forward at B=8, ``prefill`` / ``decode``:
-    an RWKV6-3B prefill at B=4 x 512 / decode step at B=4; the int8
-    cases over their Swin-T shapes, as the int8 path runs them): launches
-    and event / plain / library ms and the bound, each case times its
-    launches."""
+    """Each kernel per design, per dtype, summed over one run of each
+    path (``fused``: a Swin-T forward at B=8, ``fused64``: its attention
+    at B=64, ``vit``: a ViT-B/16 forward at B=8, ``prefill`` /
+    ``decode``: an RWKV6-3B prefill at B=4 x 512 / decode step at B=4; the
+    int8 cases over their Swin-T shapes, as the int8 path runs them):
+    launches and event / plain / library ms and the bound, each case
+    times its launches."""
     out = {}
-    for key in ("fused", "prefill", "decode"):
+    for key in ("fused", "fused64", "vit", "prefill", "decode"):
         for dt in ("fp32", "bf16", "int8"):
-            for design in ("skinny", "wgmma", "ffma"):
-                per = [r for r in rows if r["kernel"] == "rowwise_matmul"
-                       and r[key] and r["dtype"] == dt
-                       and r.get("design") == design]
-                if not per:
-                    continue
+            for kernel in REPLACES:
+                mine = [r for r in rows if r["kernel"] == kernel and r[key]
+                        and r["dtype"] == dt and r["design"]]
+                for design in sorted({r["design"] for r in mine}):
+                    per = [r for r in mine if r["design"] == design]
 
-                def total(k, per=per):
-                    if any(r[k] is None for r in per):
-                        return None
-                    return sum(r[key] * r[k] for r in per)
-                out[f"{key} {dt} {design}"] = {
-                    "launches": sum(r[key] for r in per),
-                    **{k: total(k) for k in ("ms", "plain_ms", "library_ms",
-                                             "bound_ms", "flops", "bytes")}}
+                    def total(k, per=per):
+                        if any(r[k] is None for r in per):
+                            return None
+                        return sum(r[key] * r[k] for r in per)
+                    out[f"{key} {dt} {kernel} {design}"] = {
+                        "launches": sum(r[key] for r in per),
+                        **{k: total(k) for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "flops", "bytes")}}
     for k, v in out.items():
         say("design-table", f"{k}: " + " ".join(
             f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
@@ -1240,6 +1306,9 @@ def main() -> int:
     if not all(mma[k] for k in mma if "wgmma" in k):
         build_faults.append("a wgmma kernel holds no tensor-core "
                             "instruction")
+    if not [k for k in mma if "attention_kernel_mma" in k] or not all(
+            mma[k].get("HMMA") for k in mma if "attention_kernel_mma" in k):
+        build_faults.append("a bf16 attention kernel holds no HMMA")
     for fault in build_faults:
         say("build", f"FAULT: {fault}")
 
@@ -1256,6 +1325,18 @@ def main() -> int:
                       FP32_TOL)
     rows += run_cases(rwkv_cases(rwkv_cfg, torch.bfloat16, gen, dev), "bf16",
                       BF16_TOL)
+    # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
+    # Swin-T stage at B=64 (the throughput batch)
+    for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
+                          (torch.bfloat16, "bf16", BF16_TOL)):
+        agen = torch.Generator().manual_seed(7)
+        vt = (VIT_CONFIG.img_size // VIT_CONFIG.patch) ** 2 + 1
+        heads = VIT_CONFIG.num_heads
+        rows += run_cases(
+            [attention_case("vit-b16", (8, vt, VIT_CONFIG.embed_dim // heads),
+                            heads, heads, dt, agen, dev, vit=VIT_CONFIG.depth)]
+            + swin_attention_cases(CONFIG, 64, dt, agen, dev, "fused64"),
+            name, tol)
     i8_cases = int8_cases(CONFIG, rwkv_cfg, 8, torch.Generator().manual_seed(5),
                           dev)
     rows += run_cases(i8_cases, "int8", INT8_TOL)
@@ -1343,6 +1424,7 @@ def main() -> int:
     # 9. the int8 path
     i8_counts, i8_device_ms = int8_path(i8_cases)
     threshold = threshold_readings(dev)
+    threshold_wkv = wkv_threshold_readings(rwkv_cfg, dev)
     designs = design_tables(rows)
 
     # 10. the kernels line and the result
@@ -1368,6 +1450,7 @@ def main() -> int:
                                "design_tables": designs,
                                "int8_path_device_ms": i8_device_ms,
                                "skinny_threshold_us": threshold,
+                               "wkv_threshold_us": threshold_wkv,
                                "kernels": kernels}, indent=1))
     if build_faults:
         raise AssertionError("; ".join(build_faults))

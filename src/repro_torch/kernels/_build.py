@@ -147,6 +147,18 @@ def dtype_code(name: str, dtype: torch.dtype) -> int:
     return DTYPES[dtype]
 
 
+def check_rows16(name: str, what: str, **tensors) -> None:
+    """Raise unless every tensor's rows start 16-byte aligned: the
+    pointer and the strides of its leading dims (the kernels copy rows 16
+    bytes at a time). Dims of size 1 are never stepped over."""
+    for key, t in tensors.items():
+        unit = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                st % unit for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(f"{name}: {key} strides {t.stride()}: {what}")
+
+
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 

@@ -6,7 +6,8 @@ sequence and one decode step after it (random weights from a CUDA
 generator with seed 0, tokens from seed 1), under ``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
-name (the matmul's also by design: skinny, wgmma, ffma).
+name and by design (the matmul's skinny / wgmma / ffma, attention's
+mma / ffma, WKV's chunk / step).
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --batch 8 64 --dtype fp32 bf16 --impl auto ref --out chiprun_out/profile.json
@@ -43,10 +44,14 @@ OWN = {"rowwise_matmul_kernel": "rowwise_matmul",
        "attention_kernel": "flash_attention",
        "layernorm_kernel": "layernorm",
        "wkv_kernel": "wkv"}
-# the matmul's designs by kernel name (the first stem that matches)
-MATMUL_DESIGNS = {"rowwise_matmul_kernel_skinny": "skinny",
-                  "rowwise_matmul_kernel_wgmma": "wgmma",
-                  "rowwise_matmul_kernel": "ffma"}
+# each kernel's designs by kernel name (the first stem that matches)
+DESIGNS = {"rowwise_matmul_kernel_skinny": "rowwise_matmul skinny",
+           "rowwise_matmul_kernel_wgmma": "rowwise_matmul wgmma",
+           "rowwise_matmul_kernel": "rowwise_matmul ffma",
+           "attention_kernel_mma": "flash_attention mma",
+           "attention_kernel_ffma": "flash_attention ffma",
+           "wkv_kernel_chunk": "wkv chunk",
+           "wkv_kernel_step": "wkv step"}
 
 
 def _device_us(evt) -> float:
@@ -87,8 +92,7 @@ def profile_call(fn, items: int, iters: int = 3) -> dict:
         for tag, kernel in OWN.items():
             if tag in name:
                 own[kernel] += ms
-        design = next((d for tag, d in MATMUL_DESIGNS.items() if tag in name),
-                      None)
+        design = next((d for tag, d in DESIGNS.items() if tag in name), None)
         if design:
             designs[design] += ms
     rows = sorted(([name, ms, calls] for name, (ms, calls) in
@@ -97,7 +101,7 @@ def profile_call(fn, items: int, iters: int = 3) -> dict:
             "idle_share": max(0.0, 1 - busy / wall_ms),
             "items_per_s": items / wall_ms * 1e3,
             "own_kernels_ms": dict(own),
-            "matmul_designs_ms": dict(designs),
+            "designs_ms": dict(designs),
             "other_device_ms": busy - sum(own.values()),
             "top": rows[:15]}
 
@@ -109,9 +113,9 @@ def _report(res, what):
           f"{res['idle_share']:.3f}, own kernels "
           + ", ".join(f"{k} {v:.3f}" for k, v in
                       res["own_kernels_ms"].items())
-          + f", other device {res['other_device_ms']:.3f} ms; matmul by "
-          "design " + ", ".join(f"{k} {v:.3f}" for k, v in
-                                res["matmul_designs_ms"].items()),
+          + f", other device {res['other_device_ms']:.3f} ms; by design "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      res["designs_ms"].items()),
           flush=True)
     for row_name, ms, calls in res["top"][:8]:
         print(f"    {ms:8.3f} ms  {calls:6.1f}x  {row_name[:90]}")

@@ -8,7 +8,8 @@ out):
 
 fp32 tolerance 1e-4 against max(1, max|plain|): only the order of the
 fp32 sums differs. bf16: 3e-2, the output (and the WKV y) is rounded to
-bf16 (8-bit mantissa) where the plain version keeps fp32. int8: 1e-5,
+bf16 (8-bit mantissa) where the plain version keeps fp32 (attention also
+rounds its probabilities to bf16 before the PV product, as JAX does). int8: 1e-5,
 the int32 sums are exact (the plain version multiplies in float64 on
 the card), so only the fp32 dequant and activations differ.
 """
@@ -22,6 +23,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels import rowwise_matmul as rm
+from repro_torch.kernels import wkv as wk
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.kernels.wkv import wkv_p
 from repro_torch.models import lm, rwkv6, vision
@@ -200,24 +202,93 @@ def test_matmul_int8_op(dev):
     _close(got, want, 1e-5)
 
 
-@pytest.mark.parametrize("case", [
-    dict(b=4, hq=3, hkv=3, sq=49, skv=49, nb=2, causal=False, hd=32),
-    dict(b=2, hq=8, hkv=2, sq=70, skv=200, causal=True, window=64,
-         q_offset=130, hd=128),
-    dict(b=2, hq=12, hkv=12, sq=197, skv=197, causal=False, hd=64)],
-    ids=["swin-bias", "lm", "vit"])
-def test_attention_kernel(dev, case):
-    case = dict(case)
+ATTN_CASES = {
+    "swin-bias": dict(b=4, hq=3, hkv=3, sq=49, skv=49, nb=2, causal=False,
+                      hd=32),
+    "lm": dict(b=2, hq=8, hkv=2, sq=70, skv=200, causal=True, window=64,
+               q_offset=130, hd=128),
+    "vit": dict(b=2, hq=12, hkv=12, sq=197, skv=197, causal=False, hd=64),
+    # Swin's windows: one bias for every window, and one per window
+    # position (shifted blocks); a bias kept in bf16; every head dim
+    "t49-nb1": dict(b=6, hq=3, hkv=3, sq=49, skv=49, nb=1, causal=False,
+                    hd=32),
+    "t49-nb4": dict(b=8, hq=6, hkv=6, sq=49, skv=49, nb=4, causal=False,
+                    hd=32),
+    "t49-bf16-bias": dict(b=4, hq=3, hkv=3, sq=49, skv=49, nb=2,
+                          causal=False, hd=32, bias_dtype=torch.bfloat16),
+    "t49-hd16": dict(b=3, hq=2, hkv=2, sq=49, skv=49, nb=1, causal=False,
+                     hd=16),
+    "t49-hd64": dict(b=3, hq=2, hkv=2, sq=49, skv=49, nb=3, causal=False,
+                     hd=64),
+    "t49-hd128": dict(b=3, hq=2, hkv=1, sq=49, skv=49, nb=1, causal=False,
+                      hd=128),
+    # keys past Skv in a partial tile, a causal offset past the keys, a
+    # window alone
+    "causal-short": dict(b=1, hq=4, hkv=4, sq=33, skv=20, causal=True,
+                         hd=64),
+    "window-only": dict(b=2, hq=2, hkv=1, sq=150, skv=150, causal=False,
+                        window=40, hd=32),
+    # a bias over several query and key tiles (read from device memory,
+    # not cached), with causal + window and GQA
+    "bias-tiles": dict(b=2, hq=2, hkv=2, sq=100, skv=130, nb=1,
+                       causal=False, hd=64),
+    "bias-causal-window": dict(b=2, hq=4, hkv=2, sq=70, skv=70, nb=2,
+                               causal=True, window=30, hd=32,
+                               bias_dtype=torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(ATTN_CASES))
+def test_attention_kernel(dev, name, dtype):
+    """Each case against the plain version on the same inputs (fp32
+    copies for bf16), one launch each."""
+    case = dict(ATTN_CASES[name])
     b, hq, hkv, sq, skv, hd = (case.pop(k) for k in
                                ("b", "hq", "hkv", "sq", "skv", "hd"))
     nb = case.pop("nb", 0)
+    bias_dtype = case.pop("bias_dtype", torch.float32)
     g = torch.Generator(device="cpu").manual_seed(1)
-    q = torch.randn(b, hq, sq, hd, generator=g).to(dev)
-    k = torch.randn(b, hkv, skv, hd, generator=g).to(dev)
-    v = torch.randn(b, hkv, skv, hd, generator=g).to(dev)
-    bias = torch.randn(nb, hq, sq, skv, generator=g).to(dev) if nb else None
+    q = torch.randn(b, hq, sq, hd, generator=g).to(dev, dtype)
+    k = torch.randn(b, hkv, skv, hd, generator=g).to(dev, dtype)
+    v = torch.randn(b, hkv, skv, hd, generator=g).to(dev, dtype)
+    bias = (torch.randn(nb, hq, sq, skv, generator=g).to(dev, bias_dtype)
+            if nb else None)
+    before = flash_attention_p.launches
     got = flash_attention_p(q, k, v, bias=bias, **case)
-    _close(got, ref.attention_ref(q, k, v, bias=bias, **case))
+    assert flash_attention_p.launches == before + 1 and got.dtype == dtype
+    want = ref.attention_ref(q.float(), k.float(), v.float(), bias=bias,
+                             **case)
+    _close(got, want, TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_reads_views_in_place(dev, dtype):
+    """q/k/v as head views of one fused qkv output and the bias as the
+    permuted view of a (t, t, heads) table, as the Swin block gives
+    them: read through their strides."""
+    nw, t, heads, hd = 16, 49, 3, 32
+    g = torch.Generator(device="cpu").manual_seed(6)
+    qkv = torch.randn(nw, t, 3 * heads * hd, generator=g).to(dev, dtype)
+    q, k, v = (z.reshape(nw, t, heads, hd).permute(0, 2, 1, 3)
+               for z in torch.split(qkv, heads * hd, dim=-1))
+    table = torch.randn(t, t, heads, generator=g).to(dev, dtype)
+    bias = table.permute(2, 0, 1)[None]
+    assert not bias.is_contiguous() and not q.is_contiguous()
+    got = flash_attention_p(q, k, v, bias=bias, causal=False)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), bias=bias,
+                             causal=False)
+    _close(got, want, TOLS[dtype])
+
+
+def test_attention_refuses_unaligned_rows(dev):
+    """The kernel copies q/k/v rows 16 bytes at a time: rows that are not
+    16-byte aligned raise rather than run anything else."""
+    x = torch.randn(1, 2, 10, 17 * 16, device=dev)[..., 1:17]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_p(x, x, x, causal=False)
 
 
 @pytest.mark.parametrize("kind", ["layer", "rms"])
@@ -243,15 +314,9 @@ def test_swin_forward_on_kernels(dev, fuse):
     _close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("with_s0", [False, True], ids=["zeros", "s0"])
-@pytest.mark.parametrize("shape", [(2, 45, 3, 16), (1, 7, 2, 64),
-                                   (4, 1, 40, 64), (1, 333, 4, 64),
-                                   (2, 17, 2, 32)], ids=str)
-def test_wkv_kernel(dev, shape, with_s0, dtype):
+def _wkv_inputs(dev, shape, dtype, with_s0, seed=4):
     b, s, h, p = shape
-    g = torch.Generator(device="cpu").manual_seed(4)
+    g = torch.Generator(device="cpu").manual_seed(seed)
     r, k, v = (torch.randn(b, s, h, p, generator=g).to(dev, dtype)
                for _ in range(3))
     lw = torch.clamp(-torch.exp(2 * torch.randn(b, s, h, p, generator=g)),
@@ -259,15 +324,63 @@ def test_wkv_kernel(dev, shape, with_s0, dtype):
     u = torch.randn(h, p, generator=g).to(dev)
     s0 = (torch.randn(b, h, p, p, generator=g).to(dev) if with_s0
           else None)
+    return r, k, v, lw, u, s0
+
+
+def _wkv_check(dev, shape, dtype, with_s0):
+    r, k, v, lw, u, s0 = _wkv_inputs(dev, shape, dtype, with_s0)
     before = wkv_p.launches
     y, s_fin = wkv_p(r, k, v, lw, u, s0=s0)
     assert wkv_p.launches == before + 1
     assert y.dtype == dtype and s_fin.dtype == torch.float32
     want_y, want_s = rwkv6.wkv_chunked(*(t.float() for t in (r, k, v, lw)),
                                        u, s0=s0)
-    tol = 1e-4 if dtype == torch.float32 else 3e-2
-    _close(y, want_y, tol)
+    _close(y, want_y, TOLS[dtype])
     _close(s_fin, want_s, 1e-4)
+    return y, s_fin
+
+
+# S = 1 and 2 (step design), 15, 16, 17 (a chunk's edges), the ragged 333;
+# B=1 at RWKV6-3B's 40 heads; head dims 16, 32, 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("shape", [(2, 45, 3, 16), (1, 7, 2, 64),
+                                   (4, 1, 40, 64), (1, 333, 4, 64),
+                                   (2, 17, 2, 32), (1, 1, 40, 64),
+                                   (1, 2, 40, 64), (1, 15, 40, 64),
+                                   (1, 16, 40, 64), (1, 17, 40, 64),
+                                   (1, 333, 40, 64), (3, 16, 2, 16),
+                                   (2, 2, 3, 32)], ids=str)
+def test_wkv_kernel(dev, shape, with_s0, dtype):
+    _wkv_check(dev, shape, dtype, with_s0)
+
+
+@pytest.mark.parametrize("step_upto", [0, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 1, 40, 64), (2, 16, 3, 32),
+                                   (1, 45, 2, 64), (2, 5, 2, 16)], ids=str)
+def test_wkv_designs_either_side(dev, monkeypatch, shape, dtype,
+                                 step_upto):
+    """The chunk and the step design at the same S (the picker's
+    threshold moved to 0 or past S), with a starting state, each against
+    the plain scan; each repeats bitwise."""
+    monkeypatch.setattr(wk, "STEP_PICK_S", step_upto)
+    assert wk.pick_design(shape[1]) == ("step" if step_upto else "chunk")
+    y, s_fin = _wkv_check(dev, shape, dtype, True)
+    *args, s0 = _wkv_inputs(dev, shape, dtype, True)
+    again = wkv_p(*args, s0=s0)
+    assert torch.equal(y, again[0]) and torch.equal(s_fin, again[1])
+
+
+def test_wkv_chunk_refuses_unaligned_rows(dev, monkeypatch):
+    """The chunk design copies 16-byte rows: a misaligned head dim offset
+    raises rather than run anything else."""
+    monkeypatch.setattr(wk, "STEP_PICK_S", 0)
+    x = (-torch.rand(1, 40, 2, 65, device=dev))[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_p(x, x, x, x, torch.ones(2, 64, device=dev))
 
 
 def test_rwkv_prefill_and_decode_on_kernels(dev):

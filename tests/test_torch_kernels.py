@@ -218,3 +218,60 @@ def test_weight_only_int8_leaf_dequantizes():
     with jruntime.use_impl("ref"):
         want = jops.matmul(jnp.asarray(x), jq)
     _close(ops.matmul(torch.from_numpy(x), leaf), want)
+
+
+# --------------------------------------------------------------------------
+# The designs each wrapper picks, in pure Python (the kernels run only on
+# the card; tests/test_torch_cuda.py runs each design there).
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rowwise_matmul as rm  # noqa: E402
+from repro_torch.kernels import wkv as wk  # noqa: E402
+
+
+@pytest.mark.parametrize("s", [0, 1, 2, "pick", "pick+1", 15, 16, 17, 333,
+                               512])
+def test_wkv_pick_design(s):
+    """Sequences up to STEP_PICK_S tokens take the step design (decode),
+    longer ones the chunk design (prefill)."""
+    if s == "pick":
+        s = wk.STEP_PICK_S
+    elif s == "pick+1":
+        s = wk.STEP_PICK_S + 1
+    want = "step" if s <= wk.STEP_PICK_S else "chunk"
+    assert wk.pick_design(s) == want
+    assert want in wk.DESIGNS
+
+
+def test_wkv_pick_design_follows_its_threshold(monkeypatch):
+    for upto in (0, 1, 16, 1 << 20):
+        monkeypatch.setattr(wk, "STEP_PICK_S", upto)
+        assert [wk.pick_design(s) for s in (1, 16, 17)] == [
+            "step" if s <= upto else "chunk" for s in (1, 16, 17)]
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "ffma"),
+                                        (torch.bfloat16, "mma")],
+                         ids=["fp32", "bf16"])
+def test_attention_pick_design(dtype, want):
+    assert fa.pick_design(dtype) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int8,
+                                   torch.float64])
+def test_attention_pick_design_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="no kernel"):
+        fa.pick_design(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=str)
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 2048])
+def test_matmul_pick_design(m, dtype):
+    """Up to SKINNY_PICK_M rows the skinny design; above, wgmma for bf16
+    and int8, ffma for fp32."""
+    if m <= rm.SKINNY_PICK_M[dtype]:
+        want = "skinny"
+    else:
+        want = "ffma" if dtype == torch.float32 else "wgmma"
+    assert rm.pick_design(m, dtype) == want
