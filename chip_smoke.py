@@ -18,7 +18,9 @@ Phases, each printing its lines:
    warm-up; calls of M <= 16 rows rotate copies of their weights past
    the 50 MB L2, so each reads its weights from HBM as the model does),
    the bound, and the design the call took (matmul: skinny, wgmma or
-   ffma; attention: mma or ffma; WKV: chunk or step); the attention of
+   ffma; attention: mma or ffma; WKV: chunk or step; layernorm: cta or
+   rows, each layernorm case with its own and ``F.layer_norm``'s device
+   ms from the profiler beside the event ms); the attention of
    ViT-B/16 (B=8) and of a Swin-T forward at B=64; then the int8 W8A8
    leg at every distinct Swin-T matmul shape and at RWKV6-3B's widths
    at M=2048 and M=4, held against the exact
@@ -50,8 +52,11 @@ Phases, each printing its lines:
    line ``{"ok": true, "device": {...}}``. Before the tables, each
    picker's boundary (``threshold`` lines, device µs from the
    profiler): the matmul's skinny design against the M > 16 design of
-   each dtype at M = 4 .. 16, and WKV's step design against its chunk
-   design at S = 1 .. 32 tokens.
+   each dtype at M = 4 .. 16, WKV's step design against its chunk
+   design at S = 1 .. 32 tokens, and layernorm's cta design against its
+   rows design at M = 1 .. 2048 rows of D = 96 .. 2560. The kernels
+   line gives layernorm once per design: over the fused Swin-T forward
+   (rows) and over an RWKV6-3B decode step (cta).
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -342,24 +347,31 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
 
     def library():
         wt, wgt = next(turn)
-        if int8:
-            return torch._int_mm(x, wt)
         xin = x
         if norm == "layer":
             xin = F.layer_norm(x, (k,), g, be, 1e-6)
         elif norm == "rms":
             xin = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * g
             xin = xin + be if be is not None else xin
-        h = torch.addmm(b, xin, wt) if b is not None else xin @ wt
+        if int8:
+            # the int32 product, then the dequant and the same epilogue
+            def dot(wq, bias, scale):
+                h = torch._int_mm(x, wq) * scales["x_scale"] * scale
+                return h + bias if bias is not None else h
+            h = dot(wt, b, scales["w_scale"])
+            gg = dot(wgt, bg, scales.get("wg_scale")) if gated else None
+        else:
+            h = torch.addmm(b, xin, wt) if b is not None else xin @ wt
+            gg = ((torch.addmm(bg, xin, wgt) if bg is not None else
+                   xin @ wgt) if gated else None)
         if gated:
-            gg = torch.addmm(bg, xin, wgt) if bg is not None else xin @ wgt
             h = act_fn(gg) * h
         else:
             h = act_fn(h)
         return h + res if res is not None else h
 
-    # torch._int_mm, the int8 yardstick (the product alone), takes
-    # M > 16 and K, N multiples of 8
+    # torch._int_mm, the int8 yardstick's product, takes M > 16 and K, N
+    # multiples of 8
     has_library = not int8 or (m > 16 and k % 8 == 0 and n % 8 == 0)
 
     def run():
@@ -431,25 +443,35 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
 
 
 def layernorm_case(name, m, d, dtype, gen, device, **counts):
+    """One norm call. Its operands fit in the 50 MB L2, so the kernel,
+    plain and library calls each take the next of enough copies of x to
+    pass the L2 and read x from HBM, as the bound assumes."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.layernorm import layernorm_p
+    from repro_torch.kernels.layernorm import layernorm_p, pick_design
 
     x = _rand(gen, (m, d), dtype, device)
     g = 1 + _rand(gen, (d,), dtype, device, 0.1)
     b = _rand(gen, (d,), dtype, device, 0.1)
+    copies = int(-(-COLD_BYTES // (x.numel() * x.element_size())))
+    turn = itertools.cycle(x.expand(copies, m, d).contiguous().unbind(0))
 
     def plain_on(cast):
-        c = (lambda z: z.to(cast)) if cast else (lambda z: z)
-        return lambda: ref.layernorm_ref(c(x), c(g), c(b))
+        if cast:
+            return lambda: ref.layernorm_ref(x.to(cast), g.to(cast),
+                                             b.to(cast))
+        return lambda: ref.layernorm_ref(next(turn), g, b)
 
     return Case(
         "layernorm", f"{name} M={m} D={d}",
-        lambda: layernorm_p(x, g, b), plain_on(None),
+        lambda: layernorm_p(next(turn), g, b), plain_on(None),
         plain_on(torch.float32 if dtype != torch.float32 else None),
-        lambda: F.layer_norm(x, (d,), g, b, 1e-6), 7 * m * d,
-        nbytes(x, g, b, out=(x.numel(), dtype)), **counts)
+        lambda: F.layer_norm(next(turn), (d,), g, b, 1e-6), 7 * m * d,
+        nbytes(x, g, b, out=(x.numel(), dtype)),
+        design=pick_design(m, d, dtype), **counts)
 
 
 def swin_cases(cfg, batch, dtype, gen, device):
@@ -670,22 +692,6 @@ def int8_cases(cfg, rwkv_cfg, batch, gen, device):
     return cases
 
 
-def device_us(fn, tag, calls):
-    """Device µs per call of the kernels whose name holds ``tag``, over
-    ``calls`` calls of ``fn`` under the profiler (after a warm-up)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages() if tag in e.key) / calls
-
-
 def threshold_readings(device):
     """Device µs per call of the skinny design against the M > 16 design
     of each dtype (wgmma for bf16, ffma for fp32) at M = 4 .. 16, at the
@@ -693,6 +699,7 @@ def threshold_readings(device):
     behind ``SKINNY_PICK_M``."""
     import torch
     from repro_torch.kernels import rowwise_matmul as rm
+    from repro_torch.launch.profile import kernel_us
     out = {}
     for dt, other in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
         ws = [(torch.randn(2560, 2560, device=device) * 0.02).to(dt)
@@ -707,8 +714,8 @@ def threshold_readings(device):
                         rm.rowwise_matmul_p(x, w)
                 rm.SKINNY_PICK_M[dt] = upto
                 try:
-                    out[f"{dt} M={m} {design}"] = device_us(
-                        run, "rowwise_matmul_kernel", 5) / len(ws)
+                    out[f"{dt} M={m} {design}"] = kernel_us(
+                        run, "rowwise_matmul_kernel", 5)
                 finally:
                     rm.SKINNY_PICK_M[dt] = pick
     say("threshold", "device µs per call, M x 2560 x 2560, weights cold: "
@@ -724,6 +731,7 @@ def wkv_threshold_readings(cfg, device):
     plain scan as well."""
     import torch
     from repro_torch.kernels import wkv as wk
+    from repro_torch.launch.profile import kernel_us
     from repro_torch.models.rwkv6 import CLAMP, wkv_chunked
     p = cfg.rwkv.head_dim
     h = cfg.d_model // p
@@ -741,9 +749,8 @@ def wkv_threshold_readings(cfg, device):
             wk.STEP_PICK_S = upto
             try:
                 got = wk.wkv_p(r, k, v, lw, u, s0=s0)
-                out[f"S={s} {design}"] = device_us(
-                    lambda: wk.wkv_p(r, k, v, lw, u, s0=s0), "wkv_kernel",
-                    20)
+                out[f"S={s} {design}"] = kernel_us(
+                    lambda: wk.wkv_p(r, k, v, lw, u, s0=s0), "wkv_kernel")
             finally:
                 wk.STEP_PICK_S = pick
             for g, w in zip(got, want):
@@ -754,6 +761,47 @@ def wkv_threshold_readings(cfg, device):
     say("threshold", f"wkv device µs per call, B=4 x {h} heads of {p}, "
         f"fp32, with s0 (STEP_PICK_S={pick}): " + ", ".join(
             f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def layernorm_threshold_readings(device):
+    """Device µs per call of layernorm's cta design against its rows
+    design at M = 1 .. 2048 rows of D = 96 .. 768 (Swin-T's stages,
+    ViT-B/16) and 2560 (RWKV6-3B), fp32 and bf16, with beta, x warm in L2
+    as the model leaves it: the measurement behind ``CTA_PICK_M``. Each
+    design's output is held against the plain version as well."""
+    import torch
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels import ref
+    from repro_torch.launch.profile import kernel_us
+    gen = torch.Generator(device=device).manual_seed(8)
+    pick, out = dict(ln.CTA_PICK_M), {}
+    for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
+                          (torch.bfloat16, "bf16", BF16_TOL)):
+        for d in (96, 192, 384, 768, 2560):
+            g = 1 + _rand(gen, (d,), dt, device, 0.1)
+            b = _rand(gen, (d,), dt, device, 0.1)
+            for m in (1, 4, 16, 64, 132, 196, 264, 392, 528, 784, 1056,
+                      1568, 2048):
+                x = _rand(gen, (m, d), dt, device)
+                want = ref.layernorm_ref(x.float(), g, b)
+                for design, upto in (("cta", 1 << 30), ("rows", 0)):
+                    ln.CTA_PICK_M[dt] = upto
+                    try:
+                        got = ln.layernorm_p(x, g, b)
+                        out[f"{name} D={d} M={m} {design}"] = kernel_us(
+                            lambda: ln.layernorm_p(x, g, b),
+                            "layernorm_kernel")
+                    finally:
+                        ln.CTA_PICK_M[dt] = pick[dt]
+                    err, ok = err_ok(got, want, tol)
+                    if not ok:
+                        raise AssertionError(
+                            f"layernorm {design} {name} at M={m} D={d}: "
+                            f"max abs err {err}")
+    say("threshold", "layernorm device µs per call (CTA_PICK_M: "
+        f"fp32 {pick[torch.float32]}, bf16 {pick[torch.bfloat16]}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
     return out
 
 
@@ -802,6 +850,7 @@ def int8_path(cases):
 
 
 def run_cases(cases, dtype_name, tol, timed=True):
+    from repro_torch.launch.profile import kernel_us
     rows = []
     for case in cases:
         out, want = case.run(), case.check()
@@ -821,6 +870,16 @@ def run_cases(cases, dtype_name, tol, timed=True):
             row.update(ms=cuda_time(case.run), plain_ms=cuda_time(case.plain),
                        library_ms=(cuda_time(case.library) if case.library
                                    else None))
+        if timed and case.kernel == "layernorm":
+            # a norm call is short, so its event time is mostly host: the
+            # profiler's device time, the kernel's and F.layer_norm's (one
+            # kernel a call at these widths)
+            row.update(device_ms=kernel_us(case.run, "layernorm_kernel")
+                       / 1e3,
+                       library_device_ms=kernel_us(case.library, None)
+                       / 1e3)
+        elif timed and case.counts["vit"]:
+            row["device_ms"] = kernel_us(case.run, "attention_kernel") / 1e3
         say("kernels", " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else
             f"{k}={'none' if v is None else v}"
@@ -1165,9 +1224,10 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
                 label=None, source=None):
     """One kernel's entry of the kernels JSON line: its ``dtype`` cases
     summed over the calls of one ``key`` run (``fused``: a Swin-T forward,
-    ``prefill``: an RWKV6-3B prefill), each times its launches there."""
-    mine = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype]
-    per = [r for r in mine if r[key]]
+    ``prefill``: an RWKV6-3B prefill), each times its launches there, and
+    the largest error of those cases."""
+    per = [r for r in rows if r["kernel"] == name and r["dtype"] == dtype
+           and r[key]]
 
     def total(k):
         return sum(r[key] * r[k] for r in per)
@@ -1177,7 +1237,7 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
     return {"name": label or name, "route": "cuda",
             "source": source or SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in per),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
@@ -1204,18 +1264,19 @@ def design_tables(rows):
                     per = [r for r in mine if r["design"] == design]
 
                     def total(k, per=per):
-                        if any(r[k] is None for r in per):
+                        if any(r.get(k) is None for r in per):
                             return None
                         return sum(r[key] * r[k] for r in per)
                     out[f"{key} {dt} {kernel} {design}"] = {
                         "launches": sum(r[key] for r in per),
                         **{k: total(k) for k in (
-                            "ms", "plain_ms", "library_ms", "bound_ms",
-                            "flops", "bytes")}}
+                            "ms", "device_ms", "plain_ms", "library_ms",
+                            "library_device_ms", "bound_ms", "flops",
+                            "bytes")}}
     for k, v in out.items():
         say("design-table", f"{k}: " + " ".join(
             f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
-            for a, b in v.items()))
+            for a, b in v.items() if b is not None))
     return out
 
 
@@ -1234,18 +1295,20 @@ def rwkv_tables(rows):
                     continue
 
                 def total(k, per=per):
-                    if any(r[k] is None for r in per):
+                    if any(r.get(k) is None for r in per):
                         return None
                     return sum(r[key] * r[k] for r in per)
 
                 out[f"{key} {dt} {name}"] = {
                     "launches": sum(r[key] for r in per),
-                    **{k: total(k) for k in ("ms", "plain_ms", "library_ms",
+                    **{k: total(k) for k in ("ms", "device_ms", "plain_ms",
+                                             "library_ms",
+                                             "library_device_ms",
                                              "bound_ms")}}
     for k, v in out.items():
         say("rwkv-table", f"{k}: " + " ".join(
             f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
-            for a, b in v.items()))
+            for a, b in v.items() if b is not None))
     return out
 
 
@@ -1340,6 +1403,13 @@ def main() -> int:
     i8_cases = int8_cases(CONFIG, rwkv_cfg, 8, torch.Generator().manual_seed(5),
                           dev)
     rows += run_cases(i8_cases, "int8", INT8_TOL)
+    lib8 = [r for r in rows if r["dtype"] == "int8" and r["fused"]
+            and r["library_ms"] is not None]
+    say("kernels", f"int8 library (torch._int_mm, dequant, epilogue) over "
+        f"{sum(r['fused'] for r in lib8)} launches of a Swin-T forward: "
+        f"{sum(r['fused'] * r['library_ms'] for r in lib8):.4f} ms against "
+        f"the kernel's {sum(r['fused'] * r['ms'] for r in lib8):.4f} ms; "
+        "the head (M=8) has no _int_mm")
     overheads = launch_overheads(dev)
     # the host's speed varies from machine to machine; the ratio to the
     # library call is the steadier reading
@@ -1425,13 +1495,25 @@ def main() -> int:
     i8_counts, i8_device_ms = int8_path(i8_cases)
     threshold = threshold_readings(dev)
     threshold_wkv = wkv_threshold_readings(rwkv_cfg, dev)
+    threshold_ln = layernorm_threshold_readings(dev)
     designs = design_tables(rows)
 
     # 10. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
-               for name in ("rowwise_matmul", "flash_attention",
-                            "layernorm")]
+               for name in ("rowwise_matmul", "flash_attention")]
+    # layernorm once per design: the final norm of the fused Swin-T
+    # forward (rows) and the 97 norms of an RWKV6-3B decode step (cta)
+    for key, counts, path in (
+            ("fused", main_counts, swin),
+            ("decode", rwkv["fp32_b4"]["decode_counts"],
+             "one RWKV6-3B decode step, B=4, fp32")):
+        design = "+".join(sorted({
+            r["design"] for r in rows if r["kernel"] == "layernorm"
+            and r["dtype"] == "fp32" and r[key]}))
+        kernels.append(kernel_line(rows, "layernorm", key,
+                                   counts["layernorm"], path,
+                                   label=f"layernorm {design}"))
     kernels.append(kernel_line(rows, "wkv", "prefill",
                                rwkv["fp32_b4"]["counts"]["wkv"],
                                "one RWKV6-3B prefill, B=4 x 512, fp32"))
@@ -1451,13 +1533,15 @@ def main() -> int:
                                "int8_path_device_ms": i8_device_ms,
                                "skinny_threshold_us": threshold,
                                "wkv_threshold_us": threshold_wkv,
+                               "layernorm_threshold_us": threshold_ln,
                                "kernels": kernels}, indent=1))
     if build_faults:
         raise AssertionError("; ".join(build_faults))
     say("done", f"{time.perf_counter() - t_start:.1f} s in all; "
                 f"per-case details in {OUT.relative_to(ROOT)}; kernel ms "
                 f"below are sums over {swin} (the wkv row: over one "
-                "RWKV6-3B prefill at B=4 x 512, fp32)")
+                "RWKV6-3B prefill at B=4 x 512, fp32; the layernorm cta "
+                "row: over one decode step at B=4, fp32)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

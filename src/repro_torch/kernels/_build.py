@@ -135,10 +135,16 @@ def check_cuda(name: str, *tensors) -> torch.device:
             raise NotImplementedError(f"{name}: the kernel has no backward")
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for a tensor on {dev}")
-    if dev.index != torch.cuda.current_device():
+    if dev.index != current_device():
         raise ValueError(f"{name}: tensor on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+                         f"cuda:{current_device()}")
     return dev
+
+
+def current_device() -> int:
+    """The index of the current CUDA device (torch's raw call, without
+    torch.cuda's Python layers)."""
+    return torch._C._cuda_getDevice()
 
 
 def dtype_code(name: str, dtype: torch.dtype) -> int:
@@ -181,5 +187,11 @@ def vector(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index``, as a pointer (torch's
+    raw call, without a torch.cuda.Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    return raw_stream(device.index)

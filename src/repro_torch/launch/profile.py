@@ -7,12 +7,24 @@ generator with seed 0, tokens from seed 1), under ``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
 name and by design (the matmul's skinny / wgmma / ffma, attention's
-mma / ffma, WKV's chunk / step).
+mma / ffma, WKV's chunk / step, layernorm's cta / rows).
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --batch 8 64 --dtype fp32 bf16 --impl auto ref --out chiprun_out/profile.json
     PYTHONPATH=src python -m repro_torch.launch.profile --model rwkv6-3b \
         --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.profile --model layernorm \
+        --dtype fp32 bf16
+
+``--model layernorm`` times ``layernorm_p`` alone at each shape
+``chip_smoke.py`` holds it at (Swin-T's norms at B=8, RWKV6-3B's at
+prefill and decode): device µs per call from the profiler, the CUDA-event
+µs of back-to-back calls, ``F.layer_norm``'s beside both, and the host µs
+per call of each on 64 x 64. Another tree's kernel (the parent commit's,
+from ``git archive``) is timed the same way: copy this file into that
+tree's ``repro_torch/launch/`` (naming the tree's one design in place of
+``ln.pick_design(m, d, dt)`` where it has no picker) and run it with that
+tree's ``src`` on the path.
 
 ``--impl ref`` profiles the plain PyTorch path on the card. A card is
 required: without one it raises.
@@ -22,6 +34,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import statistics
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -51,7 +64,13 @@ DESIGNS = {"rowwise_matmul_kernel_skinny": "rowwise_matmul skinny",
            "attention_kernel_mma": "flash_attention mma",
            "attention_kernel_ffma": "flash_attention ffma",
            "wkv_kernel_chunk": "wkv chunk",
-           "wkv_kernel_step": "wkv step"}
+           "wkv_kernel_step": "wkv step",
+           "layernorm_kernel_cta": "layernorm cta",
+           "layernorm_kernel_rows": "layernorm rows"}
+# the layernorm calls of chip_smoke.py: Swin-T's four stages and final
+# norm at B=8, RWKV6-3B's norms at prefill (B=4 x 512) and decode (B=4)
+LN_SHAPES = ((25088, 96), (6272, 192), (1568, 384), (392, 768),
+             (2048, 2560), (4, 2560))
 
 
 def _device_us(evt) -> float:
@@ -157,10 +176,103 @@ def profile_rwkv(args, dev, card):
     return results
 
 
+def kernel_us(fn, tag=None, calls=20, sessions=3) -> float:
+    """Device µs of one kernel whose name holds ``tag`` (any kernel for
+    ``tag=None``) over ``calls`` calls of ``fn`` under the profiler, after
+    a warm-up: the median over ``sessions`` profiles of each one's median
+    kernel record with a time. The profiler drops some records, keeps
+    some without a time, and can read a whole profile up to 2x off, so no
+    one record or profile decides (a profile that kept none is taken
+    again)."""
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(sessions + 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [us for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (tag is None or tag in e.key)
+                 and (us := _device_us(e)) > 0]
+        if times:
+            readings.append(statistics.median(times))
+            if len(readings) == sessions:
+                return statistics.median(readings)
+    raise RuntimeError(f"the profiler recorded no kernel of {tag!r}")
+
+
+def _event_us(fn, calls=50):
+    """CUDA-event µs per call of ``calls`` back-to-back calls of ``fn``."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
+def _host_us(fn, calls=2000):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def profile_layernorm(args, dev, card):
+    """``layernorm_p`` and ``F.layer_norm`` at each of LN_SHAPES per
+    dtype (x * 3 + 1, gamma and beta in x's dtype), then their host cost
+    per call on 64 x 64."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import layernorm as ln
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for name in args.dtype:
+        dt = DTYPES[name]
+        for m, d in LN_SHAPES:
+            x = (torch.randn(m, d, device=dev, generator=gen) * 3 + 1).to(dt)
+            g = (1 + 0.1 * torch.randn(d, device=dev, generator=gen)).to(dt)
+            b = (0.1 * torch.randn(d, device=dev, generator=gen)).to(dt)
+
+            def norm():
+                return ln.layernorm_p(x, g, b)
+
+            def library():
+                return F.layer_norm(x, (d,), g, b, 1e-6)
+            k_dev, k_event = kernel_us(norm, calls=50), _event_us(norm)
+            f_dev, f_event = kernel_us(library, calls=50), _event_us(library)
+            design = ln.pick_design(m, d, dt)
+            res = dict(card=card, dtype=name, m=m, d=d, design=design,
+                       device_us=k_dev, event_us=k_event,
+                       library_device_us=f_dev, library_event_us=f_event)
+            results.append(res)
+            print(f"[profile] {card} layernorm {name} M={m} D={d} "
+                  f"{design}: device {k_dev:.3f} µs, event {k_event:.3f} "
+                  f"µs; F.layer_norm device {f_dev:.3f} µs, event "
+                  f"{f_event:.3f} µs", flush=True)
+    x, b = torch.randn(64, 64, device=dev), torch.randn(64, device=dev)
+    host = {"layernorm_p": _host_us(lambda: ln.layernorm_p(x, b, b)),
+            "F.layer_norm": _host_us(
+                lambda: F.layer_norm(x, (64,), b, b, 1e-6))}
+    results.append(dict(card=card, host_us_per_call=host))
+    print(f"[profile] {card} layernorm host µs per call on 64 x 64: "
+          f"layernorm_p {host['layernorm_p']:.2f}, F.layer_norm "
+          f"{host['F.layer_norm']:.2f}", flush=True)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="swin-t",
-                    choices=["swin-t", "rwkv6-3b"])
+                    choices=["swin-t", "rwkv6-3b", "layernorm"])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--dtype", nargs="+", default=["fp32"],
                     choices=sorted(DTYPES))
@@ -173,8 +285,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = runtime.resolve_device("cuda")
     card = torch.cuda.get_device_name(0)
-    if args.model == "rwkv6-3b":
-        results = profile_rwkv(args, dev, card)
+    if args.model in ("rwkv6-3b", "layernorm"):
+        results = (profile_rwkv if args.model == "rwkv6-3b" else
+                   profile_layernorm)(args, dev, card)
         if args.out:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(results, indent=1))

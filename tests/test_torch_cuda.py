@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
 from repro_torch.core import quant, runtime
+from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
@@ -299,6 +300,105 @@ def test_layernorm_kernel(dev, kind):
     beta = (0.1 * torch.randn(768, generator=g)).to(dev)
     _close(layernorm_p(x, gamma, beta, kind=kind),
            ref.layernorm_ref(x, gamma, beta, kind=kind))
+
+
+LN_TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the rows design takes rows of up to ROWS_MAX_D; wider ones go to cta
+LN_SHAPES = [(m, d) for m in (1, 3, 4, 5, 131, 300, 2048)
+             for d in (96, 333, 768, 2560, 5376, 20000)] + [
+    (m, 60000) for m in (1, 4, 131)]
+# (kind, beta, gamma/beta dtype: None for x's)
+LN_MODES = [("layer", True, None), ("layer", False, torch.float32),
+            ("rms", False, torch.bfloat16), ("rms", True, torch.float32)]
+
+
+def _ln_inputs(dev, m, d, dtype, vec_dtype, beta, *, strided=False,
+               seed=2):
+    """x (where ``strided``, a view one element into rows of an odd
+    count of elements: neither its base nor its row stride 16-byte
+    aligned), gamma and beta; x at an offset, x * 3 + 1."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ld = d + (3 if d % 2 == 0 else 2) if strided else d
+    x = (torch.randn(m, ld, generator=g) * 3 + 1).to(dev, dtype)
+    if strided:
+        x = x[:, 1:d + 1]
+    vec = vec_dtype or dtype
+    gamma = (1 + 0.1 * torch.randn(d, generator=g)).to(dev, vec)
+    b = (0.1 * torch.randn(d, generator=g)).to(dev, vec) if beta else None
+    return x, gamma, b
+
+
+def _ln_check(x, gamma, beta, kind):
+    """The kernel against the plain version, and again: the same bits."""
+    got = layernorm_p(x, gamma, beta, kind=kind)
+    again = layernorm_p(x, gamma, beta, kind=kind)
+    want = ref.layernorm_ref(x.float(), gamma, beta, kind=kind)
+    _close(got, want, LN_TOLS[x.dtype])
+    assert got.dtype == x.dtype and got.is_contiguous()
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("design", ["cta", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=str)
+def test_layernorm_designs(dev, monkeypatch, design, dtype, shape):
+    """Each design (the picker's threshold moved past M or to 0) at
+    every mode: LayerNorm and RMSNorm, with and without beta, gamma and
+    beta in fp32 or bf16. Rows wider than ``ROWS_MAX_D`` take the cta
+    design (registers, shared memory, or L2 re-reads past 227 KB)."""
+    m, d = shape
+    monkeypatch.setitem(ln.CTA_PICK_M, dtype, 1 << 30 if design == "cta"
+                        else 0)
+    assert ln.pick_design(m, d, dtype) == (
+        "cta" if design == "cta" or d > ln.ROWS_MAX_D[dtype] else "rows")
+    for kind, with_beta, vec in LN_MODES:
+        before = layernorm_p.launches
+        _ln_check(*_ln_inputs(dev, m, d, dtype, vec, with_beta), kind)
+        assert layernorm_p.launches == before + 2
+
+
+@pytest.mark.parametrize("design", ["cta", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 96), (5, 333), (131, 768),
+                                   (300, 2560), (4, 20000), (1, 60000)],
+                         ids=str)
+def test_layernorm_unaligned_rows(dev, monkeypatch, design, dtype, shape):
+    """A strided view whose base and row stride are not 16-byte aligned
+    runs in the kernel (element-wise loads), as aligned rows do."""
+    monkeypatch.setitem(ln.CTA_PICK_M, dtype, 1 << 30 if design == "cta"
+                        else 0)
+    x, gamma, beta = _ln_inputs(dev, *shape, dtype, None, True,
+                                strided=True)
+    assert x.data_ptr() % 16 and (x.stride(0) * x.element_size()) % 16
+    _ln_check(x, gamma, beta, "layer")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 64, 65, 131, 264])
+@pytest.mark.parametrize("d", [96, 768, 2560])
+def test_layernorm_designs_either_side(dev, monkeypatch, dtype, m, d):
+    """The cta and the rows design at the same M (the picker's threshold
+    moved to M and to M - 1) agree with each other within tolerance."""
+    x, gamma, beta = _ln_inputs(dev, m, d, dtype, None, True, seed=5)
+    outs = {}
+    for pick in (m, m - 1):
+        monkeypatch.setitem(ln.CTA_PICK_M, dtype, pick)
+        outs[ln.pick_design(m, d, dtype)] = _ln_check(x, gamma, beta,
+                                                      "layer")
+    assert set(outs) == {"cta", "rows"}
+    _close(outs["cta"], outs["rows"], LN_TOLS[dtype])
+
+
+def test_layernorm_refuses_operands_on_two_devices(dev):
+    x = torch.randn(4, 8, device=dev)
+    with pytest.raises(ValueError, match="tensors on"):
+        layernorm_p(x, torch.ones(8))
+    with pytest.raises(ValueError, match="tensors on"):
+        layernorm_p(x, torch.ones(8, device=dev), torch.ones(8))
 
 
 @pytest.mark.parametrize("fuse", [True, False])

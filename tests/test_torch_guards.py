@@ -144,6 +144,46 @@ def test_wrappers_refuse_what_no_kernel_takes():
         wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))
 
 
+def _meta(*shape, dtype=torch.float32, grad=False):
+    return torch.ones(*shape, dtype=dtype, device="meta",
+                      requires_grad=grad)
+
+
+@pytest.mark.parametrize("case", [
+    ("kind", ValueError, lambda: layernorm_p(_meta(4, 8), _meta(8),
+                                             kind="group")),
+    ("x not 2-D", ValueError, lambda: layernorm_p(_meta(2, 4, 8),
+                                                  _meta(8))),
+    ("column stride", ValueError, lambda: layernorm_p(_meta(8, 4).t(),
+                                                      _meta(8))),
+    ("gamma shape", ValueError, lambda: layernorm_p(_meta(4, 8),
+                                                    _meta(9))),
+    ("beta shape", ValueError, lambda: layernorm_p(_meta(4, 8), _meta(8),
+                                                   _meta(8, 1))),
+    ("dtype", TypeError, lambda: layernorm_p(
+        _meta(4, 8, dtype=torch.float16), _meta(8))),
+    ("x grad", NotImplementedError, lambda: layernorm_p(
+        _meta(4, 8, grad=True), _meta(8))),
+    ("gamma grad", NotImplementedError, lambda: layernorm_p(
+        _meta(4, 8), _meta(8, grad=True))),
+    ("beta grad", NotImplementedError, lambda: layernorm_p(
+        _meta(4, 8), _meta(8), _meta(8, grad=True))),
+    ("device", ValueError, lambda: layernorm_p(_meta(4, 8), _meta(8))),
+], ids=lambda c: c[0])
+def test_layernorm_wrapper_refuses(case):
+    """What the layernorm wrapper raised on before its host cost was cut,
+    it raises on still, before any launch (meta tensors reach every check
+    but the CUDA device's own); under no_grad a gradient is no bar."""
+    _name, error, call = case
+    before = layernorm_p.launches
+    with pytest.raises(error):
+        call()
+    if error is NotImplementedError:
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+            call()
+    assert layernorm_p.launches == before
+
+
 def test_cpu_path_builds_nothing():
     def counts():
         return (rowwise_matmul_p.launches, flash_attention_p.launches,

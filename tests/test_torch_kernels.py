@@ -158,18 +158,58 @@ def test_attention_matches_jax(case):
 
 @pytest.mark.parametrize("kind", ["layer", "rms"])
 @pytest.mark.parametrize("with_beta", [True, False])
-def test_layernorm_matches_jax(kind, with_beta):
+@pytest.mark.parametrize("shape", [(40, 96), (4, 2560), (7, 333)], ids=str)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_layernorm_matches_jax(kind, with_beta, shape, dtype):
+    """The port's layernorm against JAX's interpret-mode kernel and its
+    reference: the Swin-T width, a decode step's M=4 x D=2560 and a
+    ragged D, x in fp32 and in bf16 (rounded to bf16 on both sides, the
+    same bits; gamma and beta fp32). fp32 within TOL; bf16 within
+    1e-2 (rtol and atol): both round one fp32 result to bf16, and sums
+    taken in another order may move it by one bf16 step, 2^-7 relative
+    to |y|."""
+    m, d = shape
     rng = np.random.default_rng(7)
-    x = _np(rng, (40, 96), 2.0) + 0.5
-    g = 1 + _np(rng, (96,), 0.1)
-    b = _np(rng, (96,), 0.1) if with_beta else None
-    port = layernorm_p(torch.from_numpy(x), torch.from_numpy(g),
+    x = _np(rng, (m, d), 2.0) + 0.5
+    g = 1 + _np(rng, (d,), 0.1)
+    b = _np(rng, (d,), 0.1) if with_beta else None
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    if dtype == "bf16":
+        tx, jx = tx.to(torch.bfloat16), jx.astype(jnp.bfloat16)
+    port = layernorm_p(tx, torch.from_numpy(g),
                        None if b is None else torch.from_numpy(b), kind=kind)
+    assert port.dtype == tx.dtype
     jb = None if b is None else jnp.asarray(b)
-    _close(port, jlayernorm(jnp.asarray(x), jnp.asarray(g), jb, kind=kind,
-                            interpret=True))
-    _close(port, jref.layernorm_ref(jnp.asarray(x), jnp.asarray(g), jb,
-                                    kind=kind))
+    tol = TOL if dtype == "fp32" else dict(rtol=1e-2, atol=1e-2)
+    for want in (jlayernorm(jx, jnp.asarray(g), jb, kind=kind,
+                            interpret=True),
+                 jref.layernorm_ref(jx, jnp.asarray(g), jb, kind=kind)):
+        np.testing.assert_allclose(np.asarray(port.float()),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+
+
+def test_layernorm_pick_design():
+    """Every (M, D, dtype) gets a design; a decode step's rows go to cta,
+    RWKV6-3B prefill, ViT-B/16's final norm and Swin-T's stage norms
+    (B=8) to rows, Swin-T's final norm (392 x 768) to the design measured
+    faster for its dtype (rows in fp32, cta in bf16), rows wider than the
+    rows design holds to cta."""
+    from repro_torch.kernels import layernorm as ln
+    for dt in (torch.float32, torch.bfloat16):
+        for m in (0, 1, 4, ln.CTA_PICK_M[dt], ln.CTA_PICK_M[dt] + 1, 2048,
+                  25088):
+            for d in (1, 96, 333, 2560, ln.ROWS_MAX_D[dt],
+                      ln.ROWS_MAX_D[dt] + 1, 60000):
+                assert ln.pick_design(m, d, dt) in ("cta", "rows")
+        for m in (1, 4):
+            assert ln.pick_design(m, 2560, dt) == "cta"
+        for m, d in ((2048, 2560), (25088, 96), (6272, 192), (1568, 384),
+                     (1576, 768)):
+            assert ln.pick_design(m, d, dt) == "rows"
+        assert ln.pick_design(2048, 20000, dt) == "cta"
+    assert ln.pick_design(392, 768, torch.float32) == "rows"
+    assert ln.pick_design(392, 768, torch.bfloat16) == "cta"
 
 
 def test_ops_match_jax_ops():
