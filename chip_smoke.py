@@ -21,7 +21,10 @@ Phases, each printing its lines:
    ffma; attention: mma or ffma; WKV: chunk or step; layernorm: cta or
    rows, each layernorm case with its own and ``F.layer_norm``'s device
    ms from the profiler beside the event ms); the attention of
-   ViT-B/16 (B=8) and of a Swin-T forward at B=64; then the int8 W8A8
+   ViT-B/16 (B=8) and of a Swin-T forward at B=64; every kernel call of
+   a deepseek-7b prefill (fused and unfused, B=4 x 512) and decode step
+   (B=4), the weights of the qkv and gate|up panels read as the model
+   reads them, summed in ``dense-table`` lines; then the int8 W8A8
    leg at every distinct Swin-T matmul shape and at RWKV6-3B's widths
    at M=2048 and M=4, held against the exact
    plain version (float64 products on the card), ``torch._int_mm`` as
@@ -42,12 +45,23 @@ Phases, each printing its lines:
    fp32 (beside a control in float8_e5m2), and at full depth as readings
    (and, for scale, the plain bf16 prefill against the plain fp32 one);
    prefill and decode tokens/s;
-9. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+9. deepseek-7b at full width and depth (30 layers, d 4096, jittered
+   norms): 4 prompts of 512 tokens, then 32 greedy decode steps, then 1
+   prompt of 333 tokens with 8 steps, in fp32 teacher-forced on the
+   plain path's tokens (logits at prefill and every step, greedy picks,
+   the final KV cache), 121 / 30 / 1 / 0 launches per prefill and
+   121 / 0 / 1 / 0 per step (decode attends in torch ops, as the JAX
+   package does); the unfused prefill (211 / 30 / 61 / 0) against the
+   fused one; bf16 layer by layer against fp32 beside the float8
+   control, fused and unfused, the unfused bf16 prefill counted, and at
+   full depth as readings; prefill and decode tokens/s;
+10. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler);
-10. the matmul, attention and WKV per design and dtype, summed over a
-   Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward, an
-   RWKV6-3B prefill and a decode step (``design-table`` lines); one JSON
+11. the matmul, attention and WKV per design and dtype, summed over a
+   Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
+   RWKV6-3B's and deepseek-7b's prefill and decode step
+   (``design-table`` lines); one JSON
    line of the kernels (the int8 leg a row of its own), then the last
    line ``{"ok": true, "device": {...}}``. Before the tables, each
    picker's boundary (``threshold`` lines, device µs from the
@@ -56,12 +70,18 @@ Phases, each printing its lines:
    design at S = 1 .. 32 tokens, and layernorm's cta design against its
    rows design at M = 1 .. 2048 rows of D = 96 .. 2560. The kernels
    line gives layernorm once per design: over the fused Swin-T forward
-   (rows) and over an RWKV6-3B decode step (cta).
+   (rows) and over an RWKV6-3B decode step (cta), and attention a second
+   time over a deepseek-7b prefill (causal).
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
-and the B=4 decode step with a starting state) against its plain
-version, and sums them per prefill and per decode step.
+and the B=4 decode step with a starting state) and every deepseek-7b
+kernel call (its four matmul panels at M=2048 and M=4, the head at
+N=102400 with fp32 out, causal attention at B=4 x 32 heads x 512 x 128
+with ``F.scaled_dot_product_attention(is_causal=True)`` as the
+yardstick, the final RMSNorm) against its plain version, and sums them
+per prefill and per decode step of each model (``rwkv-table`` and
+``dense-table`` lines).
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -100,7 +120,8 @@ BF16_TOL = 3e-2
 # compounded inside the layer, whatever points it rounds at; the limit
 # sits between the kernel path's largest reading and the least reading
 # of a control in lower precision, the plain bf16 output rounded to
-# float8_e5m2 (2 mantissa bits) (PERF.md, PR 12 findings).
+# float8_e5m2 (2 mantissa bits), for RWKV6-3B and deepseek-7b alike
+# (PERF.md, Findings).
 BF16_LAYER_TOL = 1.5e-2
 
 # int8 W8A8 kernel against the plain version on the same int8 inputs:
@@ -260,8 +281,11 @@ def err_ok(out, want, tol):
 
 # launches per Swin-T forward at B=8 (fused, unfused), per RWKV6-3B
 # prefill at B=4 x 512 and decode step at B=4, per ViT-B/16 forward at
-# B=8, and per fused Swin-T forward at B=64 (attention only)
-COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64")
+# B=8, per fused Swin-T forward at B=64 (attention only), and per
+# deepseek-7b prefill at B=4 x 512 (fused, unfused) and fused decode step
+# at B=4
+COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
+          "dprefill", "ddecode", "dunfused")
 
 
 class Case:
@@ -288,11 +312,14 @@ def _rand(gen, shape, dtype, device, scale=1.0):
 
 def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
                 norm=None, beta=True, residual=False, gated=False,
-                out_f32=False, **counts):
+                out_f32=False, panel=None, **counts):
     """One matmul call. int8: W8A8 operands (x and w int8 from the
     quantizers, fp32 scales and vectors); its plain version multiplies
     in float64, exact. M <= COLD_M: the kernel, plain and library calls
-    each take the next of enough weight copies to pass the L2."""
+    each take the next of enough weight copies to pass the L2.
+    ``panel=(width, offset)``: the weights are column views of one
+    stored (K, width) panel, as the model reads them: w the N columns
+    from ``offset``, or when gated the gate those and w the N after."""
     import itertools
 
     import torch
@@ -305,8 +332,18 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
     int8 = dtype == torch.int8
     vec = torch.float32 if int8 else dtype
     x = _rand(gen, (m, k), vec, device)
-    w = _rand(gen, (k, n), vec, device, k ** -0.5)
-    wg = _rand(gen, (k, n), vec, device, k ** -0.5) if gated else None
+    if panel:
+        width, off = panel
+        full = _rand(gen, (k, width), vec, device, k ** -0.5)
+
+        def views(t):
+            if gated:
+                return t[:, off + n:off + 2 * n], t[:, off:off + n]
+            return t[:, off:off + n], None
+        w, wg = views(full)
+    else:
+        w = _rand(gen, (k, n), vec, device, k ** -0.5)
+        wg = _rand(gen, (k, n), vec, device, k ** -0.5) if gated else None
     b = _rand(gen, (n,), vec, device, 0.1) if bias else None
     bg = _rand(gen, (n,), vec, device, 0.1) if gated and bias else None
     res = _rand(gen, (m, n), vec, device) if residual else None
@@ -315,6 +352,7 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
     out_dtype = torch.float32 if out_f32 or int8 else dtype
     scales = {}
     if int8:
+        assert not panel, "the int8 cases take no panel views"
         x, scales["x_scale"] = quant.quantize_per_row(x)
         w, scales["w_scale"] = quant.quantize_per_channel(w)
         if gated:
@@ -322,10 +360,13 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
     ops = dict(bias=b, activation=act, bias_gate=bg, residual=res, **scales)
     weights = [(w, wg)]
     if m <= COLD_M:
-        size = sum(t.numel() * t.element_size() for t in (w, wg)
-                   if t is not None)
-        weights += [tuple(None if t is None else t.clone() for t in (w, wg))
-                    for _ in range(int(-(-COLD_BYTES // size)) - 1)]
+        size = (full.numel() * full.element_size() if panel else
+                sum(t.numel() * t.element_size() for t in (w, wg)
+                    if t is not None))
+        copies = range(int(-(-COLD_BYTES // size)) - 1)
+        weights += ([views(full.clone()) for _ in copies] if panel else
+                    [tuple(None if t is None else t.clone() for t in (w, wg))
+                     for _ in copies])
     turn = itertools.cycle(weights)
 
     def plain_on(cast, rotate):
@@ -431,21 +472,29 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
         nb = bias.shape[0]
         mask = (bias.to(dtype)[None].expand(nw // nb, *bias.shape)
                 .reshape(nw, heads, t, skv) + mask)
+    if causal and not (window or q_offset or bias is not None) and t == skv:
+        # plain causal attention: the library's own causal path
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
 
     return Case(
         "flash_attention", f"{name} q={tuple(q.shape)} kv={tuple(k.shape)}",
         lambda: flash_attention_p(q, k, v, **kw), plain_on(None),
         plain_on(torch.float32 if dtype != torch.float32 else None),
-        lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+        library,
         4 * nw * heads * hd * int(allowed.sum().item()),
         nbytes(q, k, v, bias, out=(q.numel(), dtype)),
         design=pick_design(dtype), **counts)
 
 
-def layernorm_case(name, m, d, dtype, gen, device, **counts):
-    """One norm call. Its operands fit in the 50 MB L2, so the kernel,
-    plain and library calls each take the next of enough copies of x to
-    pass the L2 and read x from HBM, as the bound assumes."""
+def layernorm_case(name, m, d, dtype, gen, device, kind="layer", **counts):
+    """One norm call (``kind``: LayerNorm with beta, or RMSNorm without).
+    Its operands fit in the 50 MB L2, so the kernel, plain and library
+    calls each take the next of enough copies of x to pass the L2 and
+    read x from HBM, as the bound assumes."""
     import itertools
 
     import torch
@@ -455,21 +504,28 @@ def layernorm_case(name, m, d, dtype, gen, device, **counts):
 
     x = _rand(gen, (m, d), dtype, device)
     g = 1 + _rand(gen, (d,), dtype, device, 0.1)
-    b = _rand(gen, (d,), dtype, device, 0.1)
+    b = _rand(gen, (d,), dtype, device, 0.1) if kind == "layer" else None
     copies = int(-(-COLD_BYTES // (x.numel() * x.element_size())))
     turn = itertools.cycle(x.expand(copies, m, d).contiguous().unbind(0))
 
     def plain_on(cast):
         if cast:
-            return lambda: ref.layernorm_ref(x.to(cast), g.to(cast),
-                                             b.to(cast))
-        return lambda: ref.layernorm_ref(next(turn), g, b)
+            return lambda: ref.layernorm_ref(
+                x.to(cast), g.to(cast), None if b is None else b.to(cast),
+                kind=kind)
+        return lambda: ref.layernorm_ref(next(turn), g, b, kind=kind)
+
+    def library():
+        if kind == "layer":
+            return F.layer_norm(next(turn), (d,), g, b, 1e-6)
+        return F.rms_norm(next(turn), (d,), g, 1e-6)
 
     return Case(
-        "layernorm", f"{name} M={m} D={d}",
-        lambda: layernorm_p(next(turn), g, b), plain_on(None),
+        "layernorm", f"{name} M={m} D={d}" + ("" if b is not None else
+                                             " rms"),
+        lambda: layernorm_p(next(turn), g, b, kind=kind), plain_on(None),
         plain_on(torch.float32 if dtype != torch.float32 else None),
-        lambda: F.layer_norm(next(turn), (d,), g, b, 1e-6), 7 * m * d,
+        library, 7 * m * d,
         nbytes(x, g, b, out=(x.numel(), dtype)),
         design=pick_design(m, d, dtype), **counts)
 
@@ -636,6 +692,66 @@ def rwkv_cases(cfg, dtype, gen, device):
         wkv_case("rwkv.decode wkv", 4, 1, cfg, dtype, gen, device,
                  with_s0=True, decode=n_wkv),
         wkv_case("rwkv ragged wkv", 1, 333, cfg, dtype, gen, device),
+    ]
+    return cases
+
+
+def dense_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of a deepseek-7b prefill at B=4 x 512
+    (M=2048), fused and unfused, and of a fused decode step at B=4 (M=4),
+    with its launches per prefill and per step. Fused, per layer: the
+    qkv panel with the RMS prologue, wo with the residual, the gate|up
+    panel with the prologue and SwiGLU, the down projection with the
+    residual. Unfused, per layer: two RMS norms, q, k and v over column
+    slices of the qkv panel, wo, gate+silu and up over the halves of the
+    gate|up panel, down (the residual adds in torch). Causal attention
+    at prefill (decode attends in torch ops); the final norm and the
+    head on the last position only."""
+    from repro_torch.models import attention, lm
+    d, f, n_layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    splits = attention.proj_splits(cfg)
+    qkv, ho = sum(splits), cfg.n_heads * cfg.head_dim
+    cases = []
+    for m, key in ((4 * 512, "dprefill"), (4, "ddecode")):
+        tag = f"dense.{'prefill' if m > 4 else 'decode'}"
+        cases += [
+            matmul_case(f"{tag} qkv+rms", m, d, qkv, dtype, gen, device,
+                        bias=False, norm="rms", beta=False,
+                        **{key: n_layers}),
+            matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: n_layers}),
+            matmul_case(f"{tag} gate|up+rms+silu", m, d, f, dtype, gen,
+                        device, bias=False, norm="rms", beta=False,
+                        act="silu", gated=True, panel=(2 * f, 0),
+                        **{key: n_layers}),
+            matmul_case(f"{tag} down+res", m, f, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: n_layers}),
+        ]
+    m, tag = 4 * 512, "dense.unfused"
+    # q, k and v share one shape when the heads have no GQA (deepseek-7b)
+    assert len(set(splits)) == 1, splits
+    cases += [
+        layernorm_case(f"{tag} norm", m, d, dtype, gen, device, kind="rms",
+                       dunfused=2 * n_layers),
+        matmul_case(f"{tag} q|k|v", m, d, splits[0], dtype, gen, device,
+                    bias=False, panel=(qkv, 0), dunfused=3 * n_layers),
+        matmul_case(f"{tag} wo", m, ho, d, dtype, gen, device, bias=False,
+                    dunfused=n_layers),
+        matmul_case(f"{tag} gate+silu", m, d, f, dtype, gen, device,
+                    bias=False, act="silu", panel=(2 * f, 0),
+                    dunfused=n_layers),
+        matmul_case(f"{tag} up", m, d, f, dtype, gen, device, bias=False,
+                    panel=(2 * f, f), dunfused=n_layers),
+        matmul_case(f"{tag} down", m, f, d, dtype, gen, device, bias=False,
+                    dunfused=n_layers),
+        matmul_case("dense lm_head fp32-out", 4, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True, dprefill=1,
+                    ddecode=1, dunfused=1),
+        layernorm_case("dense final_norm", 4, d, dtype, gen, device,
+                       kind="rms", dprefill=1, ddecode=1, dunfused=1),
+        attention_case("dense.prefill causal", (4, 512, cfg.head_dim),
+                       cfg.n_heads, cfg.n_kv_heads, dtype, gen, device,
+                       causal=True, dprefill=n_layers, dunfused=n_layers),
     ]
     return cases
 
@@ -996,21 +1112,37 @@ def to_bf16(tree, key=None):
     return tree if key in ("u", "w0") else tree.to(torch.bfloat16)
 
 
-def check_serving(phase, model, prompts, n_steps, tol, want_counts):
+def rwkv_state(cache):
+    """The final WKV states of an RWKV6 cache (its first layer's)."""
+    return [cache[0]["0"]["rwkv_t"]["wkv"]]
+
+
+def kv_state(cache):
+    """The K and V leaves of a dense cache, every layer."""
+    return list(cache[0]["0"]["kv"])
+
+
+def check_serving(phase, model, prompts, n_steps, tol, want_counts,
+                  state=rwkv_state, want_decode=None):
     """Greedy serving of a batch: the plain path on the card picks the
-    tokens (prefill, then ``n_steps`` decode steps); the kernel path runs
-    teacher-forced on them. Its logits at prefill and at every step must
-    sit within tol * max(1, max|logit|) of the plain path's, its greedy
+    tokens (prefill into a cache of S + ``n_steps``, then ``n_steps``
+    decode steps); the kernel path runs teacher-forced on them, on a
+    cache of its own. Its logits at prefill and at every step must sit
+    within tol * max(1, max|logit|) of the plain path's, its greedy
     picks must equal the plain path's (a top-2 gap below the tolerance
-    is reported, not failed), its final WKV states must agree, and each
-    prefill and step must launch ``want_counts``. With ``tol=None`` the
-    logits, picks and states are readings, held only to be finite."""
+    is reported, not failed), its final ``state`` leaves must agree,
+    and each prefill must launch ``want_counts`` and each step
+    ``want_decode`` (default the same). Then ``greedy`` on the kernels
+    must give the plain path's stream up to each row's first near-tie.
+    With ``tol=None`` the logits, picks, states and stream are
+    readings, held only to be finite."""
     import torch
     from repro_torch.core import runtime
     b, s = prompts.shape
+    want_decode = want_decode or want_counts
     with torch.no_grad():
         with runtime.use_impl("ref"):
-            lg, cache = model.prefill(prompts)
+            lg, cache = model.prefill(prompts, alloc=s + n_steps)
             want, toks = [lg], [lg.argmax(-1)]
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=prompts.device)
@@ -1019,8 +1151,9 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts):
                                               lengths + i)
                 want.append(lg)
                 toks.append(lg.argmax(-1))
-        want_states = cache
-        got_lg, counts = counted(lambda: model.prefill(prompts))
+        want_states = state(cache)
+        got_lg, counts = counted(lambda: model.prefill(prompts,
+                                                      alloc=s + n_steps))
         got, cache = [got_lg[0]], got_lg[1]
         all_counts = [counts]
         for i in range(n_steps):
@@ -1029,12 +1162,21 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts):
                                               lengths + i))
             got.append(lg)
             all_counts.append(counts)
+        # the stream as a user asks for it: ``greedy`` on the kernels
+        stream, greedy_counts = counted(
+            lambda: model.greedy(prompts, n_steps + 1))
     limit = float("inf") if tol is None else tol
     ties, scale, step_errs = 0, 1.0, []
+    first_tie = [n_steps + 1] * b     # per row, its first near-tie step
     for i, (g, w) in enumerate(zip(got, want)):
         err, ok = err_ok(g, w, limit)
         step_errs.append(err)
         scale = max(scale, w.abs().max().item())
+        top2 = w.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        for row, gap in enumerate(gaps):
+            if gap <= limit * max(1.0, w.abs().max().item()):
+                first_tie[row] = min(first_tie[row], i)
         if g.shape != w.shape or not ok:
             raise AssertionError(f"{phase}: logits at step {i} off by {err}")
         picked = g.argmax(-1)
@@ -1046,38 +1188,60 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts):
                                      f"{picked[row].item()}, plain path "
                                      f"{toks[i][row].item()} (gap {gap})")
             ties += 1
-    s_err, s_ok = err_ok(cache[0]["0"]["rwkv_t"]["wkv"],
-                         want_states[0]["0"]["rwkv_t"]["wkv"], limit)
-    bad = [c for c in all_counts if c != want_counts]
+    s_errs = [err_ok(g, w, limit) for g, w in zip(state(cache),
+                                                  want_states)]
+    s_err, s_ok = max(e for e, _ in s_errs), all(o for _, o in s_errs)
+    bad = [c for c, w in zip(all_counts, [want_counts]
+                             + [want_decode] * n_steps) if c != w]
+    want_greedy = {k: want_counts[k] + n_steps * want_decode[k]
+                   for k in want_counts}
+    plain_stream = torch.stack(toks, 1)
+    # greedy feeds its own picks back: it must give the plain path's
+    # stream up to each row's first near-tie
+    diverged = [row for row in range(b) if any(
+        stream[row, :first_tie[row]] != plain_stream[row, :first_tie[row]])]
+    same = (stream == plain_stream).float().mean().item()
     worst = max(step_errs)
     held = ("readings only; greedy picks differ at " if tol is None else
             f"tol={tol}*max(1,max|logit|); greedy picks equal but for ")
     say(phase, f"B={b} S={s} + {n_steps} steps: logits max|logit|="
                f"{scale:.4g} max_abs_err={worst:.4g} (prefill "
                f"{step_errs[0]:.4g}, last step {step_errs[-1]:.4g}) "
-               f"{held}{ties} rows; final wkv states max_abs_err="
-               f"{s_err:.4g}; launches per prefill {all_counts[0]}, per "
-               f"step {all_counts[-1]}")
+               f"{held}{ties} rows; final {state.__name__} "
+               f"max_abs_err={s_err:.4g}; launches per prefill "
+               f"{all_counts[0]}, per step {all_counts[-1]}; greedy "
+               f"stream on the kernels: {same:.3f} of its tokens equal "
+               f"the plain path's, launches {greedy_counts}")
     if not s_ok:
-        raise AssertionError(f"{phase}: final WKV states off by {s_err}")
+        raise AssertionError(f"{phase}: final {state.__name__} off by "
+                             f"{s_err}")
     if bad:
         raise AssertionError(f"{phase}: launches {bad[0]}, want "
-                             f"{want_counts}")
+                             f"{want_counts} per prefill, {want_decode} "
+                             "per step")
+    if greedy_counts != want_greedy:
+        raise AssertionError(f"{phase}: greedy launches {greedy_counts}, "
+                             f"want {want_greedy}")
+    if tol is not None and diverged:
+        raise AssertionError(f"{phase}: the greedy stream leaves the plain "
+                             f"path's before a near-tie in rows {diverged}")
     return {"max_abs_err": worst, "step_errs": step_errs,
+            "greedy_same": same,
             "max_logit": scale, "near_ties": ties,
             "state_err": s_err, "counts": all_counts[0],
             "decode_counts": all_counts[-1],
             "tokens": torch.stack(toks, 1).tolist()}
 
 
-def bf16_layers(model16, prompts):
+def bf16_layers(phase, model16, prompts):
     """Each layer of the bf16 model at prefill, run on the plain bf16
     path's input to it (so no error carries from layer to layer), against
     the same layer in fp32 on the same weights and input, as rms(err) /
-    rms(out): the kernel path (held to ``BF16_LAYER_TOL``), the plain
-    bf16 path (bf16's own rounding, for scale) and a control in lower
-    precision. Returns the worst reading over layers of each path and
-    the control's least."""
+    rms(out): the kernel path (held to ``BF16_LAYER_TOL``; fused or not
+    as ``runtime.pipeline_fusion`` says), the plain bf16 path
+    (bf16's own rounding, for scale) and a control in lower precision.
+    Returns the worst reading over layers of each path and the control's
+    least."""
     import torch
     from repro_torch.core import runtime
     from repro_torch.models import blocks, lm
@@ -1085,6 +1249,7 @@ def bf16_layers(model16, prompts):
     reads = {"kernels": [], "plain": [], "control": []}
     with torch.no_grad():
         x = lm._add_positions(lm.embed(tree, prompts, cfg), cfg)
+        positions = lm._positions(prompts)
         for stage, sp in zip(cfg.stages(), tree["stages"]):
             for rep in range(stage.repeat):
                 for i, blk in enumerate(stage.body):
@@ -1094,8 +1259,9 @@ def bf16_layers(model16, prompts):
                           if key in sp["stacked"] else sp["shared"][key])
 
                     def run(params, inp, blk=blk):
-                        return blocks.apply_block(blk, params, inp, cfg=cfg,
-                                                  mode="prefill")[0]
+                        return blocks.apply_block(
+                            blk, params, inp, cfg=cfg, mode="prefill",
+                            positions=positions)[0]
                     with runtime.use_impl("ref"):
                         plain = run(bp, x)
                         want = run(lm._tree_map(lambda a: a.float(), bp),
@@ -1114,17 +1280,18 @@ def bf16_layers(model16, prompts):
     out = {"kernels_max": max(reads["kernels"]),
            "plain_max": max(reads["plain"]),
            "control_min": min(reads["control"]), "per_layer": reads}
-    say("rwkv-bf16", "each layer on the plain bf16 input, against the same "
-                     "layer in fp32, rms(err)/rms(out): kernels max "
-                     f"{out['kernels_max']:.4g}, plain bf16 max "
-                     f"{out['plain_max']:.4g}, control (plain bf16 output "
-                     f"in float8_e5m2) min {out['control_min']:.4g}; tol "
-                     f"{BF16_LAYER_TOL}")
+    say(phase, "each layer on the plain bf16 input, against the same "
+               "layer in fp32, rms(err)/rms(out): kernels max "
+               f"{out['kernels_max']:.4g}, plain bf16 max "
+               f"{out['plain_max']:.4g}, control (plain bf16 output in "
+               f"float8_e5m2) min {out['control_min']:.4g}; tol "
+               f"{BF16_LAYER_TOL}")
     if out["kernels_max"] > BF16_LAYER_TOL:
-        raise AssertionError(f"bf16 layers: kernel path reads "
+        raise AssertionError(f"{phase} layers: kernel path reads "
                              f"{out['kernels_max']}")
     if out["control_min"] <= BF16_LAYER_TOL:
-        raise AssertionError("bf16 layers: the control passes the limit")
+        raise AssertionError(f"{phase} layers: the control passes the "
+                             "limit")
     return out
 
 
@@ -1137,7 +1304,7 @@ def lm_rates(model, prompts, steps=8):
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = model.prefill(prompts)
+        lg, cache = model.prefill(prompts, alloc=s + steps)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         tok = lg.argmax(-1)[:, None]
@@ -1194,7 +1361,7 @@ def rwkv_phase(smi):
     # path is held layer by layer
     out["bf16_b4"] = check_serving("rwkv-bf16", model16, prompts, 8, None,
                                    counts)
-    out["bf16_layers"] = bf16_layers(model16, prompts)
+    out["bf16_layers"] = bf16_layers("rwkv-bf16", model16, prompts)
     # what bf16 alone does to the same prefill, kernels left out: the
     # scale of the full-depth readings
     with torch.no_grad(), runtime.use_impl("ref"):
@@ -1217,6 +1384,128 @@ def rwkv_phase(smi):
         + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
         f"resident) | {smi}")
     say("rwkv", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------ deepseek-7b -----------------------------
+
+
+def jitter_norms(tree, gen):
+    """Spread every norm gain (and bias) of an LM tree by 0.1 around the
+    initializer's constants, so the checks exercise them."""
+    norms = [tree["final_norm"]] + [
+        blk[n] for stage in tree["stages"] for blk in stage["stacked"].values()
+        for n in ("norm1", "norm2")]
+    for norm in norms:
+        for t in norm.values():
+            t.add_(_rand(gen, t.shape, t.dtype, t.device, 0.1))
+
+
+def dense_phase(smi):
+    """deepseek-7b at full width and depth on the card: serving checks in
+    fp32 (fused and unfused) and bf16, then prefill and decode rates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek-7b")
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_norms(model.params.tree(),
+                     torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("dense", f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+                 f"{cfg.n_heads} heads of {cfg.head_dim} ({cfg.n_kv_heads} "
+                 f"kv), d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+                 f"{n_params / 1e9:.3f} B parameters, fp32, built in "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                            device="cuda")
+    prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
+                            device="cuda")
+    layers = cfg.n_layers
+    counts = {"rowwise_matmul": 4 * layers + 1, "flash_attention": layers,
+              "layernorm": 1, "wkv": 0}
+    step = dict(counts, flash_attention=0)
+    serve = dict(state=kv_state, want_decode=step)
+    out = {"params": n_params,
+           "fp32_b4": check_serving("dense-fp32", model, prompts, 32,
+                                    LOGIT_TOL, counts, **serve),
+           "fp32_b1": check_serving("dense-fp32", model, prompt1, 8,
+                                    LOGIT_TOL, counts, **serve)}
+    # unfused: 7 matmuls a layer (q, k, v, wo, gate, up, down) + the
+    # head, 2 norms a layer + the final one
+    with torch.no_grad():
+        fused, _ = model.prefill(prompts)
+        with runtime.use_pipeline_fusion(False):
+            (unfused, _), ucounts = counted(lambda: model.prefill(prompts))
+    want = {"rowwise_matmul": 7 * layers + 1, "flash_attention": layers,
+            "layernorm": 2 * layers + 1, "wkv": 0}
+    err, ok = err_ok(unfused, fused, LOGIT_TOL)
+    say("dense-unfused", f"B=4 S=512 prefill logits against fused: "
+                         f"max_abs_err={err:.4g} tol={LOGIT_TOL}*max(1,"
+                         f"max|logit|); launches {ucounts}")
+    if not ok or ucounts != want:
+        raise AssertionError(f"dense unfused prefill: err {err}, launches "
+                             f"{ucounts}, want {want}")
+    out["unfused"] = {"max_abs_err": err, "counts": ucounts}
+    del fused, unfused
+    model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
+                               device="cuda")
+    out["bf16_b4"] = check_serving("dense-bf16", model16, prompts, 8, None,
+                                   counts, **serve)
+    out["bf16_layers"] = bf16_layers("dense-bf16", model16, prompts)
+    # the unfused bf16 path: the same layer check, its launches, and its
+    # full-depth logits against the fused ones as a reading
+    with runtime.use_pipeline_fusion(False):
+        out["bf16_unfused_layers"] = bf16_layers("dense-bf16-unfused",
+                                                 model16, prompts)
+    with torch.no_grad():
+        fused16, _ = model16.prefill(prompts)
+        with runtime.use_pipeline_fusion(False):
+            (unfused16, _), ucounts16 = counted(
+                lambda: model16.prefill(prompts))
+    err16 = (unfused16.float() - fused16.float()).abs().max().item()
+    say("dense-bf16-unfused", f"B=4 S=512 prefill logits against fused "
+                              f"bf16 (a reading): max_abs_err={err16:.4g}; "
+                              f"launches {ucounts16}")
+    if ucounts16 != want or not torch.isfinite(unfused16).all():
+        raise AssertionError(f"dense bf16 unfused prefill: launches "
+                             f"{ucounts16}, want {want}, or logits not "
+                             "finite")
+    out["bf16_unfused"] = {"max_abs_err_to_fused": err16,
+                           "counts": ucounts16}
+    del fused16, unfused16
+    with torch.no_grad(), runtime.use_impl("ref"):
+        out["bf16_rounding"] = err_ok(model16.prefill(prompts)[0],
+                                      model.prefill(prompts)[0], BF16_TOL)[0]
+    say("dense-bf16", "plain bf16 against plain fp32 (same weights rounded)"
+                      f", prefill logits: max_abs_err="
+                      f"{out['bf16_rounding']:.4g}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32": lm_rates(model, prompts),
+             "bf16": lm_rates(model16, prompts)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # unfused, the matmuls take no norm prologue
+    with runtime.use_pipeline_fusion(False):
+        rates["bf16_unfused"] = lm_rates(model16, prompts)
+    with runtime.use_impl("ref"):
+        rates["plain_fp32"] = lm_rates(model, prompts)
+    out.update(rates=rates, peak_memory_gib=peak_gb,
+               seconds=time.perf_counter() - t_phase)
+    say("throughput", "deepseek-7b prefill tokens/s at B=4 x 512: "
+        + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items())
+        + "; decode tokens/s at B=4: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
+        f"resident) | {smi}")
+    say("dense", f"phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -1250,12 +1539,15 @@ def design_tables(rows):
     """Each kernel per design, per dtype, summed over one run of each
     path (``fused``: a Swin-T forward at B=8, ``fused64``: its attention
     at B=64, ``vit``: a ViT-B/16 forward at B=8, ``prefill`` /
-    ``decode``: an RWKV6-3B prefill at B=4 x 512 / decode step at B=4; the
-    int8 cases over their Swin-T shapes, as the int8 path runs them):
+    ``decode``: an RWKV6-3B prefill at B=4 x 512 / decode step at B=4,
+    ``dprefill`` / ``ddecode``: the same of deepseek-7b, ``dunfused``:
+    its unfused prefill; the int8 cases
+    over their Swin-T shapes, as the int8 path runs them):
     launches and event / plain / library ms and the bound, each case
     times its launches."""
     out = {}
-    for key in ("fused", "fused64", "vit", "prefill", "decode"):
+    for key in ("fused", "fused64", "vit", "prefill", "decode", "dprefill",
+                "ddecode", "dunfused"):
         for dt in ("fp32", "bf16", "int8"):
             for kernel in REPLACES:
                 mine = [r for r in rows if r["kernel"] == kernel and r[key]
@@ -1280,13 +1572,15 @@ def design_tables(rows):
     return out
 
 
-def rwkv_tables(rows):
-    """Per kernel, per RWKV6-3B prefill (B=4 x 512) and per decode step
-    (B=4), fp32 and bf16: launches and the summed event / plain / library
-    ms and bound of its cases. The bf16 model runs its recurrence in
-    fp32, so the bf16 tables have no wkv row: the fp32 one holds."""
+def lm_tables(rows, keys, label):
+    """Per kernel, per LM prefill and per decode step (the count ``keys``:
+    RWKV6-3B's or deepseek-7b's, B=4 x 512 and B=4, and deepseek-7b's
+    unfused prefill), fp32 and bf16:
+    launches and the summed event / plain / library ms and bound of its
+    cases. The bf16 RWKV6 model runs its recurrence in fp32, so its bf16
+    tables have no wkv row: the fp32 one holds."""
     out = {}
-    for key in ("prefill", "decode"):
+    for key in keys:
         for dt in ("fp32", "bf16"):
             for name in REPLACES:
                 per = [r for r in rows if r["kernel"] == name and r[key]
@@ -1306,7 +1600,7 @@ def rwkv_tables(rows):
                                              "library_device_ms",
                                              "bound_ms")}}
     for k, v in out.items():
-        say("rwkv-table", f"{k}: " + " ".join(
+        say(label, f"{k}: " + " ".join(
             f"{a}={b:.4g}" if isinstance(b, float) else f"{a}={b}"
             for a, b in v.items() if b is not None))
     return out
@@ -1388,6 +1682,11 @@ def main() -> int:
                       FP32_TOL)
     rows += run_cases(rwkv_cases(rwkv_cfg, torch.bfloat16, gen, dev), "bf16",
                       BF16_TOL)
+    dense_cfg = get_config("deepseek-7b")
+    rows += run_cases(dense_cases(dense_cfg, torch.float32, gen, dev), "fp32",
+                      FP32_TOL)
+    rows += run_cases(dense_cases(dense_cfg, torch.bfloat16, gen, dev),
+                      "bf16", BF16_TOL)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -1482,23 +1781,36 @@ def main() -> int:
 
     # 8. RWKV6-3B at full width and depth
     rwkv = rwkv_phase(smi)
-    tables = rwkv_tables(rows)
-    for key, counts in (("prefill", rwkv["fp32_b4"]["counts"]),
-                        ("decode", rwkv["fp32_b4"]["decode_counts"])):
-        listed = {name: tables.get(f"{key} fp32 {name}", {}).get(
-            "launches", 0) for name in REPLACES}
-        if listed != counts:
-            raise AssertionError(f"the {key} cases list {listed} launches, "
-                                 f"the model ran {counts}")
+    tables = lm_tables(rows, ("prefill", "decode"), "rwkv-table")
 
-    # 9. the int8 path
+    # 9. deepseek-7b at full width and depth
+    dense = dense_phase(smi)
+    dense_tables = lm_tables(rows, ("dprefill", "ddecode", "dunfused"),
+                             "dense-table")
+    for tabs, key, counts in (
+            (tables, "prefill", rwkv["fp32_b4"]["counts"]),
+            (tables, "decode", rwkv["fp32_b4"]["decode_counts"]),
+            (dense_tables, "dprefill", dense["fp32_b4"]["counts"]),
+            (dense_tables, "ddecode", dense["fp32_b4"]["decode_counts"]),
+            (dense_tables, "dunfused", dense["unfused"]["counts"])):
+        for dt in ("fp32", "bf16"):
+            listed = {name: tabs.get(f"{key} {dt} {name}", {}).get(
+                "launches", 0) for name in REPLACES}
+            # the bf16 RWKV6 model runs WKV in fp32: no bf16 wkv cases
+            if dt == "bf16" and key in ("prefill", "decode"):
+                listed["wkv"] = counts["wkv"]
+            if listed != counts:
+                raise AssertionError(f"the {key} {dt} cases list {listed} "
+                                     f"launches, the model ran {counts}")
+
+    # 10. the int8 path
     i8_counts, i8_device_ms = int8_path(i8_cases)
     threshold = threshold_readings(dev)
     threshold_wkv = wkv_threshold_readings(rwkv_cfg, dev)
     threshold_ln = layernorm_threshold_readings(dev)
     designs = design_tables(rows)
 
-    # 10. the kernels line and the result
+    # 11. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -1518,6 +1830,11 @@ def main() -> int:
                                rwkv["fp32_b4"]["counts"]["wkv"],
                                "one RWKV6-3B prefill, B=4 x 512, fp32"))
     kernels.append(kernel_line(
+        rows, "flash_attention", "dprefill",
+        dense["fp32_b4"]["counts"]["flash_attention"],
+        "one deepseek-7b prefill, B=4 x 512, fp32",
+        label="flash_attention causal"))
+    kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
         label="rowwise_matmul int8 W8A8",
@@ -1529,6 +1846,8 @@ def main() -> int:
                                "throughput_images_per_s": thr,
                                "peak_memory_gib": peak_gb,
                                "rwkv": rwkv, "rwkv_tables": tables,
+                               "dense": dense,
+                               "dense_tables": dense_tables,
                                "design_tables": designs,
                                "int8_path_device_ms": i8_device_ms,
                                "skinny_threshold_us": threshold,
@@ -1541,7 +1860,9 @@ def main() -> int:
                 f"per-case details in {OUT.relative_to(ROOT)}; kernel ms "
                 f"below are sums over {swin} (the wkv row: over one "
                 "RWKV6-3B prefill at B=4 x 512, fp32; the layernorm cta "
-                "row: over one decode step at B=4, fp32)")
+                "row: over one decode step at B=4, fp32; the "
+                "flash_attention causal row: over one deepseek-7b prefill "
+                "at B=4 x 512, fp32)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

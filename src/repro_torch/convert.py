@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs.swin_t import SwinConfig, ViTConfig
 from repro_torch.core import runtime
 from repro_torch.core.types import ModelConfig
+from repro_torch.models.attention import proj_splits
 from repro_torch.models.lm import padded_vocab
 
 
@@ -40,7 +41,8 @@ def _shape(leaf):
 
 
 def _check_lm(tree, cfg: ModelConfig):
-    """Layer count, width and padded vocab of an LM tree against cfg."""
+    """Layer count, width, padded vocab and the attention panel's width
+    (q, k and v heads) of an LM tree against cfg."""
     d, vp = cfg.d_model, padded_vocab(cfg)
     if _shape(tree["embed"]) != (vp, d):
         raise ValueError(f"embed {_shape(tree['embed'])} does not fit "
@@ -62,6 +64,14 @@ def _check_lm(tree, cfg: ModelConfig):
                                  f"{tuple(g.shape)}; {cfg.name} wants "
                                  f"{want} ({cfg.n_layers} layers, d "
                                  f"{d})")
+            if "attn" in group[str(i)]:
+                got = _shape(group[str(i)]["attn"]["wqkv"])
+                want = want[:-1] + (d, sum(proj_splits(cfg)))
+                if got != want:
+                    raise ValueError(
+                        f"stage {si} block {i}: wqkv {got}; {cfg.name} "
+                        f"wants {want} ({cfg.n_heads} q and "
+                        f"{cfg.n_kv_heads} kv heads of {cfg.head_dim})")
 
 
 def _check(tree, cfg):
@@ -95,8 +105,11 @@ def from_jax_params(tree, cfg, device="cuda"):
     initializer leaves out (the last stage's ``merge``) stay out, and
     ``None`` leaves (``norm_g``/``norm_b`` before they are set) stay
     ``None``. ``cfg`` a ``ModelConfig``: the LM tree ``{"embed",
-    "stages": [{"stacked", "shared"}], "final_norm", "lm_head"}``,
-    checked for its layer count, d_model and padded vocab."""
+    "stages": [{"stacked", "shared"}], "final_norm", "lm_head"}`` (the
+    dense blocks' ``attn`` {``wqkv``, ``wo``}, ``ffn`` {``wgi`` or
+    ``wi``, ``wo``}, norms with an optional ``b``; ``lm_head`` absent
+    when the embedding is tied), checked for its layer count, d_model,
+    padded vocab and ``wqkv`` width."""
     device = runtime.resolve_device(device)
     out = _convert(tree, device)
     _check(out, cfg)

@@ -1,9 +1,9 @@
 """Where the time of a forward goes on the card.
 
 Runs the full-width Swin-T fused forward (random weights from seed 0,
-images from numpy seed 0), or an RWKV6-3B prefill of 512 tokens per
-sequence and one decode step after it (random weights from a CUDA
-generator with seed 0, tokens from seed 1), under ``torch.profiler``
+images from numpy seed 0), or an RWKV6-3B or deepseek-7b prefill of 512
+tokens per sequence and one decode step after it (random weights from a
+CUDA generator with seed 0, tokens from seed 1), under ``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
 name and by design (the matmul's skinny / wgmma / ffma, attention's
@@ -13,6 +13,8 @@ mma / ffma, WKV's chunk / step, layernorm's cta / rows).
         --batch 8 64 --dtype fp32 bf16 --impl auto ref --out chiprun_out/profile.json
     PYTHONPATH=src python -m repro_torch.launch.profile --model rwkv6-3b \
         --batch 4
+    PYTHONPATH=src python -m repro_torch.launch.profile --model deepseek-7b \
+        --batch 4 --dtype fp32 bf16
     PYTHONPATH=src python -m repro_torch.launch.profile --model layernorm \
         --dtype fp32 bf16
 
@@ -50,9 +52,9 @@ from repro_torch.models.lm import LanguageModel
 from repro_torch.models.vision import SwinTransformer
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# prompt tokens per sequence of an LM prefill
+LM_SEQ = 512
 # names of the port's own kernels in the profiler's trace
-# prompt tokens per sequence of the RWKV6-3B prefill
-RWKV_SEQ = 512
 OWN = {"rowwise_matmul_kernel": "rowwise_matmul",
        "attention_kernel": "flash_attention",
        "layernorm_kernel": "layernorm",
@@ -140,10 +142,11 @@ def _report(res, what):
         print(f"    {ms:8.3f} ms  {calls:6.1f}x  {row_name[:90]}")
 
 
-def profile_rwkv(args, dev, card):
-    """An RWKV6-3B prefill at (batch, RWKV_SEQ) and one decode step
-    after it, per dtype, batch and impl."""
-    cfg = get_config("rwkv6-3b")
+def profile_lm(args, dev, card):
+    """An LM prefill at (batch, LM_SEQ) into a cache of LM_SEQ + 1 and
+    one decode step after it, per dtype, batch and impl (the step writes
+    its token's KV at the same position each call)."""
+    cfg = get_config(args.model)
     results = []
     for name in args.dtype:
         model = LanguageModel(
@@ -151,26 +154,27 @@ def profile_rwkv(args, dev, card):
             generator=torch.Generator(device=dev).manual_seed(0))
         for batch, impl in itertools.product(args.batch, args.impl):
             tokens = torch.randint(
-                0, cfg.vocab, (batch, RWKV_SEQ), device=dev,
+                0, cfg.vocab, (batch, LM_SEQ), device=dev,
                 generator=torch.Generator(device=dev).manual_seed(1))
             with runtime.use_impl(impl), torch.no_grad():
-                _, cache = model.prefill(tokens)
-                lengths = torch.full((batch,), RWKV_SEQ, dtype=torch.int32,
+                _, cache = model.prefill(tokens, alloc=LM_SEQ + 1)
+                lengths = torch.full((batch,), LM_SEQ, dtype=torch.int32,
                                      device=dev)
                 step = tokens[:, -1:]
                 for phase, fn, items in (
                         ("prefill", lambda: model.prefill(tokens),
-                         batch * RWKV_SEQ),
+                         batch * LM_SEQ),
                         ("decode", lambda: model.decode_step(cache, step,
                                                              lengths),
                          batch)):
                     res = profile_call(fn, items)
                     res.update(card=card, model=cfg.name, phase=phase,
-                               batch=batch, seq=RWKV_SEQ, dtype=name,
+                               batch=batch, seq=LM_SEQ, dtype=name,
                                impl=impl, unit="tokens")
                     results.append(res)
                     _report(res, f"{cfg.name} {phase} B={batch} "
-                                 f"S={RWKV_SEQ} {name} impl={impl}")
+                                 f"S={LM_SEQ} {name} impl={impl}")
+            del cache
         del model
         torch.cuda.empty_cache()
     return results
@@ -272,7 +276,8 @@ def profile_layernorm(args, dev, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="swin-t",
-                    choices=["swin-t", "rwkv6-3b", "layernorm"])
+                    choices=["swin-t", "rwkv6-3b", "deepseek-7b",
+                             "layernorm"])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--dtype", nargs="+", default=["fp32"],
                     choices=sorted(DTYPES))
@@ -285,9 +290,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = runtime.resolve_device("cuda")
     card = torch.cuda.get_device_name(0)
-    if args.model in ("rwkv6-3b", "layernorm"):
-        results = (profile_rwkv if args.model == "rwkv6-3b" else
-                   profile_layernorm)(args, dev, card)
+    if args.model != "swin-t":
+        results = (profile_layernorm if args.model == "layernorm" else
+                   profile_lm)(args, dev, card)
         if args.out:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(results, indent=1))

@@ -7,17 +7,19 @@ keep the JAX package's layout — stacked leaves ``(R, ...)``, cache
 leaves ``(R, B, ...)`` — so the two packages' trees compare leaf for
 leaf (``convert.from_jax_params`` loads a JAX tree).
 
-Serving runs as the JAX package serves recurrent archs: one-shot
-:func:`prefill` at the prompts' exact lengths, then dense-cache
-:func:`decode_step` with greedy picks (:func:`greedy`). This slice runs
-the RWKV6 blocks; the dense, hybrid and encoder-decoder paths of the
-JAX module (attention KV caches, paged serving, tied TP heads) come
-with later slices (ROADMAP.md queue 1).
+Serving runs as the JAX package's dense-cache oracle does: one-shot
+:func:`prefill` at the prompts' exact lengths into a cache of ``alloc``
+positions, then :func:`decode_step` with greedy picks (:func:`greedy`).
+The port runs the dense decoder archs (global attention + MLP: the KV
+cache leaves ``(R, B, alloc, Hkv, hd)``, written in place at decode)
+and RWKV6 (recurrent state); sliding windows, the hybrid and
+encoder-decoder paths, paged serving and tied TP heads come with later
+slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -27,6 +29,7 @@ from repro_torch.core.params import ParamTree
 from repro_torch.core.types import ModelConfig, Stage
 from repro_torch.kernels import ops
 from repro_torch.models import blocks, rope
+from repro_torch.models.attention import KVCache
 
 NEG_INF = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -34,12 +37,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _tree_map(fn, *trees):
     """``fn`` over the tensor leaves of trees of one structure (dicts,
-    lists, tuples)."""
+    lists, tuples, named tuples)."""
     t = trees[0]
     if isinstance(t, dict):
         return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
     if isinstance(t, (list, tuple)):
-        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+        items = [_tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
     return fn(*trees)
 
 
@@ -97,7 +101,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 
 def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
-               cache=None):
+               positions=None, lengths=None, cache=None):
     """Walk a stage's repeats. Returns (x, aux, states): the decode
     mode's new cache or the prefill mode's per-layer states, stacked
     over the repeats as the JAX scan stacks them (``{}`` in train)."""
@@ -113,6 +117,7 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
             csl = (_tree_map(lambda a, r=rep: a[r], cache[key])
                    if cache and key in cache else None)
             x, io = blocks.apply_block(blk, bp, x, cfg=cfg, mode=mode,
+                                       positions=positions, lengths=lengths,
                                        cache=csl)
             aux += io.aux
             state = io.new_cache if mode == "decode" else io.prefill_state
@@ -121,6 +126,11 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
         per_layer.append(out_states)
     states = ({} if not per_layer[0] else
               _tree_map(lambda *ls: torch.stack(ls), *per_layer))
+    if mode == "decode":
+        # the leaves a block wrote in place (the attention KV) are not in
+        # its new cache: the stage's stacked leaves hold the step already
+        states = {key: {**cache[key], **states.get(key, {})}
+                  for key in cache}
     return x, aux, states
 
 
@@ -168,23 +178,36 @@ def _add_positions(x, cfg: ModelConfig):
     return x + pe.to(x.dtype)[None]
 
 
+def _positions(tokens):
+    """RoPE positions of a full sequence: 0..S-1 per row, (B, S)."""
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device)[None].expand(b, s)
+
+
 def forward(params, tokens, cfg: ModelConfig):
     """Full train-mode forward -> (logits, aux_loss)."""
     x = _add_positions(embed(params, tokens, cfg), cfg)
     x, aux, _ = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                            mode="train")
+                            mode="train", positions=_positions(tokens))
     return unembed(params, x, cfg), torch.tensor(aux, dtype=torch.float32)
 
 
 # ----------------------------------------------------------------------
-# Recurrent-state cache: init, prefill conversion
+# KV / recurrent-state cache: init, prefill conversion
 # ----------------------------------------------------------------------
 
 
-def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, dtype, device):
+def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
+                     device):
     blocks._check(blk)
     c = {}
-    if blk.mixer == "rwkv6":
+    if blk.mixer == "attn":
+        shape = (repeat, batch, alloc, cfg.n_kv_heads, cfg.head_dim)
+        c["kv"] = KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device))
+    elif blk.mixer == "rwkv6":
         r = cfg.rwkv
         h = cfg.d_model // r.head_dim
         c["rwkv_t"] = {
@@ -198,42 +221,56 @@ def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, dtype, device):
     return c
 
 
-def _init_cache_tree(cfg: ModelConfig, batch, dtype, device):
+def _init_cache_tree(cfg: ModelConfig, batch, alloc, dtype, device):
     out = []
     for stage in cfg.stages():
         sc = {}
         for i, blk in enumerate(stage.body):
-            c = _slot_cache_init(blk, cfg, stage.repeat, batch, dtype,
-                                 device)
+            c = _slot_cache_init(blk, cfg, stage.repeat, batch, alloc,
+                                 dtype, device)
             if c:
                 sc[str(i)] = c
         out.append(sc)
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, dtype=None, device="cuda"):
-    """Zeroed decode cache. The recurrent state has no sequence axis; the
-    KV capacity ``alloc`` of the JAX signature comes with attention."""
+def init_cache(cfg: ModelConfig, batch: int, alloc: Optional[int] = None,
+               dtype=None, device="cuda"):
+    """Zeroed decode cache: KV leaves of ``alloc`` positions (required
+    when the arch has attention; the recurrent state has no sequence
+    axis)."""
     device = runtime.resolve_device(device)
     dtype = dtype or DTYPES[cfg.dtype]
-    return _init_cache_tree(cfg, batch, dtype, device)
+    if alloc is None and any(blk.mixer == "attn" for stage in cfg.stages()
+                             for blk in stage.body):
+        raise ValueError(f"{cfg.name}: init_cache needs alloc, the KV "
+                         "positions to hold")
+    return _init_cache_tree(cfg, batch, alloc, dtype, device)
 
 
-def states_to_cache(cfg: ModelConfig, all_states):
-    """Prefill states -> decode cache. Recurrent state passes through;
-    attention KV (padded to the cache's length in the JAX package)
-    arrives with the dense slice."""
+def states_to_cache(cfg: ModelConfig, all_states, alloc: int):
+    """Prefill states -> decode cache: attention KV padded with zeros to
+    ``alloc`` positions; recurrent state passes through."""
     out = []
     for states in all_states:
         sc = {}
         for key, st in states.items():
-            extra = set(st) - {"rwkv_t", "rwkv_c"}
-            if extra:
-                raise NotImplementedError(
-                    f"not ported yet: {sorted(extra)} cache leaves, "
-                    "ROADMAP.md queue 1 item 4")
-            sc[key] = dict(st)
+            c = dict(st)
+            if "kv" in st:
+                c["kv"] = KVCache(*(_pad_seq(t, alloc) for t in st["kv"]))
+            sc[key] = c
         out.append(sc)
+    return out
+
+
+def _pad_seq(t, alloc):
+    """Stacked prefill states (R, B, S, ...) in a zeroed (R, B, alloc,
+    ...) buffer."""
+    if alloc < t.shape[2]:
+        raise ValueError(f"alloc {alloc} is shorter than the prompt "
+                         f"({t.shape[2]} tokens)")
+    out = t.new_zeros(t.shape[:2] + (alloc,) + t.shape[3:])
+    out[:, :, :t.shape[2]] = t
     return out
 
 
@@ -247,27 +284,34 @@ def prefill_states(params, tokens, cfg: ModelConfig, *, last_pos=None):
             "bucketed prefill (last_pos): ROADMAP.md queue 1 item 5")
     x = _add_positions(embed(params, tokens, cfg), cfg)
     x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                               mode="prefill")
+                               mode="prefill", positions=_positions(tokens))
     logits = unembed(params, x[:, -1:], cfg)
     return logits[:, 0], states
 
 
-def prefill(params, tokens, cfg: ModelConfig):
-    """Full-sequence prefill -> (last-position logits, dense cache)."""
+def prefill(params, tokens, cfg: ModelConfig, *,
+            alloc: Optional[int] = None):
+    """Full-sequence prefill -> (last-position logits, dense cache of
+    ``alloc`` positions; default: the prompt length)."""
     logits, states = prefill_states(params, tokens, cfg)
-    return logits, states_to_cache(cfg, states)
+    return logits, states_to_cache(cfg, states, alloc or tokens.shape[1])
 
 
 def decode_step(params, cache, tokens, lengths, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); lengths: (B,) tokens in cache.
-    Returns (logits (B, vocab), new_cache)."""
+    Returns (logits (B, vocab), new_cache). The attention KV leaves are
+    written IN PLACE at position ``lengths`` (so ``cache`` holds the
+    step too, and ``new_cache`` shares those leaves): a step that copied
+    them would move the whole cache, 2.1 GB for deepseek-7b at B=4 x
+    544 in fp32. The recurrent leaves are new tensors."""
     x = embed(params, tokens, cfg)
     if cfg.rope == "none":
         # rows ``lengths`` of the JAX package's 65536-row table
         pe = rope.sinusoidal_rows(lengths, cfg.d_model)
         x = x + pe[:, None].to(x.dtype)
     x, _, new_cache = _run_stages(params["stages"], cfg.stages(), x,
-                                  cfg=cfg, mode="decode", cache=cache)
+                                  cfg=cfg, mode="decode", lengths=lengths,
+                                  cache=cache)
     logits = unembed(params, x, cfg)
     return logits[:, 0], new_cache
 
@@ -276,8 +320,10 @@ def greedy(params, prompts, cfg: ModelConfig, n_new: int):
     """Greedy generation for a batch of equal-length prompts (B, S):
     prefill, then ``n_new - 1`` decode steps, each feeding back the
     argmax. Returns the (B, n_new) picked tokens — the stream
-    ``tests/conftest.py::manual_greedy`` gives per prompt."""
-    logits, cache = prefill(params, prompts, cfg)
+    ``tests/conftest.py::manual_greedy`` gives per prompt (its cache
+    sized ``S + n_new``)."""
+    logits, cache = prefill(params, prompts, cfg,
+                            alloc=prompts.shape[1] + n_new)
     toks = [torch.argmax(logits, dim=-1)]
     lengths = torch.full((prompts.shape[0],), prompts.shape[1],
                          dtype=torch.int32, device=prompts.device)
@@ -311,8 +357,8 @@ class LanguageModel(nn.Module):
     def forward(self, tokens: torch.Tensor):
         return forward(self.params.tree(), tokens, self.cfg)
 
-    def prefill(self, tokens: torch.Tensor):
-        return prefill(self.params.tree(), tokens, self.cfg)
+    def prefill(self, tokens: torch.Tensor, alloc: Optional[int] = None):
+        return prefill(self.params.tree(), tokens, self.cfg, alloc=alloc)
 
     def decode_step(self, cache, tokens: torch.Tensor, lengths: torch.Tensor):
         return decode_step(self.params.tree(), cache, tokens, lengths,

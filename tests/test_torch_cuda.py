@@ -78,6 +78,29 @@ def test_matmul_kernel(dev, mode, shape):
 
 
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.int8: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [4, 2048])
+def test_matmul_lm_head(dev, dtype, m):
+    """deepseek-7b's head: K=4096, N=102400, fp32 out (the skinny design
+    at M=4, the wide design at M=2048); and its RMS-prologue qkv panel
+    (N=12288) at the same M."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(m, 4096, device=dev, generator=g).to(dtype)
+    for n, kw in ((102400, dict(out_dtype=torch.float32)),
+                  (12288, dict(prologue="rms", gamma=(1 + 0.1 * torch.randn(
+                      4096, device=dev, generator=g)).to(dtype)))):
+        w = (torch.randn(4096, n, device=dev, generator=g)
+             * 4096 ** -0.5).to(dtype)
+        got = rowwise_matmul_p(x, w, **kw)
+        assert got.dtype == kw.get("out_dtype", dtype)
+        want = ref.pipeline_ref(x.float(), w.float(),
+                                norm_kind=kw.get("prologue"),
+                                gamma=kw.get("gamma"),
+                                out_dtype=torch.float32)
+        _close(got, want, TOLS[dtype])
 MODES = [dict(), dict(prologue="layer", beta=True), dict(prologue="rms"),
          dict(activation="gelu"), dict(activation="silu", gated=True),
          dict(activation="relu2", residual=True)]
@@ -236,6 +259,14 @@ ATTN_CASES = {
     "bias-causal-window": dict(b=2, hq=4, hkv=2, sq=70, skv=70, nb=2,
                                causal=True, window=30, hd=32,
                                bias_dtype=torch.bfloat16),
+    # the dense LM prefill: causal, no window, S=512, head dim 128
+    # (deepseek-7b at B=4: 32 heads), and GQA / MQA at S=333
+    "prefill-512": dict(b=4, hq=32, hkv=32, sq=512, skv=512, causal=True,
+                        hd=128),
+    "prefill-333-gqa": dict(b=1, hq=8, hkv=2, sq=333, skv=333, causal=True,
+                            hd=128),
+    "prefill-333-mqa": dict(b=2, hq=4, hkv=1, sq=333, skv=333, causal=True,
+                            hd=128),
 }
 
 
@@ -282,6 +313,55 @@ def test_attention_reads_views_in_place(dev, dtype):
     want = ref.attention_ref(q.float(), k.float(), v.float(), bias=bias,
                              causal=False)
     _close(got, want, TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_dense_prefill_views(dev, dtype):
+    """q and k RoPE'd (new tensors), v a head view of the fused qkv
+    panel (row stride 3 H hd), as ``attention.apply`` hands them to the
+    kernel at S=512, causal, head dim 128."""
+    from repro_torch.models import rope
+    b, s, h, hd = 2, 512, 8, 128
+    g = torch.Generator(device="cpu").manual_seed(7)
+    qkv = torch.randn(b, s, 3 * h * hd, generator=g).to(dev, dtype)
+    q, k, v = (z.reshape(b, s, h, hd) for z in
+               torch.split(qkv, h * hd, dim=-1))
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    q, k = rope.apply_rope(q, pos), rope.apply_rope(k, pos)
+    q, k, v = (z.transpose(1, 2) for z in (q, k, v))
+    assert v.stride(2) == 3 * h * hd
+    got = flash_attention_p(q, k, v, causal=True)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=True)
+    _close(got, want, TOLS[dtype])
+
+
+@pytest.mark.parametrize("heads", [(32, 32), (8, 2), (8, 1)],
+                         ids=["mha", "gqa", "mqa"])
+@pytest.mark.parametrize("chunk", [1024, 128])
+def test_decode_attention_bf16_products(dev, heads, chunk):
+    """Decode attention in torch ops on a bf16 dense cache (B, alloc,
+    Hkv, hd) at a per-row ``kv_len``: its bf16 products with fp32
+    outputs on the card against the same scan on the CPU, where the
+    operands are widened to fp32 first (the same products, exact in
+    fp32). Only the order of the fp32 sums differs, and the bf16
+    output's rounding: within two bf16 steps of max(1, max|out|)."""
+    from repro_torch.models import attention
+    hq, hkv = heads
+    b, alloc, hd = 4, 544, 128
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q = torch.randn(b, hq, 1, hd, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(b, alloc, hkv, hd, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    kv_len = torch.tensor([544, 513, 300, 1], dtype=torch.int32)
+
+    def run(d):
+        return attention.chunked_attention(
+            q.to(d), k.to(d).transpose(1, 2), v.to(d).transpose(1, 2),
+            causal=False, kv_len=kv_len.to(d), chunk=chunk)
+    got, want = run(dev), run("cpu")
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, 1, hd)
+    _close(got.cpu(), want, 2 ** -7)
 
 
 def test_attention_refuses_unaligned_rows(dev):
@@ -519,3 +599,51 @@ def test_rwkv_prefill_and_decode_on_kernels(dev):
             lengths = lengths + 1
         _close(cache[0]["0"]["rwkv_t"]["wkv"],
                want_cache[0]["0"]["rwkv_t"]["wkv"], 1e-3)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "internlm2-20b",
+                                  "granite-20b"])
+def test_dense_prefill_and_decode_on_kernels(dev, arch):
+    """The reduced dense LMs (internlm2 with a head dim of 16, the
+    kernel's least) with jittered norms: a ragged prefill into a cache
+    of 24 and three decode steps on the kernels against the plain path
+    on the card, teacher-forced on the same tokens, each path with its
+    own cache; launches per prefill and per step 4 L + 1 matmuls (qkv,
+    wo, the gated or plain first MLP matmul, the second; the head), 1
+    norm, and L attention at prefill (decode attends in torch ops)."""
+    import dataclasses
+    cfg = get_reduced(arch)
+    if cfg.head_dim < 16:
+        cfg = dataclasses.replace(cfg, head_dim=16)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
+                             generator=g)
+    with torch.no_grad():
+        tree = model.params.tree()
+        for norm in [blk[n] for blk in tree["stages"][0]["stacked"].values()
+                     for n in ("norm1", "norm2")] + [tree["final_norm"]]:
+            for t in norm.values():
+                t.add_(0.1 * torch.randn(t.shape, generator=g).to(dev))
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
+    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    with torch.no_grad():
+        before = [k.launches for k in counts]
+        got, cache = model.prefill(toks[:, :21], alloc=24)
+        assert [k.launches - b for k, b in zip(counts, before)] == [
+            4 * cfg.n_layers + 1, cfg.n_layers, 1]
+        with runtime.use_impl("ref"):
+            want, want_cache = model.prefill(toks[:, :21], alloc=24)
+        _close(got, want, 1e-3)
+        lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
+        for t in range(21, 24):
+            before = [k.launches for k in counts]
+            got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
+            assert [k.launches - b for k, b in zip(counts, before)] == [
+                4 * cfg.n_layers + 1, 0, 1]
+            with runtime.use_impl("ref"):
+                want, want_cache = model.decode_step(
+                    want_cache, toks[:, t:t + 1], lengths)
+            _close(got, want, 1e-3)
+            lengths = lengths + 1
+        for a, b in zip(cache[0]["0"]["kv"], want_cache[0]["0"]["kv"]):
+            _close(a, b, 1e-3)

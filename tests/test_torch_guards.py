@@ -36,7 +36,11 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "import repro_torch, repro_torch.models.vision, "
         "repro_torch.kernels.ops, repro_torch.convert, "
         "repro_torch.models.lm, repro_torch.models.rwkv6, "
-        "repro_torch.kernels.wkv\n"
+        "repro_torch.kernels.wkv, repro_torch.models.attention, "
+        "repro_torch.models.blocks, repro_torch.models.mlp, "
+        "repro_torch.models.rope, repro_torch.configs.deepseek_7b, "
+        "repro_torch.configs.granite_20b, "
+        "repro_torch.configs.internlm2_20b, repro_torch.launch.profile\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -102,6 +106,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_cache(lcfg, 1)
     model = lm.LanguageModel(lcfg, device="cpu")
+    assert model.greedy(torch.zeros(1, 3, dtype=torch.long), 2).shape == (
+        1, 2)
+    dense = get_reduced("deepseek-7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.LanguageModel(dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(dense, 1, 8)
+    model = lm.LanguageModel(dense, device="cpu")
     assert model.greedy(torch.zeros(1, 3, dtype=torch.long), 2).shape == (
         1, 2)
 
