@@ -24,16 +24,28 @@ Phases, each printing its lines:
    ViT-B/16 (B=8) and of a Swin-T forward at B=64; every kernel call of
    a deepseek-7b prefill (fused and unfused, B=4 x 512) and decode step
    (B=4), the weights of the qkv and gate|up panels read as the model
-   reads them, summed in ``dense-table`` lines; then the int8 W8A8
+   reads them, summed in ``dense-table`` lines; every kernel call of a
+   gemma3-27b prefill (B=2 x 2048: the local layers' causal attention
+   with the 1024-token window and the global layers', GQA 32 over 16 at
+   head dim 128, the GeGLU panel, the tied head at N = 262144) and
+   decode step (B=2), and of a whisper-base prefill (B=4 x 64 over 1500
+   frames: the encoder's causal attention at S = 1500, head dim 64,
+   cross-attention of 64 queries to the 1500 frames, LayerNorm with
+   beta at K = 512) and decode step (B=4), in ``gemma-table`` and
+   ``whisper-table`` lines; then the int8 W8A8
    leg at every distinct Swin-T matmul shape and at RWKV6-3B's widths
    at M=2048 and M=4, held against the exact
    plain version (float64 products on the card), ``torch._int_mm`` as
    its library yardstick where that takes the shape; host µs per
-   wrapper call;
+   wrapper call. Where a matmul's norm does not stay in its design's
+   prologue (``rowwise_matmul.norm_prologue_fits``: the skinny design
+   up to ``SKINNY_NORM_MAX_K``) the case is the standalone norm and the
+   matmul without one, as ``ops`` runs it;
 4. full-width Swin-T, fused, B=8 fp32: kernel path against
-   ``use_impl("ref")`` on the card, launch counts 53 / 12 / 1;
+   ``use_impl("ref")`` on the card, launch counts 53 / 12 / 25 (the
+   final norm and the 24 prologue panels' norms, split);
 5. the same unfused: counts 53 / 0 / 25, and agreement with fused;
-6. ViT-B/16, B=8, kernel path against plain;
+6. ViT-B/16, B=8, kernel path against plain (50 / 12 / 25);
 7. Swin-T bf16, fused and unfused, against its plain path, and images/s
    at B=64 in fp32 and bf16 (plain fp32 beside it);
 8. RWKV6-3B at full width and depth (jittered random weights): 4 prompts
@@ -49,29 +61,53 @@ Phases, each printing its lines:
    norms): 4 prompts of 512 tokens, then 32 greedy decode steps, then 1
    prompt of 333 tokens with 8 steps, in fp32 teacher-forced on the
    plain path's tokens (logits at prefill and every step, greedy picks,
-   the final KV cache), 121 / 30 / 1 / 0 launches per prefill and
-   121 / 0 / 1 / 0 per step (decode attends in torch ops, as the JAX
-   package does); the unfused prefill (211 / 30 / 61 / 0) against the
-   fused one; bf16 layer by layer against fp32 beside the float8
-   control, fused and unfused, the unfused bf16 prefill counted, and at
-   full depth as readings; prefill and decode tokens/s;
-10. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+   the final KV cache), 121 / 30 / 61 / 0 launches per prefill and
+   121 / 0 / 61 / 0 per step (the qkv and gate|up panels' norms split at
+   K = 4096; decode attends in torch ops, as the JAX package does); the
+   unfused prefill (211 / 30 / 61 / 0) against the fused one; bf16
+   layer by layer against fp32 beside the float8 control, fused and
+   unfused, the unfused bf16 prefill counted, and at full depth as
+   readings; prefill and decode tokens/s;
+10. gemma3-27b at full width (jittered norms): 8 layers (one 5:1 group
+   and the 2-layer local tail) in fp32, 2 prompts of 2048 tokens then 16
+   greedy steps and 1 prompt of 1020 then 12 (its ring wraps from the
+   fifth step), teacher-forced on the plain path's tokens (logits, picks,
+   the final ring and global caches), 33 / 8 / 17 / 0 launches a
+   prefill and 33 / 0 / 17 / 0 a step, and unfused (57 / 8 / 17 / 0);
+   then, the fp32 model freed, all 62 layers in bf16 (50.3 GiB of
+   weights: the fp32 tree would not fit), 249 / 62 / 125 / 0 and
+   249 / 0 / 125 / 0, layer by layer against fp32 beside the float8
+   control, its logits as readings; prefill and decode tokens/s
+   (fused, unfused, plain), peak memory, the tied head's per-call
+   transpose; whisper-base at full width and depth on seeded frames
+   (B=4 x 1500 x 512): the encoder's launches, 4 prompts of 64 tokens
+   then 32 steps and 1 of 16 then 8, fp32 teacher-forced (logits, picks,
+   self and cross caches), the unfused prefill, bf16 layer by layer
+   (encoder and decoder) and as readings; tokens/s;
+11. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler);
-11. the matmul, attention and WKV per design and dtype, summed over a
+12. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
-   RWKV6-3B's and deepseek-7b's prefill and decode step
+   each LM's prefill and decode step
    (``design-table`` lines); one JSON
    line of the kernels (the int8 leg a row of its own), then the last
    line ``{"ok": true, "device": {...}}``. Before the tables, each
    picker's boundary (``threshold`` lines, device µs from the
    profiler): the matmul's skinny design against the M > 16 design of
    each dtype at M = 4 .. 16, WKV's step design against its chunk
-   design at S = 1 .. 32 tokens, and layernorm's cta design against its
-   rows design at M = 1 .. 2048 rows of D = 96 .. 2560. The kernels
-   line gives layernorm once per design: over the fused Swin-T forward
-   (rows) and over an RWKV6-3B decode step (cta), and attention a second
-   time over a deepseek-7b prefill (causal).
+   design at S = 1 .. 32 tokens, layernorm's cta design against its
+   rows design at M = 1 .. 2048 rows of D = 96 .. 2560, and each matmul
+   design's norm prologue against the standalone norm and a
+   prologue-free matmul at K = 64 .. 8192, each design's boundary
+   beside the rule's; and decode tokens/s end to end of deepseek-7b
+   (fp32, bf16) and gemma3-27b (bf16, 62 layers) with
+   ``SKINNY_NORM_MAX_K`` on either side of their K, in ABBA order.
+   The kernels line gives layernorm once per design: over the fused
+   Swin-T forward (rows) and over an RWKV6-3B decode step (cta), and
+   attention a second time over a deepseek-7b prefill (causal), and
+   once per new mode: gemma3-27b's windowed layers, whisper-base's
+   encoder (S = 1500) and its cross-attention.
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -81,7 +117,8 @@ N=102400 with fp32 out, causal attention at B=4 x 32 heads x 512 x 128
 with ``F.scaled_dot_product_attention(is_causal=True)`` as the
 yardstick, the final RMSNorm) against its plain version, and sums them
 per prefill and per decode step of each model (``rwkv-table`` and
-``dense-table`` lines).
+``dense-table`` lines); a windowed or cross attention case's yardstick
+is SDPA with a boolean mask.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -90,6 +127,7 @@ non-zero with no result line. It exits non-zero at once where
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -281,11 +319,34 @@ def err_ok(out, want, tol):
 
 # launches per Swin-T forward at B=8 (fused, unfused), per RWKV6-3B
 # prefill at B=4 x 512 and decode step at B=4, per ViT-B/16 forward at
-# B=8, per fused Swin-T forward at B=64 (attention only), and per
+# B=8, per fused Swin-T forward at B=64 (attention only), per
 # deepseek-7b prefill at B=4 x 512 (fused, unfused) and fused decode step
-# at B=4
+# at B=4, per gemma3-27b prefill at B=2 x 2048 and decode step at B=2
+# (8 layers in fp32, 62 in bf16), and per whisper-base prefill at B=4 x
+# 64 (its encoder over 1500 frames included) and decode step at B=4
 COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
-          "dprefill", "ddecode", "dunfused")
+          "dprefill", "ddecode", "dunfused", "gprefill", "gdecode",
+          "wprefill", "wdecode")
+# the exact launches (rowwise_matmul, flash_attention, layernorm, wkv) of
+# each fused run the model phases check, restated by hand as PERF.md §2
+# lists them; :func:`want_launches` also holds each against the count
+# the config and ``rowwise_matmul.norm_prologue_fits`` give. A norm
+# panel splits (one more layernorm launch) on the designs of many rows,
+# and on the skinny design past SKINNY_NORM_MAX_K
+LAUNCHES = {
+    "swin-t": (53, 12, 25, 0),                  # B=8, fp32 and bf16
+    "vit-b16": (50, 12, 25, 0),                 # B=8
+    "deepseek-7b prefill": (121, 30, 61, 0),    # 4 x 512 and 1 x 333
+    "deepseek-7b step": (121, 0, 61, 0),        # B=4 and B=1, K = 4096
+    "gemma3-27b/8 prefill": (33, 8, 17, 0),     # fp32, 8 layers
+    "gemma3-27b/8 step": (33, 0, 17, 0),        # K = 5376
+    "gemma3-27b prefill": (249, 62, 125, 0),    # bf16, 62 layers
+    "gemma3-27b step": (249, 0, 125, 0),
+    "whisper-base encoder": (24, 6, 13, 0),     # 4 x 1500 frames
+    "whisper-base prefill": (67, 18, 32, 0),    # 4 x 64, the encoder's too
+    "whisper-base prefill 1x16": (67, 18, 20, 0),   # 16 rows: skinny fp32
+    "whisper-base step": (37, 0, 7, 0),         # K = 512: the norm stays
+}
 
 
 class Case:
@@ -466,12 +527,15 @@ def attention_case(name, qkv_shape, heads, hkv, dtype, gen, device, *,
         allowed &= kpos <= qpos
     if window:
         allowed &= kpos > qpos - window
-    mask = torch.zeros((t, skv), dtype=dtype, device=device).masked_fill(
-        ~allowed, float("-inf"))
+    # SDPA's boolean mask where there is no score bias, else the bias
+    # with the mask added as -inf
+    mask = allowed
     if bias is not None:
         nb = bias.shape[0]
         mask = (bias.to(dtype)[None].expand(nw // nb, *bias.shape)
-                .reshape(nw, heads, t, skv) + mask)
+                .reshape(nw, heads, t, skv)
+                + torch.zeros((t, skv), dtype=dtype, device=device)
+                .masked_fill(~allowed, float("-inf")))
     if causal and not (window or q_offset or bias is not None) and t == skv:
         # plain causal attention: the library's own causal path
         def library():
@@ -530,6 +594,51 @@ def layernorm_case(name, m, d, dtype, gen, device, kind="layer", **counts):
         design=pick_design(m, d, dtype), **counts)
 
 
+def norm_matmul_cases(name, m, k, n, dtype, gen, device, *, norm,
+                      **kw):
+    """A matmul with a pre-norm (``norm``: 'layer' with beta, 'rms'
+    without) as the fused path runs it: one call with the norm in the
+    kernel's prologue where ``norm_prologue_fits``, else the standalone
+    norm and then the matmul without one, each with the counts given."""
+    from repro_torch.kernels.rowwise_matmul import norm_prologue_fits
+    counts = {key: kw.pop(key) for key in list(kw) if key in COUNTS}
+    if norm_prologue_fits(m, k, dtype):
+        return [matmul_case(f"{name} +{norm}", m, k, n, dtype, gen, device,
+                            norm=norm, beta=norm == "layer", **kw, **counts)]
+    return [layernorm_case(f"{name} pre-{norm}", m, k, dtype, gen, device,
+                           kind=norm, **counts),
+            matmul_case(name, m, k, n, dtype, gen, device, **kw, **counts)]
+
+
+def prologue_splits(rows, k, dtype, panels):
+    """The standalone norm launches the fused path adds for ``panels``
+    prologue panels of ``rows`` x K that do not fit their design."""
+    from repro_torch.kernels.rowwise_matmul import norm_prologue_fits
+    return 0 if norm_prologue_fits(rows, k, dtype) else panels
+
+
+def want_launches(key, derived):
+    """``LAUNCHES[key]`` by kernel, after checking it against the count
+    ``derived`` from the config and the split rule."""
+    want = dict(zip(REPLACES, LAUNCHES[key]))
+    if derived != want:
+        raise AssertionError(f"{key}: launches restated as {want}, the "
+                             f"config and the split rule give {derived}")
+    return want
+
+
+def swin_counts(cfg, batch, dtype):
+    """Launches of a fused Swin-T forward: 53 matmuls, 12 attention, the
+    final norm and the norms of the prologue panels that split (qkv and
+    mlp1 of every block)."""
+    res, c, norms = cfg.img_size // cfg.patch, cfg.embed_dim, 1
+    for depth in cfg.depths:
+        norms += prologue_splits(batch * res * res, c, dtype, 2 * depth)
+        res, c = res // 2, c * 2
+    return {"rowwise_matmul": 53, "flash_attention": 12, "layernorm": norms,
+            "wkv": 0}
+
+
 def swin_cases(cfg, batch, dtype, gen, device):
     """Every distinct kernel call of a Swin forward, with its launches
     per fused and per unfused forward, plus the extra modes."""
@@ -542,13 +651,14 @@ def swin_cases(cfg, batch, dtype, gen, device):
     for si, depth in enumerate(cfg.depths):
         m = batch * res * res
         s = f"s{si + 1}"
+        cases += norm_matmul_cases(f"{s}.qkv", m, c, 3 * c, dtype, gen,
+                                   device, norm="layer", fused=depth)
+        cases += norm_matmul_cases(f"{s}.mlp1+gelu", m, c, 4 * c, dtype,
+                                   gen, device, norm="layer", act="gelu",
+                                   fused=depth)
         cases += [
-            matmul_case(f"{s}.qkv+ln", m, c, 3 * c, dtype, gen, device,
-                        norm="layer", fused=depth),
             matmul_case(f"{s}.proj+res", m, c, c, dtype, gen, device,
                         residual=True, fused=depth),
-            matmul_case(f"{s}.mlp1+ln+gelu", m, c, 4 * c, dtype, gen, device,
-                        norm="layer", act="gelu", fused=depth),
             matmul_case(f"{s}.mlp2+res", m, 4 * c, c, dtype, gen, device,
                         residual=True, fused=depth),
             matmul_case(f"{s}.qkv", m, c, 3 * c, dtype, gen, device,
@@ -700,8 +810,9 @@ def dense_cases(cfg, dtype, gen, device):
     """Every distinct kernel call of a deepseek-7b prefill at B=4 x 512
     (M=2048), fused and unfused, and of a fused decode step at B=4 (M=4),
     with its launches per prefill and per step. Fused, per layer: the
-    qkv panel with the RMS prologue, wo with the residual, the gate|up
-    panel with the prologue and SwiGLU, the down projection with the
+    qkv panel with the RMS norm (in the prologue, or standalone where it
+    splits: :func:`norm_matmul_cases`), wo with the residual, the gate|up
+    panel with the norm and SwiGLU, the down projection with the
     residual. Unfused, per layer: two RMS norms, q, k and v over column
     slices of the qkv panel, wo, gate+silu and up over the halves of the
     gate|up panel, down (the residual adds in torch). Causal attention
@@ -714,16 +825,16 @@ def dense_cases(cfg, dtype, gen, device):
     cases = []
     for m, key in ((4 * 512, "dprefill"), (4, "ddecode")):
         tag = f"dense.{'prefill' if m > 4 else 'decode'}"
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen,
+                                   device, norm="rms", bias=False,
+                                   **{key: n_layers})
+        cases += norm_matmul_cases(f"{tag} gate|up+silu", m, d, f, dtype,
+                                   gen, device, norm="rms", bias=False,
+                                   act="silu", gated=True, panel=(2 * f, 0),
+                                   **{key: n_layers})
         cases += [
-            matmul_case(f"{tag} qkv+rms", m, d, qkv, dtype, gen, device,
-                        bias=False, norm="rms", beta=False,
-                        **{key: n_layers}),
             matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
                         bias=False, residual=True, **{key: n_layers}),
-            matmul_case(f"{tag} gate|up+rms+silu", m, d, f, dtype, gen,
-                        device, bias=False, norm="rms", beta=False,
-                        act="silu", gated=True, panel=(2 * f, 0),
-                        **{key: n_layers}),
             matmul_case(f"{tag} down+res", m, f, d, dtype, gen, device,
                         bias=False, residual=True, **{key: n_layers}),
         ]
@@ -752,6 +863,127 @@ def dense_cases(cfg, dtype, gen, device):
         attention_case("dense.prefill causal", (4, 512, cfg.head_dim),
                        cfg.n_heads, cfg.n_kv_heads, dtype, gen, device,
                        causal=True, dprefill=n_layers, dunfused=n_layers),
+    ]
+    return cases
+
+
+def gemma_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of a gemma3-27b prefill at B=2 x 2048
+    (M=4096) and of a decode step at B=2 (M=2), with its launches per
+    prefill and per step of the model the phase runs in ``dtype`` (fp32:
+    8 layers, 7 local and 1 global; bf16: all 62, 52 local and 10
+    global). Per layer: the qkv panel (32 q and 2 x 16 kv heads of 128)
+    and the gate|up panel (GeGLU) with the RMS norm (split or not:
+    :func:`norm_matmul_cases`), wo and down with the residual; causal
+    attention at prefill, with the 1024-token window on the local layers
+    (GQA 32 over 16, head dim 128; decode attends in torch ops); the
+    tied head (N = 262144, fp32 out) and the final norm on the last
+    position only."""
+    import torch
+    from repro_torch.models import attention, lm
+    n_layers = 8 if dtype == torch.float32 else cfg.n_layers
+    stages = dataclasses.replace(cfg, n_layers=n_layers).stages()
+    local = sum(st.repeat * sum(1 for b in st.body if b.window)
+                for st in stages)
+    d, f = cfg.d_model, cfg.d_ff
+    qkv, ho = sum(attention.proj_splits(cfg)), cfg.n_heads * cfg.head_dim
+    cases = []
+    for m, key in ((2 * 2048, "gprefill"), (2, "gdecode")):
+        tag = f"gemma.{'prefill' if m > 2 else 'decode'}"
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen,
+                                   device, norm="rms", bias=False,
+                                   **{key: n_layers})
+        cases += norm_matmul_cases(f"{tag} gate|up+gelu", m, d, f, dtype,
+                                   gen, device, norm="rms", bias=False,
+                                   act="gelu", gated=True, panel=(2 * f, 0),
+                                   **{key: n_layers})
+        cases += [
+            matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: n_layers}),
+            matmul_case(f"{tag} down+res", m, f, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: n_layers}),
+        ]
+    shape = (2, 2048, cfg.head_dim)
+    cases += [
+        matmul_case("gemma tied head fp32-out", 2, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True,
+                    gprefill=1, gdecode=1),
+        layernorm_case("gemma final_norm", 2, d, dtype, gen, device,
+                       kind="rms", gprefill=1, gdecode=1),
+        attention_case("gemma.prefill causal+window", shape, cfg.n_heads,
+                       cfg.n_kv_heads, dtype, gen, device, causal=True,
+                       window=cfg.local_window, gprefill=local),
+        attention_case("gemma.prefill causal", shape, cfg.n_heads,
+                       cfg.n_kv_heads, dtype, gen, device, causal=True,
+                       gprefill=n_layers - local),
+    ]
+    return cases
+
+
+def whisper_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of a whisper-base prefill at B=4 x 64
+    tokens over 1500 frames and of a decode step at B=4, with its
+    launches per prefill (the encoder's included) and per step. Encoder
+    (M = 6000), per layer: qkv and mlp1 (GELU) with the LayerNorm (split
+    or not: :func:`norm_matmul_cases`), wo and mlp2 with the residual,
+    causal self-attention over the 1500 frames (as the JAX encoder runs
+    it); then its final norm. Decoder (M = 256 at prefill, 4 at decode),
+    per layer: qkv and mlp1 as in the encoder, wo and mlp2 with the
+    residual, the standalone cross norm, wq, the cross wo; at prefill
+    causal self-attention, the fused wkv panel over the encoder's output
+    and cross-attention of 64 queries to the 1500 frames (decode attends
+    in torch ops). The tied head (N = 51968, the padded vocabulary,
+    fp32 out) and the final norm on the last position."""
+    from repro_torch.models import lm
+    d, f, hd, h = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_heads
+    n_enc, n_dec, frames = cfg.n_enc_layers, cfg.n_layers, cfg.cross_len
+    m_enc = 4 * frames
+    cases = []
+    for m, key, tag, layers in ((m_enc, "wprefill", "whisper.encoder",
+                                 n_enc),
+                                (4 * 64, "wprefill", "whisper.prefill",
+                                 n_dec),
+                                (4, "wdecode", "whisper.decode", n_dec)):
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, 3 * d, dtype, gen,
+                                   device, norm="layer", bias=False,
+                                   **{key: layers})
+        cases += norm_matmul_cases(f"{tag} mlp1+gelu", m, d, f, dtype, gen,
+                                   device, norm="layer", bias=False,
+                                   act="gelu", **{key: layers})
+        cases += [
+            matmul_case(f"{tag} wo+res", m, d, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: layers}),
+            matmul_case(f"{tag} mlp2+res", m, f, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: layers}),
+        ]
+        if tag != "whisper.encoder":
+            cases += [
+                layernorm_case(f"{tag} cross norm", m, d, dtype, gen,
+                               device, **{key: n_dec}),
+                matmul_case(f"{tag} cross wq", m, d, d, dtype, gen, device,
+                            bias=False, **{key: n_dec}),
+                matmul_case(f"{tag} cross wo", m, d, d, dtype, gen, device,
+                            bias=False, **{key: n_dec}),
+            ]
+    cases += [
+        layernorm_case("whisper.encoder final_norm", m_enc, d, dtype, gen,
+                       device, wprefill=1),
+        matmul_case("whisper.prefill cross wkv", m_enc, d, 2 * d, dtype, gen,
+                    device, bias=False, wprefill=n_dec),
+        attention_case("whisper.encoder causal", (4, frames, hd), h, h,
+                       dtype, gen, device, causal=True, wprefill=n_enc),
+        attention_case("whisper.prefill causal", (4, 64, hd), h, h, dtype,
+                       gen, device, causal=True, wprefill=n_dec),
+        attention_case("whisper.prefill cross", (4, 64, hd), h, h, dtype,
+                       gen, device, skv=frames, wprefill=n_dec),
+        # off the path: the encoder's frames without the causal mask
+        attention_case("whisper 1500 non-causal", (4, frames, hd), h, h,
+                       dtype, gen, device),
+        matmul_case("whisper tied head fp32-out", 4, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True, wprefill=1,
+                    wdecode=1),
+        layernorm_case("whisper final_norm", 4, d, dtype, gen, device,
+                       wprefill=1, wdecode=1),
     ]
     return cases
 
@@ -921,6 +1153,142 @@ def layernorm_threshold_readings(device):
     return out
 
 
+# the prologue threshold line: (design, dtype, M of the LM panels (the
+# deepseek-7b and gemma3-27b prefill M for wgmma / ffma), the batch of
+# the vision panels) and the K it sweeps
+PROLOGUE_DESIGNS = (("skinny", "fp32", (16, 16), 0),
+                    ("skinny", "bf16", (4, 4), 0),
+                    ("ffma", "fp32", (2048, 4096), 8),
+                    ("wgmma", "bf16", (2048, 4096), 8))
+PROLOGUE_KS = (64, 96, 128, 192, 256, 320, 384, 512, 768, 1024, 2048, 4096,
+               5376, 8192)
+
+
+def _prologue_panels(k, m_lm, batch):
+    """(width, N, gated, M) of each panel with a norm prologue at K: the
+    LM panels of deepseek-7b (qkv N = 12288, gate|up gated N = 11008)
+    and gemma3-27b (qkv 8192, gate|up gated 21504) at every K; and at
+    the K of a Swin-T stage (or ViT-B/16's 768), its qkv (N = 3K) and
+    its GELU mlp1 (N = 4K) at B = ``batch`` images."""
+    panels = [("deepseek qkv", 12288, False, m_lm[0]),
+              ("deepseek gate|up", 11008, True, m_lm[0]),
+              ("gemma qkv", 8192, False, m_lm[1]),
+              ("gemma gate|up", 21504, True, m_lm[1])]
+    swin = {96: 3136, 192: 784, 384: 196, 768: 49}
+    if batch and k in swin:
+        for name, tokens in (("swin-t", swin[k]),) + (
+                (("vit-b16", 197),) if k == 768 else ()):
+            panels += [(f"{name} qkv", 3 * k, False, batch * tokens),
+                       (f"{name} mlp1", 4 * k, False, batch * tokens)]
+    return panels
+
+
+def prologue_threshold_readings(device):
+    """Device µs per call of a matmul with its RMS norm in the kernel's
+    prologue against the standalone norm and the matmul without one (the
+    route ``ops`` takes where ``norm_prologue_fits`` is false), per
+    design and dtype at K = 64 .. 8192 on the panels of
+    :func:`_prologue_panels`; the skinny design at its largest M, its
+    weights cold in L2. Returns the readings and, per design, the
+    largest K of the sweep up to which the prologue is at or ahead of
+    the split at one panel at least (from the first K where the split is
+    ahead at every panel, it takes over), beside the rule's boundary
+    (``SKINNY_NORM_MAX_K`` for the skinny design, none for the others).
+    Raises where the prologue of a design the rule never gives it holds
+    at some K: the rule is then stale."""
+    import torch
+    from repro_torch.kernels import rowwise_matmul as rm
+    from repro_torch.kernels.layernorm import layernorm_p
+    from repro_torch.launch.profile import kernel_us
+    dts = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    gen = torch.Generator(device=device).manual_seed(9)
+    out, fits = {}, {}
+    for design, name, m_lm, batch in PROLOGUE_DESIGNS:
+        dt = dts[name]
+        holds = {}
+        for k in PROLOGUE_KS:
+            g = 1 + _rand(gen, (k,), dt, device, 0.1)
+            for width, n, gated, m in _prologue_panels(k, m_lm, batch):
+                assert rm.pick_design(m, dt) == design
+                x = _rand(gen, (m, k), dt, device)
+                size = k * n * (2 if gated else 1) * x.element_size()
+                copies = (int(-(-COLD_BYTES // size)) + 1
+                          if design == "skinny" and size < COLD_BYTES else 1)
+                ws = [(_rand(gen, (k, n), dt, device, k ** -0.5),
+                       _rand(gen, (k, n), dt, device, k ** -0.5)
+                       if gated else None) for _ in range(copies)]
+                act = "gelu" if gated else None
+
+                def fused():
+                    for w, wg in ws:
+                        rm.rowwise_matmul_p(x, w, w_gate=wg, activation=act,
+                                            prologue="rms", gamma=g)
+
+                def split():
+                    for w, wg in ws:
+                        rm.rowwise_matmul_p(layernorm_p(x, g, kind="rms"),
+                                            w, w_gate=wg, activation=act)
+                want = rm.rowwise_matmul_p(x, ws[0][0], w_gate=ws[0][1],
+                                           activation=act, prologue="rms",
+                                           gamma=g)
+                got = rm.rowwise_matmul_p(layernorm_p(x, g, kind="rms"),
+                                          ws[0][0], w_gate=ws[0][1],
+                                          activation=act)
+                err, ok = err_ok(got, want, FP32_TOL if name == "fp32"
+                                 else BF16_TOL)
+                if not ok:
+                    raise AssertionError(f"prologue threshold {design} "
+                                         f"{name} K={k} {width}: split "
+                                         f"against fused max abs err {err}")
+                calls = 5 if design != "skinny" else 10
+                f_us = kernel_us(fused, "rowwise_matmul_kernel", calls)
+                s_us = (kernel_us(split, "rowwise_matmul_kernel", calls)
+                        + kernel_us(lambda: layernorm_p(x, g, kind="rms"),
+                                    "layernorm_kernel", calls))
+                out[f"{design} {name} M={m} K={k} N={n} {width}"] = {
+                    "fused_us": f_us, "split_us": s_us}
+                holds[k] = holds.get(k, False) or f_us <= s_us
+        fits[f"{design} {name}"] = max(
+            [0] + [k for k in PROLOGUE_KS
+                   if all(holds[j] for j in PROLOGUE_KS if j <= k)])
+    say("threshold", "norm prologue, device µs per call fused / split "
+        "(layernorm_p + the matmul without a prologue): " + ", ".join(
+            f"{k} {v['fused_us']:.2f} / {v['split_us']:.2f}"
+            for k, v in out.items()))
+    rule = {k: rm.SKINNY_NORM_MAX_K if k.startswith("skinny") else 0
+            for k in fits}
+    say("threshold", "norm prologue at or ahead of the split at one panel "
+        "at least, up to K: " + ", ".join(
+            f"{k} {v} (rule {rule[k]}: "
+            f"{'agrees' if v == rule[k] else 'differs'})"
+            for k, v in fits.items()))
+    stale = [k for k in fits if not k.startswith("skinny") and fits[k]]
+    if stale:
+        raise AssertionError(f"norm prologue of {stale} holds up to K = "
+                             f"{[fits[k] for k in stale]}; the rule never "
+                             "keeps it there")
+    return {"readings": out, "prologue_holds_up_to_k": fits,
+            "rule_max_k": rule}
+
+
+def readings_apart(name, call):
+    """``call`` (text: a call of this module's, where ``get_config`` is
+    the port's) in a process of its own, the card's library already
+    built; its result comes back through ``chiprun_out/<name>.json``.
+    The threshold sweeps run so: the profiles they take, on top of the
+    rest of this script's, have left the profiler recording no kernel
+    at all (the prologue sweep's ~2,700 in one run, the layernorm
+    sweep's after it in another; PERF.md)."""
+    out = ROOT / "chiprun_out" / f"{name}.json"
+    out.parent.mkdir(exist_ok=True)
+    code = (f"import json, sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]; import chip_smoke as c; "
+            "from repro_torch.configs import get_config; "
+            f"r = c.{call}; open({str(out)!r}, 'w').write(json.dumps(r))")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+    return json.loads(out.read_text())
+
+
 def int8_path(cases):
     """``ops.matmul_int8`` at every Swin-T matmul shape, each as often as
     a fused forward runs it, with the launch counts set to 0 just before
@@ -994,8 +1362,15 @@ def run_cases(cases, dtype_name, tol, timed=True):
                        / 1e3,
                        library_device_ms=kernel_us(case.library, None)
                        / 1e3)
-        elif timed and case.counts["vit"]:
-            row["device_ms"] = kernel_us(case.run, "attention_kernel") / 1e3
+        elif timed and any(case.counts[k] for k in ("vit", "gprefill",
+                                                     "gdecode", "wprefill",
+                                                     "wdecode")):
+            # the device ms of the ViT-B/16 attention and of every kernel
+            # call of the gemma3-27b and whisper-base paths
+            row["device_ms"] = kernel_us(
+                case.run, "attention_kernel" if case.kernel ==
+                "flash_attention" else "rowwise_matmul_kernel",
+                5 if case.flops > 1e12 else 20) / 1e3
         say("kernels", " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else
             f"{k}={'none' if v is None else v}"
@@ -1021,14 +1396,22 @@ def launches():
 
 
 def counted(fn):
-    """Run fn with every launch count set to 0 just before; return its
+    """Run fn with every launch count (and the attention's counts by
+    mode, :func:`attention_modes`) set to 0 just before; return its
     result and the counts just after."""
     import torch
     for k in launches().values():
         k.launches = 0
+    launches()["flash_attention"].modes.clear()
     out = fn()
     torch.cuda.synchronize()
     return out, {name: k.launches for name, k in launches().items()}
+
+
+def attention_modes():
+    """The attention launches by mode (``flash_attention.mode_of``) since
+    the last :func:`counted` began."""
+    return dict(launches()["flash_attention"].modes)
 
 
 def jitter(params, gen):
@@ -1123,7 +1506,7 @@ def kv_state(cache):
 
 
 def check_serving(phase, model, prompts, n_steps, tol, want_counts,
-                  state=rwkv_state, want_decode=None):
+                  state=rwkv_state, want_decode=None, extra=None):
     """Greedy serving of a batch: the plain path on the card picks the
     tokens (prefill into a cache of S + ``n_steps``, then ``n_steps``
     decode steps); the kernel path runs teacher-forced on them, on a
@@ -1135,14 +1518,16 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
     ``want_decode`` (default the same). Then ``greedy`` on the kernels
     must give the plain path's stream up to each row's first near-tie.
     With ``tol=None`` the logits, picks, states and stream are
-    readings, held only to be finite."""
+    readings, held only to be finite. ``extra``: the encoder's frames of
+    an encoder-decoder model, given to each prefill."""
     import torch
     from repro_torch.core import runtime
     b, s = prompts.shape
     want_decode = want_decode or want_counts
     with torch.no_grad():
         with runtime.use_impl("ref"):
-            lg, cache = model.prefill(prompts, alloc=s + n_steps)
+            lg, cache = model.prefill(prompts, alloc=s + n_steps,
+                                      extra=extra)
             want, toks = [lg], [lg.argmax(-1)]
             lengths = torch.full((b,), s, dtype=torch.int32,
                                  device=prompts.device)
@@ -1152,8 +1537,9 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
                 want.append(lg)
                 toks.append(lg.argmax(-1))
         want_states = state(cache)
-        got_lg, counts = counted(lambda: model.prefill(prompts,
-                                                      alloc=s + n_steps))
+        got_lg, counts = counted(lambda: model.prefill(
+            prompts, alloc=s + n_steps, extra=extra))
+        modes = attention_modes()
         got, cache = [got_lg[0]], got_lg[1]
         all_counts = [counts]
         for i in range(n_steps):
@@ -1164,8 +1550,12 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
             all_counts.append(counts)
         # the stream as a user asks for it: ``greedy`` on the kernels
         stream, greedy_counts = counted(
-            lambda: model.greedy(prompts, n_steps + 1))
+            lambda: model.greedy(prompts, n_steps + 1, extra=extra))
     limit = float("inf") if tol is None else tol
+    # the real vocabulary's columns: the pad columns of a vocabulary
+    # padded to 256 hold -1e30 on both paths, and would set the scale
+    vocab = model.cfg.vocab
+    got, want = ([t[..., :vocab] for t in ts] for ts in (got, want))
     ties, scale, step_errs = 0, 1.0, []
     first_tie = [n_steps + 1] * b     # per row, its first near-tie step
     for i, (g, w) in enumerate(zip(got, want)):
@@ -1209,7 +1599,8 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
                f"{step_errs[0]:.4g}, last step {step_errs[-1]:.4g}) "
                f"{held}{ties} rows; final {state.__name__} "
                f"max_abs_err={s_err:.4g}; launches per prefill "
-               f"{all_counts[0]}, per step {all_counts[-1]}; greedy "
+               f"{all_counts[0]} (attention by mode {modes}), per step "
+               f"{all_counts[-1]}; greedy "
                f"stream on the kernels: {same:.3f} of its tokens equal "
                f"the plain path's, launches {greedy_counts}")
     if not s_ok:
@@ -1229,28 +1620,32 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
             "greedy_same": same,
             "max_logit": scale, "near_ties": ties,
             "state_err": s_err, "counts": all_counts[0],
-            "decode_counts": all_counts[-1],
+            "prefill_modes": modes, "decode_counts": all_counts[-1],
             "tokens": torch.stack(toks, 1).tolist()}
 
 
-def bf16_layers(phase, model16, prompts):
+def bf16_layers(phase, model16, prompts, frames=None):
     """Each layer of the bf16 model at prefill, run on the plain bf16
     path's input to it (so no error carries from layer to layer), against
     the same layer in fp32 on the same weights and input, as rms(err) /
     rms(out): the kernel path (held to ``BF16_LAYER_TOL``; fused or not
     as ``runtime.pipeline_fusion`` says), the plain bf16 path
     (bf16's own rounding, for scale) and a control in lower precision.
-    Returns the worst reading over layers of each path and the control's
-    least."""
+    ``frames``: an encoder-decoder's, whose encoder layers run first
+    (windowless, as ``lm.encode`` runs them) and whose plain bf16 output
+    every decoder layer's cross-attention reads (the fp32 layer its fp32
+    copy). Returns the worst reading over layers of each path and the
+    control's least."""
     import torch
     from repro_torch.core import runtime
-    from repro_torch.models import blocks, lm
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, lm, rope
     cfg, tree = model16.cfg, model16.params.tree()
     reads = {"kernels": [], "plain": [], "control": []}
-    with torch.no_grad():
-        x = lm._add_positions(lm.embed(tree, prompts, cfg), cfg)
-        positions = lm._positions(prompts)
-        for stage, sp in zip(cfg.stages(), tree["stages"]):
+
+    def layers(stages, tree_stages, x, positions, enc_out=None,
+               window_override=None):
+        for stage, sp in zip(stages, tree_stages):
             for rep in range(stage.repeat):
                 for i, blk in enumerate(stage.body):
                     key = str(i)
@@ -1258,15 +1653,17 @@ def bf16_layers(phase, model16, prompts):
                                        sp["stacked"][key])
                           if key in sp["stacked"] else sp["shared"][key])
 
-                    def run(params, inp, blk=blk):
+                    def run(params, inp, enc, blk=blk):
                         return blocks.apply_block(
                             blk, params, inp, cfg=cfg, mode="prefill",
-                            positions=positions)[0]
+                            positions=positions, enc_out=enc,
+                            window_override=window_override)[0]
+                    enc32 = None if enc_out is None else enc_out.float()
                     with runtime.use_impl("ref"):
-                        plain = run(bp, x)
+                        plain = run(bp, x, enc_out)
                         want = run(lm._tree_map(lambda a: a.float(), bp),
-                                   x.float())
-                    ways = {"kernels": run(bp, x), "plain": plain,
+                                   x.float(), enc32)
+                    ways = {"kernels": run(bp, x, enc_out), "plain": plain,
                             "control": plain.to(torch.float8_e5m2)}
                     for way, o in ways.items():
                         d = o.float() - want
@@ -1277,6 +1674,23 @@ def bf16_layers(phase, model16, prompts):
                                            / want.square().mean().sqrt())
                                           .item())
                     x = plain
+        return x
+
+    with torch.no_grad():
+        enc_out = None
+        if frames is not None:
+            x = frames + rope.sinusoidal_embedding(
+                frames.shape[1], cfg.d_model, frames.device).to(
+                    frames.dtype)[None]
+            x = layers(cfg.enc_stages(), tree["enc"]["stages"], x, None,
+                       window_override=0)
+            fn = tree["enc"]["final_norm"]
+            with runtime.use_impl("ref"):
+                enc_out = ops.layernorm(x, fn["g"], fn.get("b"),
+                                        kind=cfg.norm)
+        x = lm._add_positions(lm.embed(tree, prompts, cfg), cfg)
+        layers(cfg.stages(), tree["stages"], x, lm._positions(prompts),
+               enc_out)
     out = {"kernels_max": max(reads["kernels"]),
            "plain_max": max(reads["plain"]),
            "control_min": min(reads["control"]), "per_layer": reads}
@@ -1295,8 +1709,9 @@ def bf16_layers(phase, model16, prompts):
     return out
 
 
-def lm_rates(model, prompts, steps=8):
-    """Prefill tokens/s of the batch and decode tokens/s at its batch
+def lm_rates(model, prompts, steps=8, extra=None):
+    """Prefill tokens/s of the batch (an encoder-decoder's with its
+    encoder over ``extra``'s frames) and decode tokens/s at its batch
     size (host clock around synchronised calls, after the checks have
     warmed every path)."""
     import torch
@@ -1304,7 +1719,7 @@ def lm_rates(model, prompts, steps=8):
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = model.prefill(prompts, alloc=s + steps)
+        lg, cache = model.prefill(prompts, alloc=s + steps, extra=extra)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         tok = lg.argmax(-1)[:, None]
@@ -1317,6 +1732,62 @@ def lm_rates(model, prompts, steps=8):
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
     return b * s / t_pre, b * steps / t_dec
+
+
+# the skinny design's norm boundaries the decode A/B sets: the norm
+# split from the matmul at deepseek-7b's and gemma3-27b's K (4096,
+# 5376), and kept in the prologue there
+SKINNY_AB_KS = (1024, 8192)
+
+
+def skinny_norm_ab(name, models, prompts, smi, steps=16, rounds=3):
+    """Decode tokens/s end to end (host clock around synchronised steps)
+    of each of ``models`` ({label: model}) after a prefill of
+    ``prompts``, with ``rowwise_matmul.SKINNY_NORM_MAX_K`` at each of
+    :data:`SKINNY_AB_KS`, in ABBA order ``rounds`` times; every run
+    decodes the same ``steps`` positions of one cache. The committed
+    boundary is restored after."""
+    import torch
+    from repro_torch.kernels import rowwise_matmul as rm
+    b, s = prompts.shape
+    lengths = torch.full((b,), s, dtype=torch.int32, device=prompts.device)
+
+    def rate(model, cache, tok):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, cache = model.decode_step(cache, tok, lengths + i)
+            tok = lg.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        return b * steps / (time.perf_counter() - t0)
+
+    saved = rm.SKINNY_NORM_MAX_K
+    out = {label: {str(k): [] for k in SKINNY_AB_KS} for label in models}
+    try:
+        with torch.no_grad():
+            runs = {}
+            for label, model in models.items():
+                lg, cache = model.prefill(prompts, alloc=s + steps)
+                runs[label] = (model, cache, lg.argmax(-1)[:, None])
+                rate(*runs[label])          # a warm-up, not kept
+            for _ in range(rounds):
+                for k in SKINNY_AB_KS + SKINNY_AB_KS[::-1]:
+                    rm.SKINNY_NORM_MAX_K = k
+                    for label, run in runs.items():
+                        out[label][str(k)].append(rate(*run))
+    finally:
+        rm.SKINNY_NORM_MAX_K = saved
+    for label, by_k in out.items():
+        med = {k: sorted(v)[len(v) // 2] for k, v in by_k.items()}
+        kept, split = (med[str(k)] for k in SKINNY_AB_KS[::-1])
+        say("threshold", f"skinny norm prologue end to end, {name} {label} "
+            f"decode tokens/s at B={b} after {s} tokens ({steps} steps a "
+            "run, ABBA): " + ", ".join(
+                f"SKINNY_NORM_MAX_K={k} median {med[k]:.2f} of "
+                + "/".join(f"{x:.2f}" for x in v) for k, v in by_k.items())
+            + f"; kept / split {kept / split:.4f} (committed "
+            f"{saved}) | {smi}")
+    return out
 
 
 def rwkv_phase(smi):
@@ -1430,15 +1901,16 @@ def dense_phase(smi):
     prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
                             device="cuda")
     layers = cfg.n_layers
-    counts = {"rowwise_matmul": 4 * layers + 1, "flash_attention": layers,
-              "layernorm": 1, "wkv": 0}
-    step = dict(counts, flash_attention=0)
-    serve = dict(state=kv_state, want_decode=step)
-    out = {"params": n_params,
-           "fp32_b4": check_serving("dense-fp32", model, prompts, 32,
-                                    LOGIT_TOL, counts, **serve),
-           "fp32_b1": check_serving("dense-fp32", model, prompt1, 8,
-                                    LOGIT_TOL, counts, **serve)}
+    out = {"params": n_params}
+    for key, p, steps in (("fp32_b4", prompts, 32), ("fp32_b1", prompt1, 8)):
+        b, s = p.shape
+        out[key] = check_serving(
+            "dense-fp32", model, p, steps, LOGIT_TOL,
+            want_launches("deepseek-7b prefill", lm_counts(
+                cfg, b * s, torch.float32, attention=True)),
+            state=kv_state,
+            want_decode=want_launches("deepseek-7b step", lm_counts(
+                cfg, b, torch.float32, attention=False)))
     # unfused: 7 matmuls a layer (q, k, v, wo, gate, up, down) + the
     # head, 2 norms a layer + the final one
     with torch.no_grad():
@@ -1458,8 +1930,13 @@ def dense_phase(smi):
     del fused, unfused
     model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
                                device="cuda")
-    out["bf16_b4"] = check_serving("dense-bf16", model16, prompts, 8, None,
-                                   counts, **serve)
+    out["bf16_b4"] = check_serving(
+        "dense-bf16", model16, prompts, 8, None,
+        want_launches("deepseek-7b prefill", lm_counts(
+            cfg, 4 * 512, torch.bfloat16, attention=True)),
+        state=kv_state,
+        want_decode=want_launches("deepseek-7b step", lm_counts(
+            cfg, 4, torch.bfloat16, attention=False)))
     out["bf16_layers"] = bf16_layers("dense-bf16", model16, prompts)
     # the unfused bf16 path: the same layer check, its launches, and its
     # full-depth logits against the fused ones as a reading
@@ -1497,6 +1974,8 @@ def dense_phase(smi):
         rates["bf16_unfused"] = lm_rates(model16, prompts)
     with runtime.use_impl("ref"):
         rates["plain_fp32"] = lm_rates(model, prompts)
+    out["skinny_norm_ab"] = skinny_norm_ab(
+        "deepseek-7b", {"fp32": model, "bf16": model16}, prompts, smi)
     out.update(rates=rates, peak_memory_gib=peak_gb,
                seconds=time.perf_counter() - t_phase)
     say("throughput", "deepseek-7b prefill tokens/s at B=4 x 512: "
@@ -1506,6 +1985,328 @@ def dense_phase(smi):
         + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
         f"resident) | {smi}")
     say("dense", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------ gemma3-27b ------------------------------
+
+
+def gemma_state(cache):
+    """The K and V of a gemma3 cache: the first local layer's ring, the
+    first global layer's cache and the local tail's ring."""
+    return [*cache[0]["0"]["kv"], *cache[0]["5"]["kv"], *cache[1]["0"]["kv"]]
+
+
+def lm_counts(cfg, rows, dtype, *, attention, matmuls_per_layer=4,
+              extra_norms=0):
+    """Launches of a fused dense prefill (``attention`` True) or decode
+    step of ``rows`` rows: 4 matmuls a layer and the head, one attention
+    a layer at prefill, the final norm and the norms of the qkv and
+    gate|up panels where their prologue splits."""
+    layers = cfg.n_layers
+    return {"rowwise_matmul": matmuls_per_layer * layers + 1,
+            "flash_attention": layers if attention else 0,
+            "layernorm": 1 + extra_norms + prologue_splits(
+                rows, cfg.d_model, dtype, 2 * layers),
+            "wkv": 0}
+
+
+def tied_head_copy(model, name):
+    """The tied head's per-call transpose of the embedding table (the
+    copy ``lm.unembed`` makes each prefill and step): ms a call, its
+    bound (the table read once and its copy written once) and the bytes
+    it allocates. The calls run back to back and each takes
+    milliseconds, so the host runs ahead and the stream never idles: the
+    events' time is the device's. The profiler is not asked, since it
+    drops some of this copy's kernel records (a bf16 reading under the
+    byte bound) and in one run all of them (PERF.md)."""
+    table = model.params.tree()["embed"]
+    ms = cuda_time(lambda: table.t().contiguous())
+    copy_bytes = table.numel() * table.element_size()
+    bound_ms, _ = bound(0, 2 * copy_bytes, name)
+    gib = copy_bytes / 2 ** 30
+    say("gemma", f"tied head transpose, {name} ({tuple(table.shape)}): "
+                 f"{ms:.4f} ms a call on the device (events), bound "
+                 f"{bound_ms:.4f} ms by bytes, {gib:.3f} GiB a copy")
+    return {"ms": ms, "bound_ms": bound_ms, "gib": gib}
+
+
+def gemma_phase(smi):
+    """gemma3-27b at full width: 8 layers (one 5:1 group and the 2-layer
+    local tail) in fp32, teacher-forced against the plain path (two
+    batches, one whose ring wraps during decode) and unfused; then the
+    fp32 model freed and all 62 layers in bf16 (its fp32 tree would not
+    fit the card), layer by layer against fp32 beside the float8
+    control, its full-depth logits as readings; prefill and decode
+    rates, peak memory, the tied head's transpose."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("gemma3-27b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    f32 = torch.float32
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=f32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_norms(model.params.tree(),
+                     torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("gemma", f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+                 f"({[st.repeat for st in cfg.stages()]} repeats of "
+                 f"{[len(st.body) for st in cfg.stages()]}-layer stages), d "
+                 f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
+                 f"({cfg.n_kv_heads} kv), window {cfg.local_window}, d_ff "
+                 f"{cfg.d_ff} (GeGLU), vocab {cfg.vocab} (tied): "
+                 f"{n_params / 1e9:.3f} B parameters, fp32, built in "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (2, 2048), generator=gen,
+                            device="cuda")
+    # 1020 tokens: the ring of 1024 fills at the fourth step and wraps
+    # from the fifth on
+    prompt1 = torch.randint(0, cfg.vocab, (1, 1020), generator=gen,
+                            device="cuda")
+    out = {"params_fp32": n_params}
+    for key, p, steps in (("fp32_b2", prompts, 16), ("fp32_b1", prompt1,
+                                                     12)):
+        b, s = p.shape
+        out[key] = check_serving(
+            "gemma-fp32", model, p, steps, LOGIT_TOL,
+            want_launches("gemma3-27b/8 prefill",
+                          lm_counts(cfg, b * s, f32, attention=True)),
+            state=gemma_state,
+            want_decode=want_launches("gemma3-27b/8 step", lm_counts(
+                cfg, b, f32, attention=False)))
+    # unfused: 7 matmuls a layer (q, k, v, wo, gate, up, down) and the
+    # head, 2 norms a layer and the final one
+    with torch.no_grad():
+        fused, _ = model.prefill(prompts)
+        with runtime.use_pipeline_fusion(False):
+            (unfused, _), ucounts = counted(lambda: model.prefill(prompts))
+    want = {"rowwise_matmul": 7 * cfg.n_layers + 1,
+            "flash_attention": cfg.n_layers,
+            "layernorm": 2 * cfg.n_layers + 1, "wkv": 0}
+    err, ok = err_ok(unfused, fused, LOGIT_TOL)
+    say("gemma-unfused", f"B=2 S=2048 prefill logits against fused: "
+                         f"max_abs_err={err:.4g} tol={LOGIT_TOL}*max(1,"
+                         f"max|logit|); launches {ucounts}")
+    if not ok or ucounts != want:
+        raise AssertionError(f"gemma unfused prefill: err {err}, launches "
+                             f"{ucounts}, want {want}")
+    out["unfused"] = {"max_abs_err": err, "counts": ucounts}
+    del fused, unfused
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32_8_layers": lm_rates(model, prompts)}
+    with runtime.use_impl("ref"):
+        rates["plain_fp32_8_layers"] = lm_rates(model, prompts)
+    out["peak_memory_fp32_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["tied_head_fp32"] = tied_head_copy(model, "fp32")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model16 = lm.LanguageModel(
+        full, device="cuda", dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_norms(model16.params.tree(),
+                     torch.Generator(device="cuda").manual_seed(1))
+    out["params_bf16"] = sum(p.numel() for p in model16.parameters())
+    gib = sum(p.numel() * p.element_size()
+              for p in model16.parameters()) / 2 ** 30
+    say("gemma", f"{full.name}: all {full.n_layers} layers, "
+                 f"{out['params_bf16'] / 1e9:.3f} B parameters, bf16, "
+                 f"{gib:.2f} GiB of weights, built in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    bf = torch.bfloat16
+    out["bf16_b2"] = check_serving(
+        "gemma-bf16", model16, prompts, 8, None,
+        want_launches("gemma3-27b prefill",
+                      lm_counts(full, 2 * 2048, bf, attention=True)),
+        state=gemma_state,
+        want_decode=want_launches("gemma3-27b step", lm_counts(
+            full, 2, bf, attention=False)))
+    out["bf16_layers"] = bf16_layers("gemma-bf16", model16, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    rates["bf16"] = lm_rates(model16, prompts)
+    out["peak_memory_bf16_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with runtime.use_pipeline_fusion(False):
+        rates["bf16_unfused"] = lm_rates(model16, prompts)
+    with runtime.use_impl("ref"):
+        rates["plain_bf16"] = lm_rates(model16, prompts)
+    out["skinny_norm_ab"] = skinny_norm_ab(
+        "gemma3-27b", {"bf16, 62 layers": model16}, prompts, smi)
+    out["tied_head_bf16"] = tied_head_copy(model16, "bf16")
+    out.update(rates=rates, seconds=time.perf_counter() - t_phase)
+    say("throughput", "gemma3-27b prefill tokens/s at B=2 x 2048: "
+        + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items())
+        + "; decode tokens/s at B=2: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + f"; peak memory {out['peak_memory_fp32_gib']:.2f} GiB (fp32, 8 "
+        f"layers), {out['peak_memory_bf16_gib']:.2f} GiB (bf16, 62 layers) "
+        f"| {smi}")
+    say("gemma", f"phase took {out['seconds']:.1f} s")
+    del model16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------ whisper-base -----------------------------
+
+
+def whisper_state(cache):
+    """The self K/V and the cross K/V of a whisper cache's first layer."""
+    c = cache[0]["0"]
+    return [*c["kv"], *c["cross_kv"]]
+
+
+def whisper_counts(cfg, batch, s, dtype, *, prefill):
+    """Launches of a fused whisper prefill of ``batch`` x ``s`` tokens
+    (its encoder over the frames included) or decode step: the encoder's
+    4 matmuls and 1 attention a layer and its final norm; the decoder's
+    7 matmuls a layer at prefill (qkv, wo, wq, wkv, the cross wo, mlp1,
+    mlp2; 6 at decode, no wkv), 2 attention at prefill, the cross norm;
+    the head and the final norm; and the norms of the qkv and mlp1
+    panels where their prologue splits."""
+    d, enc, dec = cfg.d_model, cfg.n_enc_layers, cfg.n_layers
+    rows = batch * s if prefill else batch
+    counts = {"rowwise_matmul": 6 * dec + 1, "flash_attention": 0,
+              "layernorm": dec + 1 + prologue_splits(rows, d, dtype,
+                                                     2 * dec),
+              "wkv": 0}
+    if prefill:
+        counts["rowwise_matmul"] += 4 * enc + dec
+        counts["flash_attention"] = enc + 2 * dec
+        counts["layernorm"] += 1 + prologue_splits(batch * cfg.cross_len, d,
+                                                   dtype, 2 * enc)
+    return counts
+
+
+def whisper_phase(smi):
+    """whisper-base at full width and depth on seeded frames: fp32
+    teacher-forced against the plain path (self and cross caches), the
+    encoder's and the unfused prefill's launches, bf16 layer by layer
+    (encoder and decoder) against fp32 beside the float8 control and as
+    readings; prefill and decode rates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base")
+    f32 = torch.float32
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=f32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        tree = model.params.tree()
+        jitter_norms(tree, torch.Generator(device="cuda").manual_seed(1))
+        jitter_norms({"final_norm": tree["enc"]["final_norm"],
+                      "stages": tree["enc"]["stages"]},
+                     torch.Generator(device="cuda").manual_seed(3))
+        xgen = torch.Generator(device="cuda").manual_seed(4)
+        for stage in tree["stages"]:
+            for blk in stage["stacked"].values():
+                for t in blk["norm_x"].values():
+                    t.add_(_rand(xgen, t.shape, t.dtype, t.device, 0.1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("whisper", f"{cfg.name}: {cfg.n_enc_layers} encoder + "
+                   f"{cfg.n_layers} decoder layers, d {cfg.d_model}, "
+                   f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff},"
+                   f" vocab {cfg.vocab} (tied), {cfg.cross_len} frames: "
+                   f"{n_params / 1e6:.2f} M parameters, fp32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = _rand(gen, (4, cfg.cross_len, cfg.d_model), f32, "cuda")
+    prompts = torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                            device="cuda")
+    prompt1 = torch.randint(0, cfg.vocab, (1, 16), generator=gen,
+                            device="cuda")
+    out = {"params": n_params}
+    with torch.no_grad():
+        _, ecounts = counted(lambda: lm.encode(tree, frames, cfg))
+        emodes = attention_modes()
+    want = want_launches("whisper-base encoder", {
+        "rowwise_matmul": 4 * cfg.n_enc_layers,
+        "flash_attention": cfg.n_enc_layers,
+        "layernorm": 1 + prologue_splits(4 * cfg.cross_len, cfg.d_model,
+                                         f32, 2 * cfg.n_enc_layers),
+        "wkv": 0})
+    say("whisper", f"encoder over B=4 x {cfg.cross_len} frames: launches "
+                   f"{ecounts}, attention by mode {emodes}")
+    if ecounts != want:
+        raise AssertionError(f"whisper encoder: launches {ecounts}, want "
+                             f"{want}")
+    out["encoder_counts"], out["encoder_modes"] = ecounts, emodes
+    for key, p, steps, fr, name in (
+            ("fp32_b4", prompts, 32, frames, "whisper-base prefill"),
+            ("fp32_b1", prompt1, 8, frames[:1], "whisper-base prefill 1x16")):
+        b, s = p.shape
+        out[key] = check_serving(
+            "whisper-fp32", model, p, steps, LOGIT_TOL,
+            want_launches(name, whisper_counts(cfg, b, s, f32,
+                                               prefill=True)),
+            state=whisper_state,
+            want_decode=want_launches("whisper-base step", whisper_counts(
+                cfg, b, s, f32, prefill=False)),
+            extra={"frames": fr})
+    extra = {"frames": frames}
+    # unfused: 6 matmuls an encoder layer (q, k, v, wo, mlp1, mlp2), 10
+    # a decoder layer (with wq, wk, wv and the cross wo) and the head; 2
+    # norms an encoder layer, 3 a decoder layer and the two final ones
+    with torch.no_grad():
+        fused, _ = model.prefill(prompts, extra=extra)
+        with runtime.use_pipeline_fusion(False):
+            (unfused, _), ucounts = counted(
+                lambda: model.prefill(prompts, extra=extra))
+    enc, dec = cfg.n_enc_layers, cfg.n_layers
+    want = {"rowwise_matmul": 6 * enc + 10 * dec + 1,
+            "flash_attention": enc + 2 * dec,
+            "layernorm": 2 * enc + 3 * dec + 2, "wkv": 0}
+    err, ok = err_ok(unfused[..., :cfg.vocab], fused[..., :cfg.vocab],
+                     LOGIT_TOL)
+    say("whisper-unfused", f"B=4 S=64 prefill logits against fused: "
+                           f"max_abs_err={err:.4g}; launches {ucounts}")
+    if not ok or ucounts != want:
+        raise AssertionError(f"whisper unfused prefill: err {err}, "
+                             f"launches {ucounts}, want {want}")
+    out["unfused"] = {"max_abs_err": err, "counts": ucounts}
+    model16 = lm.LanguageModel(cfg, to_bf16(tree), device="cuda")
+    bf = torch.bfloat16
+    extra16 = {"frames": frames.to(bf)}
+    out["bf16_b4"] = check_serving(
+        "whisper-bf16", model16, prompts, 8, None,
+        want_launches("whisper-base prefill",
+                      whisper_counts(cfg, 4, 64, bf, prefill=True)),
+        state=whisper_state,
+        want_decode=want_launches("whisper-base step", whisper_counts(
+            cfg, 4, 64, bf, prefill=False)),
+        extra=extra16)
+    out["bf16_layers"] = bf16_layers("whisper-bf16", model16, prompts,
+                                     frames=extra16["frames"])
+    rates = {"fp32": lm_rates(model, prompts, extra=extra),
+             "bf16": lm_rates(model16, prompts, extra=extra16)}
+    with runtime.use_pipeline_fusion(False):
+        rates["bf16_unfused"] = lm_rates(model16, prompts, extra=extra16)
+    with runtime.use_impl("ref"):
+        rates["plain_fp32"] = lm_rates(model, prompts, extra=extra)
+    out.update(rates=rates, seconds=time.perf_counter() - t_phase)
+    say("throughput", "whisper-base prefill tokens/s at B=4 x 64 (the "
+        "encoder over 1500 frames included): " + ", ".join(
+            f"{k} {v[0]:.1f}" for k, v in rates.items())
+        + "; decode tokens/s at B=4: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items()) + f" | {smi}")
+    say("whisper", f"phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -1535,6 +2336,38 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
             "path": path}
 
 
+def check_listed(tabs, key, counts):
+    """The launches the ``key`` cases of an LM table list, per dtype,
+    against the model's run ``counts`` ({"fp32": ..., "bf16": ...})."""
+    for dt in ("fp32", "bf16"):
+        listed = {name: tabs.get(f"{key} {dt} {name}", {}).get(
+            "launches", 0) for name in REPLACES}
+        # the bf16 RWKV6 model runs WKV in fp32: no bf16 wkv cases
+        if dt == "bf16" and key in ("prefill", "decode"):
+            listed["wkv"] = counts[dt]["wkv"]
+        if listed != counts[dt]:
+            raise AssertionError(f"the {key} {dt} cases list {listed} "
+                                 f"launches, the model ran {counts[dt]}")
+
+
+def check_modes(rows, key, dtype, run, cases):
+    """The attention launches by mode of one model's prefill (``run``:
+    mode -> launches) against the ``key`` cases that list them (``cases``:
+    mode -> the names of its cases), each case times its launches."""
+    listed = {mode: sum(r[key] for r in rows
+                        if r["kernel"] == "flash_attention"
+                        and r["dtype"] == dtype
+                        and any(r["case"].startswith(n + " q=")
+                                for n in names))
+              for mode, names in cases.items()}
+    say("modes", f"{key} {dtype}: attention launches by mode, the model's "
+                 f"run {run}, its cases {listed}")
+    if listed != run:
+        raise AssertionError(f"the {key} {dtype} attention cases list "
+                             f"{listed} launches by mode, the model ran "
+                             f"{run}")
+
+
 def design_tables(rows):
     """Each kernel per design, per dtype, summed over one run of each
     path (``fused``: a Swin-T forward at B=8, ``fused64``: its attention
@@ -1547,7 +2380,8 @@ def design_tables(rows):
     times its launches."""
     out = {}
     for key in ("fused", "fused64", "vit", "prefill", "decode", "dprefill",
-                "ddecode", "dunfused"):
+                "ddecode", "dunfused", "gprefill", "gdecode", "wprefill",
+                "wdecode"):
         for dt in ("fp32", "bf16", "int8"):
             for kernel in REPLACES:
                 mine = [r for r in rows if r["kernel"] == kernel and r[key]
@@ -1687,6 +2521,13 @@ def main() -> int:
                       FP32_TOL)
     rows += run_cases(dense_cases(dense_cfg, torch.bfloat16, gen, dev),
                       "bf16", BF16_TOL)
+    gemma_cfg, whisper_cfg = get_config("gemma3-27b"), get_config(
+        "whisper-base")
+    for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
+                          (torch.bfloat16, "bf16", BF16_TOL)):
+        rows += run_cases(gemma_cases(gemma_cfg, dt, gen, dev), name, tol)
+        rows += run_cases(whisper_cases(whisper_cfg, dt, gen, dev), name,
+                          tol)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -1727,8 +2568,7 @@ def main() -> int:
         (8, CONFIG.img_size, CONFIG.img_size, 3)).astype(np.float32)).to(dev)
     fused, main_counts = check_forward(
         "swin-fused", model, images,
-        {"rowwise_matmul": 53, "flash_attention": 12, "layernorm": 1,
-         "wkv": 0},
+        want_launches("swin-t", swin_counts(CONFIG, 8, torch.float32)),
         LOGIT_TOL)
     with runtime.use_pipeline_fusion(False):
         unfused, _ = check_forward(
@@ -1749,9 +2589,13 @@ def main() -> int:
     vimages = torch.from_numpy(rng.standard_normal(
         (8, VIT_CONFIG.img_size, VIT_CONFIG.img_size, 3))
         .astype(np.float32)).to(dev)
+    vit_rows = 8 * ((VIT_CONFIG.img_size // VIT_CONFIG.patch) ** 2 + 1)
     check_forward("vit-b16", vit, vimages,
-                  {"rowwise_matmul": 50, "flash_attention": 12,
-                   "layernorm": 1, "wkv": 0}, LOGIT_TOL)
+                  want_launches("vit-b16", {
+                      "rowwise_matmul": 50, "flash_attention": 12,
+                      "layernorm": 1 + prologue_splits(
+                          vit_rows, VIT_CONFIG.embed_dim, torch.float32,
+                          2 * VIT_CONFIG.depth), "wkv": 0}), LOGIT_TOL)
 
     # 7. bf16 forward, then throughput at B=64
     model16 = SwinTransformer(CONFIG, device=dev, dtype=torch.bfloat16,
@@ -1760,8 +2604,9 @@ def main() -> int:
         jitter(model16.params.tree(), torch.Generator().manual_seed(1))
     # bf16 kernel path against the bf16 plain path on the card
     check_forward("swin-bf16", model16, images.to(torch.bfloat16),
-                  {"rowwise_matmul": 53, "flash_attention": 12,
-                   "layernorm": 1, "wkv": 0}, BF16_TOL)
+                  want_launches("swin-t",
+                                swin_counts(CONFIG, 8, torch.bfloat16)),
+                  BF16_TOL)
     with runtime.use_pipeline_fusion(False):
         check_forward("swin-bf16-unfused", model16, images.to(torch.bfloat16),
                       {"rowwise_matmul": 53, "flash_attention": 0,
@@ -1787,30 +2632,52 @@ def main() -> int:
     dense = dense_phase(smi)
     dense_tables = lm_tables(rows, ("dprefill", "ddecode", "dunfused"),
                              "dense-table")
-    for tabs, key, counts in (
-            (tables, "prefill", rwkv["fp32_b4"]["counts"]),
-            (tables, "decode", rwkv["fp32_b4"]["decode_counts"]),
-            (dense_tables, "dprefill", dense["fp32_b4"]["counts"]),
-            (dense_tables, "ddecode", dense["fp32_b4"]["decode_counts"]),
-            (dense_tables, "dunfused", dense["unfused"]["counts"])):
-        for dt in ("fp32", "bf16"):
-            listed = {name: tabs.get(f"{key} {dt} {name}", {}).get(
-                "launches", 0) for name in REPLACES}
-            # the bf16 RWKV6 model runs WKV in fp32: no bf16 wkv cases
-            if dt == "bf16" and key in ("prefill", "decode"):
-                listed["wkv"] = counts["wkv"]
-            if listed != counts:
-                raise AssertionError(f"the {key} {dt} cases list {listed} "
-                                     f"launches, the model ran {counts}")
 
-    # 10. the int8 path
+    # 10. gemma3-27b (8 layers in fp32, all 62 in bf16) and whisper-base
+    gemma = gemma_phase(smi)
+    gemma_tables = lm_tables(rows, ("gprefill", "gdecode"), "gemma-table")
+    whisper = whisper_phase(smi)
+    whisper_tables = lm_tables(rows, ("wprefill", "wdecode"),
+                               "whisper-table")
+
+    def both(run, batch, key="counts"):
+        """A phase's launches per run of its largest batch, by dtype."""
+        return {dt: run[f"{dt}_{batch}"][key] for dt in ("fp32", "bf16")}
+    for tabs, key, counts in (
+            (tables, "prefill", both(rwkv, "b4")),
+            (tables, "decode", both(rwkv, "b4", "decode_counts")),
+            (dense_tables, "dprefill", both(dense, "b4")),
+            (dense_tables, "ddecode", both(dense, "b4", "decode_counts")),
+            (dense_tables, "dunfused", {"fp32": dense["unfused"]["counts"],
+                                        "bf16": dense["bf16_unfused"][
+                                            "counts"]}),
+            (gemma_tables, "gprefill", both(gemma, "b2")),
+            (gemma_tables, "gdecode", both(gemma, "b2", "decode_counts")),
+            (whisper_tables, "wprefill", both(whisper, "b4")),
+            (whisper_tables, "wdecode", both(whisper, "b4",
+                                             "decode_counts"))):
+        check_listed(tabs, key, counts)
+    # the Swin-T cases against the fused forward's launches
+    listed = {name: sum(r["fused"] for r in rows if r["kernel"] == name
+                        and r["dtype"] == "fp32") for name in REPLACES}
+    if listed != main_counts:
+        raise AssertionError(f"the Swin-T cases list {listed} launches, "
+                             f"the forward ran {main_counts}")
+
+    # 11. the int8 path
     i8_counts, i8_device_ms = int8_path(i8_cases)
-    threshold = threshold_readings(dev)
-    threshold_wkv = wkv_threshold_readings(rwkv_cfg, dev)
-    threshold_ln = layernorm_threshold_readings(dev)
+    threshold = readings_apart("skinny_threshold",
+                               "threshold_readings('cuda')")
+    threshold_prologue = readings_apart(
+        "prologue_threshold", "prologue_threshold_readings('cuda')")
+    threshold_wkv = readings_apart(
+        "wkv_threshold",
+        "wkv_threshold_readings(get_config('rwkv6-3b'), 'cuda')")
+    threshold_ln = readings_apart("layernorm_threshold",
+                                  "layernorm_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    # 11. the kernels line and the result
+    # 12. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -1834,6 +2701,45 @@ def main() -> int:
         dense["fp32_b4"]["counts"]["flash_attention"],
         "one deepseek-7b prefill, B=4 x 512, fp32",
         label="flash_attention causal"))
+    # the attention modes of gemma3-27b and whisper-base: the cases of
+    # each mode against the launches the model's prefill counted in it
+    # (its encoder's apart), and a kernels entry for each new mode, over
+    # the calls of one fp32 prefill that take it
+    enc = whisper["encoder_modes"].get("causal", 0)
+    for dt in ("fp32", "bf16"):
+        check_modes(rows, "gprefill", dt, gemma[f"{dt}_b2"]["prefill_modes"],
+                    {"causal+window": ["gemma.prefill causal+window"],
+                     "causal": ["gemma.prefill causal"]})
+        run = dict(whisper[f"{dt}_b4"]["prefill_modes"])
+        cases = {"full Sq!=Skv": ["whisper.prefill cross"],
+                 "causal": ["whisper.encoder causal",
+                            "whisper.prefill causal"]}
+        if dt == "fp32":
+            # the encoder's causal launches apart, counted in its own run
+            run["causal"] = run.get("causal", 0) - enc
+            run["encoder causal"] = enc
+            cases["causal"] = ["whisper.prefill causal"]
+            cases["encoder causal"] = ["whisper.encoder causal"]
+        check_modes(rows, "wprefill", dt, run, cases)
+    for key, case, launches_, label, path in (
+            ("gprefill", "gemma.prefill causal+window",
+             gemma["fp32_b2"]["prefill_modes"].get("causal+window", 0),
+             "flash_attention causal+window",
+             "the local layers of one gemma3-27b prefill (8 layers), "
+             "B=2 x 2048, fp32"),
+            ("wprefill", "whisper.encoder causal", enc,
+             "flash_attention causal S=1500",
+             "the encoder layers of one whisper-base prefill, B=4, fp32"),
+            ("wprefill", "whisper.prefill cross",
+             whisper["fp32_b4"]["prefill_modes"].get("full Sq!=Skv", 0),
+             "flash_attention cross Sq!=Skv",
+             "the cross-attention of one whisper-base prefill, B=4 x 64 "
+             "over 1500 frames, fp32")):
+        mine = [r for r in rows if r["kernel"] == "flash_attention"
+                and r["dtype"] == "fp32" and r[key]
+                and r["case"].startswith(case + " q=")]
+        kernels.append(kernel_line(mine, "flash_attention", key, launches_,
+                                   path, label=label))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -1848,6 +2754,10 @@ def main() -> int:
                                "rwkv": rwkv, "rwkv_tables": tables,
                                "dense": dense,
                                "dense_tables": dense_tables,
+                               "gemma": gemma, "gemma_tables": gemma_tables,
+                               "whisper": whisper,
+                               "whisper_tables": whisper_tables,
+                               "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
                                "int8_path_device_ms": i8_device_ms,
                                "skinny_threshold_us": threshold,
@@ -1862,7 +2772,9 @@ def main() -> int:
                 "RWKV6-3B prefill at B=4 x 512, fp32; the layernorm cta "
                 "row: over one decode step at B=4, fp32; the "
                 "flash_attention causal row: over one deepseek-7b prefill "
-                "at B=4 x 512, fp32)")
+                "at B=4 x 512, fp32; the gemma3-27b and whisper-base "
+                "attention rows: over the calls of one prefill that take "
+                "that mode)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,22 +6,22 @@ queue of ``ROADMAP.md`` that owes them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_7b, granite_20b, internlm2_20b,
-                                 rwkv6_3b)
+from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_20b,
+                                 internlm2_20b, rwkv6_3b, whisper_base)
 from repro_torch.core.types import ModelConfig
 
 _MODULES = {
     "deepseek-7b": deepseek_7b,
+    "gemma3-27b": gemma3_27b,
     "granite-20b": granite_20b,
     "internlm2-20b": internlm2_20b,
     "rwkv6-3b": rwkv6_3b,
+    "whisper-base": whisper_base,
 }
 
 # every other architecture of the JAX package, with the ROADMAP item
 # that ports it
 PENDING = {
-    "gemma3-27b": "queue 1 item 4 (dense LM stack, sliding window)",
-    "whisper-base": "queue 1 item 4 (encoder-decoder)",
     "qwen2-vl-2b": "queue 1 item 8 (mrope, vision frontend)",
     "phi3.5-moe-42b-a6.6b": "queue 1 item 8 (MoE)",
     "qwen2-moe-a2.7b": "queue 1 item 8 (MoE)",

@@ -40,9 +40,50 @@ def _shape(leaf):
     return tuple((leaf["q"] if isinstance(leaf, dict) else leaf).shape)
 
 
+def _check_stages(tree_stages, stages, cfg: ModelConfig, where: str):
+    """Each stage's blocks: the norm1 gain's depth and width, the ``wqkv``
+    panel's width (q, k and v heads) and, in a cross-attention block, the
+    ``wq`` and fused ``wkv`` widths."""
+    d = cfg.d_model
+    qo, kvo = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    heads = (f"{cfg.n_heads} q and {cfg.n_kv_heads} kv heads of "
+             f"{cfg.head_dim}")
+    if len(tree_stages) != len(stages):
+        raise ValueError(f"tree has {len(tree_stages)} {where}stages; "
+                         f"{cfg.name} has {len(stages)}")
+    for si, (stage, sp) in enumerate(zip(stages, tree_stages)):
+        for i, blk in enumerate(stage.body):
+            group = sp["shared" if blk.shared else "stacked"]
+            g = group[str(i)]["norm1"]["g"]
+            lead = () if blk.shared else (stage.repeat,)
+            if tuple(g.shape) != lead + (d,):
+                raise ValueError(f"{where}stage {si} block {i}: norm1 "
+                                 f"{tuple(g.shape)}; {cfg.name} wants "
+                                 f"{lead + (d,)} ({cfg.n_layers} layers, "
+                                 f"d {d})")
+            wants = []
+            if "attn" in group[str(i)]:
+                wants.append(("wqkv", group[str(i)]["attn"]["wqkv"],
+                              sum(proj_splits(cfg))))
+            if blk.cross_attn:
+                cross = group[str(i)].get("cross")
+                if cross is None:
+                    raise ValueError(f"{where}stage {si} block {i}: no "
+                                     f"cross-attention; {cfg.name} wants "
+                                     "one")
+                wants += [("wq", cross["wq"], qo),
+                          ("wkv", cross["wkv"], 2 * kvo)]
+            for name, leaf, width in wants:
+                if _shape(leaf) != lead + (d, width):
+                    raise ValueError(
+                        f"{where}stage {si} block {i}: {name} "
+                        f"{_shape(leaf)}; {cfg.name} wants "
+                        f"{lead + (d, width)} ({heads})")
+
+
 def _check_lm(tree, cfg: ModelConfig):
-    """Layer count, width, padded vocab and the attention panel's width
-    (q, k and v heads) of an LM tree against cfg."""
+    """Layer count, width, padded vocab and the attention panels' widths
+    of an LM tree (and of its encoder's) against cfg."""
     d, vp = cfg.d_model, padded_vocab(cfg)
     if _shape(tree["embed"]) != (vp, d):
         raise ValueError(f"embed {_shape(tree['embed'])} does not fit "
@@ -50,28 +91,13 @@ def _check_lm(tree, cfg: ModelConfig):
     if not cfg.tie_embeddings and _shape(tree["lm_head"]) != (d, vp):
         raise ValueError(f"lm_head {_shape(tree['lm_head'])} does not fit "
                          f"{cfg.name}: want {(d, vp)}")
-    stages = cfg.stages()
-    if len(tree["stages"]) != len(stages):
-        raise ValueError(f"tree has {len(tree['stages'])} stages; "
-                         f"{cfg.name} has {len(stages)}")
-    for si, (stage, sp) in enumerate(zip(stages, tree["stages"])):
-        for i, blk in enumerate(stage.body):
-            group = sp["shared" if blk.shared else "stacked"]
-            g = group[str(i)]["norm1"]["g"]
-            want = (d,) if blk.shared else (stage.repeat, d)
-            if tuple(g.shape) != want:
-                raise ValueError(f"stage {si} block {i}: norm1 "
-                                 f"{tuple(g.shape)}; {cfg.name} wants "
-                                 f"{want} ({cfg.n_layers} layers, d "
-                                 f"{d})")
-            if "attn" in group[str(i)]:
-                got = _shape(group[str(i)]["attn"]["wqkv"])
-                want = want[:-1] + (d, sum(proj_splits(cfg)))
-                if got != want:
-                    raise ValueError(
-                        f"stage {si} block {i}: wqkv {got}; {cfg.name} "
-                        f"wants {want} ({cfg.n_heads} q and "
-                        f"{cfg.n_kv_heads} kv heads of {cfg.head_dim})")
+    _check_stages(tree["stages"], cfg.stages(), cfg, "")
+    if cfg.encdec:
+        if "enc" not in tree:
+            raise ValueError(f"tree has no encoder; {cfg.name} wants "
+                             f"{cfg.n_enc_layers} encoder layers")
+        _check_stages(tree["enc"]["stages"], cfg.enc_stages(), cfg,
+                      "encoder ")
 
 
 def _check(tree, cfg):
@@ -108,8 +134,10 @@ def from_jax_params(tree, cfg, device="cuda"):
     "stages": [{"stacked", "shared"}], "final_norm", "lm_head"}`` (the
     dense blocks' ``attn`` {``wqkv``, ``wo``}, ``ffn`` {``wgi`` or
     ``wi``, ``wo``}, norms with an optional ``b``; ``lm_head`` absent
-    when the embedding is tied), checked for its layer count, d_model,
-    padded vocab and ``wqkv`` width."""
+    when the embedding is tied; an encoder-decoder's ``enc`` {"stages",
+    "final_norm"} and its decoder blocks' ``norm_x`` and ``cross`` {``wq``,
+    ``wkv``, ``wo``}), checked for its layer count, d_model, padded
+    vocab, and the ``wqkv``, ``wq`` and ``wkv`` widths."""
     device = runtime.resolve_device(device)
     out = _convert(tree, device)
     _check(out, cfg)

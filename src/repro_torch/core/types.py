@@ -157,6 +157,13 @@ class ModelConfig:
         blk = BlockDef(mixer="attn", ffn=ffn, cross_attn=self.encdec)
         return (Stage(self.n_layers, (blk,)),)
 
+    def enc_stages(self) -> Tuple[Stage, ...]:
+        """The encoder of an encoder-decoder arch: dense attention + MLP
+        blocks (their attention unwindowed)."""
+        assert self.encdec
+        blk = BlockDef(mixer="attn", ffn="mlp")
+        return (Stage(self.n_enc_layers, (blk,)),)
+
     # ------------------------------------------------------------------
     # Parameter counting
     # ------------------------------------------------------------------
@@ -214,8 +221,9 @@ class ModelConfig:
             total += embed
             active += embed
         if self.encdec:
-            # the encoder stages: one dense attention + MLP block each
-            p = attn_params() + mlp_params(self.d_ff) + 3 * d
-            total += self.n_enc_layers * p
-            active += self.n_enc_layers * p
+            for stage in self.enc_stages():
+                for _blk in stage.body:
+                    p = attn_params() + mlp_params(self.d_ff) + 3 * d
+                    total += stage.repeat * p
+                    active += stage.repeat * p
         return {"total": total, "active": active}

@@ -100,7 +100,20 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _build.stream(dev))
         _build.check(err, "flash_attention_p")
         flash_attention_p.launches += 1
+        mode = mode_of(causal, window, sq, skv)
+        flash_attention_p.modes[mode] = flash_attention_p.modes.get(mode,
+                                                                    0) + 1
     return out
 
 
 flash_attention_p.launches = 0
+# the launches by mode (:func:`mode_of`), counted with ``launches``
+flash_attention_p.modes = {}
+
+
+def mode_of(causal: bool, window: int, sq: int, skv: int) -> str:
+    """The mode a launch is counted under in ``flash_attention_p.modes``:
+    'causal' or 'full', '+window' with a window, ' Sq!=Skv' where the
+    queries and keys differ in length (cross-attention)."""
+    return (("causal" if causal else "full") + ("+window" if window else "")
+            + ("" if sq == skv else " Sq!=Skv"))

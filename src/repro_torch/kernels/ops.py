@@ -19,9 +19,12 @@ The fusion between the ops of a transformer sublayer:
   * :func:`matmul_int8`      — the W8A8 leg: int8 operands, int32
                                accumulation, dequant in the epilogue.
 
-The CUDA matmul takes the norm prologue at any K (it takes the row
-statistics in a pass of its own), so the JAX package's fallback to the
-standalone norm kernel for K beyond one VMEM panel has no counterpart.
+A norm the matmul design cannot carry well at this K
+(``rowwise_matmul.norm_prologue_fits``) runs as the standalone norm
+kernel before a prologue-free matmul: the counterpart of the JAX
+package's fallback for K beyond one VMEM panel. The plain path keeps
+the norm inside ``pipeline_ref``; both cast the normed rows to the
+streaming dtype before the dot.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from repro_torch.core import quant, runtime
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+from repro_torch.kernels.rowwise_matmul import (norm_prologue_fits,
+                                                rowwise_matmul_p)
 from repro_torch.kernels.wkv import wkv_p
 
 
@@ -54,10 +58,17 @@ def _flatten_leading(x):
 
 
 def _pipeline(x2, w, impl, *, norm: Optional[NormSpec] = None, **kw):
+    """The one matmul dispatch: the plain pipeline under ``ref``, else the
+    kernel wrapper, with the norm moved to ``layernorm_p`` on the kernel
+    path (a tensor off the CPU) where the prologue does not fit."""
     kind, gamma, beta, eps = norm or (None, None, None, 1e-6)
     if impl == "ref":
         return ref.pipeline_ref(x2, w, norm_kind=kind, gamma=gamma,
                                 beta=beta, eps=eps, **kw)
+    if (norm is not None and x2.device.type != "cpu"
+            and not norm_prologue_fits(*x2.shape, x2.dtype)):
+        x2 = layernorm_p(x2, gamma, beta, eps=eps, kind=kind)
+        kind = gamma = beta = None
     return rowwise_matmul_p(x2, w, prologue=kind, gamma=gamma, pbeta=beta,
                             eps=eps, **kw)
 

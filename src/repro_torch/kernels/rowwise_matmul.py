@@ -42,6 +42,20 @@ ACTIVATIONS = {None: 0, "gelu": 1, "silu": 2, "relu": 3, "relu2": 4}
 # fp32 29.5 µs at M=16 against ffma's 130.8 (chip_smoke.py's threshold
 # line; PERF.md).
 SKINNY_PICK_M = {torch.float32: 16, torch.bfloat16: 4, torch.int8: 4}
+# the largest K at which the skinny design keeps a norm prologue in the
+# kernel (:func:`norm_prologue_fits`); past it, and on the other designs
+# at every K, ``ops`` runs ``layernorm_p`` and then the matmul without
+# one, as the JAX package's ``_plan_norm_fallback`` does past one VMEM
+# panel. On an NVIDIA H100 80GB HBM3 at 700 W the wgmma and ffma
+# prologues lost to that split at every K measured, 64 .. 8192, on the
+# LM panels (deepseek-7b's, gemma3-27b's) and Swin-T's and ViT-B/16's
+# (wgmma 1.2-10.3x the split's device time, ffma 1.15-1.47x); the
+# skinny design's held to K = 1024 in both dtypes (0.81-1.09x)
+# (chip_smoke.py's prologue threshold line; PERF.md). Device time sets
+# the skinny boundary: decode tokens/s end to end with it at 1024 and at
+# 8192 (deepseek-7b, gemma3-27b; the decode A/B lines) differed by less
+# than the host-bound steps' spread from run to run
+SKINNY_NORM_MAX_K = 1024
 DESIGNS = {"ffma": 0, "skinny": 1, "wgmma": 2}
 # the skinny design's columns per block, the blocks it aims for per SM
 # (one wave at two blocks per SM), and the fewest K rows of a split
@@ -72,6 +86,12 @@ def pick_design(m: int, dtype: torch.dtype) -> str:
     if m <= SKINNY_PICK_M[dtype]:
         return "skinny"
     return "ffma" if dtype == torch.float32 else "wgmma"
+
+
+def norm_prologue_fits(m: int, k: int, dtype: torch.dtype) -> bool:
+    """Whether a call of M rows of K in ``dtype`` keeps its norm in the
+    kernel's prologue: the skinny design, up to :data:`SKINNY_NORM_MAX_K`."""
+    return pick_design(m, dtype) == "skinny" and k <= SKINNY_NORM_MAX_K
 
 
 def _rows(name, t, shape):

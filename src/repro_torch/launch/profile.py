@@ -1,9 +1,12 @@
 """Where the time of a forward goes on the card.
 
 Runs the full-width Swin-T fused forward (random weights from seed 0,
-images from numpy seed 0), or an RWKV6-3B or deepseek-7b prefill of 512
-tokens per sequence and one decode step after it (random weights from a
-CUDA generator with seed 0, tokens from seed 1), under ``torch.profiler``
+images from numpy seed 0), or an LM prefill of ``--seq`` tokens per
+sequence (512 by default) and one decode step after it (random weights
+from a CUDA generator with seed 0, tokens from seed 1; whisper-base's
+frames (B, 1500, 512) from seed 2; ``--layers`` cuts the depth, as for
+gemma3-27b in fp32; ``--unfused`` turns the pipeline fusion off), under
+``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
 name and by design (the matmul's skinny / wgmma / ffma, attention's
@@ -14,7 +17,13 @@ mma / ffma, WKV's chunk / step, layernorm's cta / rows).
     PYTHONPATH=src python -m repro_torch.launch.profile --model rwkv6-3b \
         --batch 4
     PYTHONPATH=src python -m repro_torch.launch.profile --model deepseek-7b \
-        --batch 4 --dtype fp32 bf16
+        --batch 4 --dtype fp32 bf16 [--unfused]
+    PYTHONPATH=src python -m repro_torch.launch.profile --model gemma3-27b \
+        --batch 2 --seq 2048 --dtype bf16          # all 62 layers
+    PYTHONPATH=src python -m repro_torch.launch.profile --model gemma3-27b \
+        --batch 2 --seq 2048 --dtype fp32 --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.profile --model whisper-base \
+        --batch 4 --seq 64 --dtype fp32 bf16
     PYTHONPATH=src python -m repro_torch.launch.profile --model layernorm \
         --dtype fp32 bf16
 
@@ -52,7 +61,7 @@ from repro_torch.models.lm import LanguageModel
 from repro_torch.models.vision import SwinTransformer
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# prompt tokens per sequence of an LM prefill
+# prompt tokens per sequence of an LM prefill, by default
 LM_SEQ = 512
 # names of the port's own kernels in the profiler's trace
 OWN = {"rowwise_matmul_kernel": "rowwise_matmul",
@@ -82,9 +91,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_call(fn, items: int, iters: int = 3) -> dict:
+def profile_call(fn, items: int, iters: int = 3, attempts: int = 4) -> dict:
     """Profile ``fn()``; ``items`` (images or tokens) per call give the
-    rate."""
+    rate. A profile that kept no device time is taken again, up to
+    ``attempts`` in all: the profiler sometimes keeps no kernel record of
+    a whole session."""
     with torch.no_grad():
         for _ in range(2):
             fn()
@@ -94,20 +105,25 @@ def profile_call(fn, items: int, iters: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    by_name = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key][0] += us / 1e3 / iters
-            by_name[evt.key][1] += evt.count / iters
-    busy = sum(ms for ms, _ in by_name.values())
-    if busy == 0:
-        raise RuntimeError("the profiler saw no device time")
+        for _ in range(attempts):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            by_name = defaultdict(lambda: [0.0, 0])
+            for evt in prof.key_averages():
+                us = _device_us(evt)
+                if us > 0 and evt.device_type == \
+                        torch.autograd.DeviceType.CUDA:
+                    by_name[evt.key][0] += us / 1e3 / iters
+                    by_name[evt.key][1] += evt.count / iters
+            busy = sum(ms for ms, _ in by_name.values())
+            if busy > 0:
+                break
+        else:
+            raise RuntimeError("the profiler saw no device time in "
+                               f"{attempts} sessions")
     own, designs = defaultdict(float), defaultdict(float)
     for name, (ms, _) in by_name.items():
         for tag, kernel in OWN.items():
@@ -143,10 +159,15 @@ def _report(res, what):
 
 
 def profile_lm(args, dev, card):
-    """An LM prefill at (batch, LM_SEQ) into a cache of LM_SEQ + 1 and
-    one decode step after it, per dtype, batch and impl (the step writes
-    its token's KV at the same position each call)."""
+    """An LM prefill at (batch, seq) into a cache of seq + 1 and one
+    decode step after it, per dtype, batch and impl (the step writes its
+    token's KV at the same position each call); whisper-base's encoder
+    over its frames is part of the prefill."""
+    import dataclasses
     cfg = get_config(args.model)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    seq = args.seq
     results = []
     for name in args.dtype:
         model = LanguageModel(
@@ -154,26 +175,37 @@ def profile_lm(args, dev, card):
             generator=torch.Generator(device=dev).manual_seed(0))
         for batch, impl in itertools.product(args.batch, args.impl):
             tokens = torch.randint(
-                0, cfg.vocab, (batch, LM_SEQ), device=dev,
+                0, cfg.vocab, (batch, seq), device=dev,
                 generator=torch.Generator(device=dev).manual_seed(1))
-            with runtime.use_impl(impl), torch.no_grad():
-                _, cache = model.prefill(tokens, alloc=LM_SEQ + 1)
-                lengths = torch.full((batch,), LM_SEQ, dtype=torch.int32,
+            extra = None
+            if cfg.encdec:
+                extra = {"frames": torch.randn(
+                    batch, cfg.cross_len, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2)
+                ).to(DTYPES[name])}
+            with runtime.use_impl(impl), torch.no_grad(), \
+                    runtime.use_pipeline_fusion(not args.unfused):
+                _, cache = model.prefill(tokens, alloc=seq + 1, extra=extra)
+                lengths = torch.full((batch,), seq, dtype=torch.int32,
                                      device=dev)
                 step = tokens[:, -1:]
                 for phase, fn, items in (
-                        ("prefill", lambda: model.prefill(tokens),
-                         batch * LM_SEQ),
+                        ("prefill", lambda: model.prefill(tokens,
+                                                          extra=extra),
+                         batch * seq),
                         ("decode", lambda: model.decode_step(cache, step,
                                                              lengths),
                          batch)):
                     res = profile_call(fn, items)
                     res.update(card=card, model=cfg.name, phase=phase,
-                               batch=batch, seq=LM_SEQ, dtype=name,
-                               impl=impl, unit="tokens")
+                               batch=batch, seq=seq, dtype=name,
+                               impl=impl, layers=cfg.n_layers,
+                               fused=not args.unfused, unit="tokens")
                     results.append(res)
-                    _report(res, f"{cfg.name} {phase} B={batch} "
-                                 f"S={LM_SEQ} {name} impl={impl}")
+                    _report(res, f"{cfg.name} ({cfg.n_layers} layers) "
+                                 f"{phase} B={batch} S={seq} {name} "
+                                 f"impl={impl}"
+                                 + (" unfused" if args.unfused else ""))
             del cache
         del model
         torch.cuda.empty_cache()
@@ -277,12 +309,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="swin-t",
                     choices=["swin-t", "rwkv6-3b", "deepseek-7b",
-                             "layernorm"])
+                             "gemma3-27b", "whisper-base", "layernorm"])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--dtype", nargs="+", default=["fp32"],
                     choices=sorted(DTYPES))
     ap.add_argument("--impl", nargs="+", default=["auto"],
                     choices=["auto", "ref"])
+    ap.add_argument("--seq", type=int, default=LM_SEQ,
+                    help="LM prompt tokens per sequence")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="LM depth cut to this many layers (0: all)")
+    ap.add_argument("--unfused", action="store_true",
+                    help="LM with the pipeline fusion off")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
 

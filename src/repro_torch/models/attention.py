@@ -1,21 +1,26 @@
-"""Attention layer: GQA/MQA, RoPE, dense KV caches.
+"""Attention layer: GQA/MQA, RoPE, dense KV caches, sliding-window ring
+buffers, cross-attention.
 
 The projections go through the row-wise matmul primitive (one launch
 over the stored ``wqkv`` panel with the pre-norm in its prologue when
 fused; the residual in the output projection's epilogue). The core op
 dispatches as the JAX package's ``_sdpa`` does:
 
-  * full-sequence attention at a static offset (train, prefill) —
-    ``ops.attention``: the hand-written flash kernel for CUDA tensors,
-    its plain version for CPU tensors and under ``use_impl("ref")``
-    (which takes the chunked scan past ``DENSE_MAX_SEQ``);
+  * full-sequence attention at a static offset (train, prefill, and
+    cross-attention to the encoder's output) — ``ops.attention``: the
+    hand-written flash kernel for CUDA tensors, its plain version for
+    CPU tensors and under ``use_impl("ref")`` (which takes the chunked
+    scan past ``DENSE_MAX_SEQ``);
   * a decode step, whose valid keys end at a per-row ``kv_len`` —
     :func:`chunked_attention`, the online-softmax scan over KV chunks in
     torch ops, as JAX runs it in jnp (the kernel takes no ``kv_len``).
 
-Not ported yet: cross-attention (ROADMAP.md queue 1 item 4,
-encoder-decoder), the paged pools and their gathers (item 5), the
-sequence-sharded decode (item 7) and the flash backward (item 9).
+A windowed layer's decode cache is a ring of at most ``window`` slots:
+position p lives at slot p % slots, and every slot written attends.
+
+Not ported yet: the paged pools and their gathers (ROADMAP.md queue 1
+item 5), the sequence-sharded decode (item 7) and the flash backward
+(item 9).
 """
 from __future__ import annotations
 
@@ -43,12 +48,11 @@ def proj_splits(cfg: ModelConfig):
 def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
          dtype, device, cross: bool = False):
     """Self-attention parameters: the PRE-FUSED ``wqkv`` (d, (Hq + 2 Hkv)
-    hd) panel, q, k and v columns in that order, and ``wo``; drawn on
-    the generator's device, placed on ``device``."""
-    if cross:
-        raise NotImplementedError(
-            "not ported yet: cross-attention, ROADMAP.md queue 1 item 4 "
-            "(encoder-decoder)")
+    hd) panel, q, k and v columns in that order, and ``wo``. Cross
+    attention (``cross``) projects q from the decoder stream and k, v
+    from the encoder's output: ``wq`` (d, Hq hd), the fused encoder-side
+    ``wkv`` (d, 2 Hkv hd) and ``wo``. Drawn on the generator's device,
+    placed on ``device``."""
     d, hd = cfg.d_model, cfg.head_dim
     qo = cfg.n_heads * hd
     lead = () if stack is None else (stack,)
@@ -58,6 +62,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
                         dtype=torch.float32) / math.sqrt(din)
         return t.to(dtype=dtype, device=device)
 
+    if cross:
+        return {"wq": w(d, qo), "wkv": w(d, 2 * cfg.n_kv_heads * hd),
+                "wo": w(qo, d)}
     return {"wqkv": w(d, sum(proj_splits(cfg))), "wo": w(qo, d)}
 
 
@@ -196,23 +203,38 @@ def apply(params, x, *, cfg: ModelConfig, positions, window: int = 0,
           norm: Optional[ops.NormSpec] = None, residual=None):
     """Full-sequence forward (train / prefill).
 
+    kv: (enc_out, enc_out) for cross-attention — k and v project from
+    that ONE encoder stream through the fused ``wkv`` panel (one launch
+    when fused, two over its halves when not); q from ``wq``, unroped.
     norm: fused-pipeline mode — x arrives *un-normalized* and the
     pre-norm runs as the qkv kernel's prologue over the stored panel.
     residual: folded into the output projection's epilogue.
     Returns (out, (k_heads, v_heads)) — the heads prefill caches: k
     RoPE'd, v a view of the projection's output.
     """
-    if kv is not None:
-        raise NotImplementedError(
-            "not ported yet: cross-attention, ROADMAP.md queue 1 item 4 "
-            "(encoder-decoder)")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, norm)
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
-    q, k = _apply_rope(q, k, cfg, positions)
+    if kv is None:
+        q, k, v = _project_qkv(params, x, cfg, norm)
+        q = q.reshape(b, s, hq, hd)
+        k = k.reshape(b, s, hkv, hd)
+        v = v.reshape(b, s, hkv, hd)
+        q, k = _apply_rope(q, k, cfg, positions)
+    else:
+        xk, xv = kv
+        if xk is not xv:
+            raise ValueError("cross-attention projects k and v from one "
+                             "encoder stream through the fused wkv panel")
+        sk, kvo = xk.shape[1], hkv * hd
+        q = ops.matmul(x, params["wq"], norm=norm).reshape(b, s, hq, hd)
+        if runtime.pipeline_fusion():
+            k, v = ops.qkv_proj(xk, params["wkv"], (kvo, kvo))
+        else:
+            wkv = quant.resolve_weight(params["wkv"], xk.dtype)
+            k = ops.matmul(xk, wkv[..., :kvo])
+            v = ops.matmul(xk, wkv[..., kvo:])
+        k = k.reshape(b, sk, hkv, hd)
+        v = v.reshape(b, sk, hkv, hd)
     # head views, read through their strides by the kernel
     out = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=causal, window=window)
@@ -222,9 +244,10 @@ def apply(params, x, *, cfg: ModelConfig, positions, window: int = 0,
 
 def write_cache(cache: KVCache, k_new, v_new, pos):
     """Insert (B, S_new, Hkv, hd) states at position ``pos`` (int or
-    (B,)), wrapping at the cache's length. Written IN PLACE into the
-    cache's storage (a step would otherwise copy the whole cache); the
-    cache is returned."""
+    (B,)), wrapping at the cache's length: a windowed layer's ring
+    buffer takes position p at slot p % slots, as a global layer's cache
+    wraps past ``alloc``. Written IN PLACE into the cache's storage (a
+    step would otherwise copy the whole cache); the cache is returned."""
     b, alloc = cache.k.shape[:2]
     dev = cache.k.device
     pos = torch.as_tensor(pos, device=dev).expand(b)
@@ -264,18 +287,25 @@ def _decode_qkv(params, x, cfg: ModelConfig, lengths, norm):
 
 
 def decode_apply(params, x, cache: KVCache, *, cfg: ModelConfig,
-                 lengths, norm: Optional[ops.NormSpec] = None,
-                 residual=None):
-    """One-token decode on a global (non-window) layer. x: (B, 1, d);
-    lengths: (B,) tokens already in cache. The new token's k/v are
-    written into ``cache`` in place. Returns (out, cache). norm/residual
-    as in :func:`apply`."""
+                 lengths, window: int = 0,
+                 norm: Optional[ops.NormSpec] = None, residual=None):
+    """One-token decode. x: (B, 1, d); lengths: (B,) tokens already in
+    cache. The new token's k/v are written into ``cache`` in place (a
+    windowed layer's at its ring slot). Returns (out, cache).
+    norm/residual as in :func:`apply`."""
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _decode_qkv(params, x, cfg, lengths, norm)
     cache = write_cache(cache, k, v, lengths)
+    alloc = cache.k.shape[1]
+    if window and window <= alloc:
+        # the ring holds exactly the last ``window`` tokens: every slot
+        # written attends (causality is implied by what was written)
+        kv_len = torch.clamp(lengths + 1, max=alloc)
+    else:
+        kv_len = lengths + 1
     out = chunked_attention(q.transpose(1, 2), cache.k.transpose(1, 2),
                             cache.v.transpose(1, 2), causal=False, window=0,
-                            q_offset=0, kv_len=lengths + 1)
+                            q_offset=0, kv_len=kv_len)
     out = out.reshape(b, 1, hq * hd)
     return _out_proj(out, params["wo"], residual), cache

@@ -1,16 +1,18 @@
 """Block assembly from BlockDefs.
 
-A block = pre-norm mixer (+ residual) then pre-norm FFN (+ residual),
-with the mixer/FFN kinds taken from the config's stage compilation. The
-port runs the ``attn`` mixer (global: no sliding window) with the
-``mlp`` FFN, and the RWKV6 pair (the ``rwkv6`` time-mix mixer and the
-``rwkv6_cmix`` channel-mix FFN), in modes ``train``, ``prefill`` and
+A block = pre-norm mixer (+ residual), then, in a decoder block of an
+encoder-decoder arch, pre-norm cross-attention to the encoder's output
+(+ residual), then pre-norm FFN (+ residual), with the kinds taken from
+the config's stage compilation. The port runs the ``attn`` mixer
+(global or sliding-window) with the ``mlp`` FFN, with or without
+cross-attention, and the RWKV6 pair (the ``rwkv6`` time-mix mixer and
+the ``rwkv6_cmix`` channel-mix FFN), in modes ``train``, ``prefill`` and
 ``decode``. The other kinds raise, naming the ROADMAP.md item that
 ports them. All dense ops route through the row-wise primitive.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -25,10 +27,6 @@ MODES = ("train", "prefill", "decode")
 _PENDING = {
     "mamba2": "mamba2 mixer: ROADMAP.md queue 1 item 8",
     "moe": "MoE FFN: ROADMAP.md queue 1 item 8",
-    "cross_attn": "cross-attention: ROADMAP.md queue 1 item 4 "
-                  "(encoder-decoder)",
-    "window": "sliding-window attention: ROADMAP.md queue 1 item 4 "
-              "(gemma3's ring buffer)",
     "chunk": "chunked prefill: ROADMAP.md queue 1 item 5 (paged serving)",
     "verify": "speculative verify: ROADMAP.md queue 1 item 5 (paged "
               "serving)",
@@ -46,10 +44,6 @@ def _check(blk: BlockDef, mode: str = "train"):
     for kind in (blk.mixer, blk.ffn):
         if kind in _PENDING:
             raise _pending(kind)
-    if blk.cross_attn:
-        raise _pending("cross_attn")
-    if blk.window:
-        raise _pending("window")
 
 
 def _norm_init(cfg: ModelConfig, stack, dtype, device):
@@ -77,6 +71,10 @@ def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,
         params["attn"] = attention.init(gen, cfg, stack, dtype, device)
     elif blk.mixer == "rwkv6":
         params["tmix"] = rwkv6.init(gen, cfg, stack, dtype, device)
+    if blk.cross_attn:
+        params["norm_x"] = _norm_init(cfg, stack, dtype, device)
+        params["cross"] = attention.init(gen, cfg, stack, dtype, device,
+                                         cross=True)
     if blk.ffn != "none":
         params["norm2"] = _norm_init(cfg, stack, dtype, device)
     if blk.ffn == "mlp":
@@ -94,15 +92,20 @@ class BlockIO(NamedTuple):
 
 
 def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
-                positions=None, lengths=None, cache=None) -> tuple:
+                positions=None, lengths=None, cache=None, enc_out=None,
+                window_override: Optional[int] = None) -> tuple:
     """mode: 'train' | 'prefill' | 'decode'. ``positions``: (B, S) RoPE
     positions (train, prefill); ``lengths``: (B,) tokens already in the
-    cache (decode); ``cache``: this layer's slice of the decode cache.
-    The attention KV is written into that slice in place, so it is not
-    in the returned ``new_cache``. Returns (x, BlockIO)."""
+    cache (decode); ``cache``: this layer's slice of the decode cache;
+    ``enc_out``: the encoder's output, (B, T, d), which cross-attention
+    reads at train and prefill; ``window_override``: the window in place
+    of the block's own (0 in the encoder). The attention KV is written
+    into the cache slice in place and the cross KV is read from it, so
+    neither is in the returned ``new_cache``. Returns (x, BlockIO)."""
     _check(blk, mode)
     new_cache = {}
     prefill_state = {}
+    window = blk.window if window_override is None else window_override
     # Fused pipeline: the attn/mlp sublayers take the RAW hidden state
     # plus a NormSpec — the pre-norm runs as the qkv / gate-up kernel
     # prologue and the residual add rides the output projection's
@@ -116,10 +119,13 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
         if mode == "decode":
             out, _ = attention.decode_apply(
                 params["attn"], h, cache["kv"], cfg=cfg, lengths=lengths,
-                norm=nspec, residual=res)
+                window=window, norm=nspec, residual=res)
         else:
+            # causal in the encoder too, as the JAX package's block runs
+            # it (its non-causal stages only drop the window)
             out, (k, v) = attention.apply(params["attn"], h, cfg=cfg,
-                                          positions=positions, causal=True,
+                                          positions=positions,
+                                          window=window, causal=True,
                                           norm=nspec, residual=res)
             if mode == "prefill":
                 prefill_state["kv"] = (k, v)
@@ -135,6 +141,28 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
                 new_cache["rwkv_t"] = st
             else:
                 prefill_state["rwkv_t"] = st
+        x = x + out
+
+    if blk.cross_attn:
+        # the cross pre-norm is standalone in both pipelines, as in JAX
+        h = _norm_apply(params["norm_x"], x, cfg)
+        if mode == "decode":
+            # the cross K/V are fixed after prefill: heads from the cache
+            xk, xv = cache["cross_kv"]
+            b = h.shape[0]
+            hq, hd = cfg.n_heads, cfg.head_dim
+            q = ops.matmul(h, params["cross"]["wq"]).reshape(b, 1, hq, hd)
+            out = attention.chunked_attention(
+                q.transpose(1, 2), xk.transpose(1, 2), xv.transpose(1, 2),
+                causal=False, window=0)
+            out = ops.matmul(out.transpose(1, 2).reshape(b, 1, hq * hd),
+                             params["cross"]["wo"])
+        else:
+            out, (ck, cv) = attention.apply(
+                params["cross"], h, cfg=cfg, positions=positions,
+                causal=False, kv=(enc_out, enc_out))
+            if mode == "prefill":
+                prefill_state["cross_kv"] = (ck, cv)
         x = x + out
 
     if blk.ffn == "mlp":

@@ -10,11 +10,13 @@ leaf (``convert.from_jax_params`` loads a JAX tree).
 Serving runs as the JAX package's dense-cache oracle does: one-shot
 :func:`prefill` at the prompts' exact lengths into a cache of ``alloc``
 positions, then :func:`decode_step` with greedy picks (:func:`greedy`).
-The port runs the dense decoder archs (global attention + MLP: the KV
-cache leaves ``(R, B, alloc, Hkv, hd)``, written in place at decode)
-and RWKV6 (recurrent state); sliding windows, the hybrid and
-encoder-decoder paths, paged serving and tied TP heads come with later
-slices (ROADMAP.md queue 1).
+The port runs the dense decoder archs (attention + MLP: a global
+layer's KV cache leaves ``(R, B, alloc, Hkv, hd)``, a windowed layer's a
+ring of ``window`` slots, both written in place at decode), the
+encoder-decoder arch (:func:`encode` over ``extra={"frames": ...}``,
+the cross K/V cached at prefill) and RWKV6 (recurrent state); the
+hybrid path, paged serving and tied TP heads come with later slices
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -92,6 +94,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                                                 device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, vp), 1 / math.sqrt(d))
+    if cfg.encdec:
+        params["enc"] = {
+            "stages": [_init_stage(generator, stage, cfg, dtype, device)
+                       for stage in cfg.enc_stages()],
+            "final_norm": {"g": torch.ones((d,), dtype=dtype,
+                                           device=device)}}
+        if cfg.norm == "layer":
+            params["enc"]["final_norm"]["b"] = torch.zeros(
+                (d,), dtype=dtype, device=device)
     return params
 
 
@@ -101,10 +112,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 
 def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
-               positions=None, lengths=None, cache=None):
+               positions=None, lengths=None, cache=None, enc_out=None,
+               causal: bool = True):
     """Walk a stage's repeats. Returns (x, aux, states): the decode
     mode's new cache or the prefill mode's per-layer states, stacked
-    over the repeats as the JAX scan stacks them (``{}`` in train)."""
+    over the repeats as the JAX scan stacks them (``{}`` in train).
+    ``enc_out`` goes to every block; ``causal=False`` (the encoder)
+    drops the blocks' windows, as the JAX package's does."""
     stacked, shared = sp["stacked"], sp["shared"]
     aux = 0.0
     per_layer: List[dict] = []
@@ -116,9 +130,10 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                   if key in stacked else shared[key])
             csl = (_tree_map(lambda a, r=rep: a[r], cache[key])
                    if cache and key in cache else None)
-            x, io = blocks.apply_block(blk, bp, x, cfg=cfg, mode=mode,
-                                       positions=positions, lengths=lengths,
-                                       cache=csl)
+            x, io = blocks.apply_block(
+                blk, bp, x, cfg=cfg, mode=mode, positions=positions,
+                lengths=lengths, cache=csl, enc_out=enc_out,
+                window_override=None if causal else 0)
             aux += io.aux
             state = io.new_cache if mode == "decode" else io.prefill_state
             if state is not None:
@@ -127,8 +142,9 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
     states = ({} if not per_layer[0] else
               _tree_map(lambda *ls: torch.stack(ls), *per_layer))
     if mode == "decode":
-        # the leaves a block wrote in place (the attention KV) are not in
-        # its new cache: the stage's stacked leaves hold the step already
+        # the leaves a block wrote in place (the attention KV) or only
+        # read (the cross KV) are not in its new cache: the stage's
+        # stacked leaves hold the step already
         states = {key: {**cache[key], **states.get(key, {})}
                   for key in cache}
     return x, aux, states
@@ -185,11 +201,38 @@ def _positions(tokens):
                         device=tokens.device)[None].expand(b, s)
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """Full train-mode forward -> (logits, aux_loss)."""
+def encode(params, frames, cfg: ModelConfig):
+    """The encoder of an encoder-decoder arch over precomputed frame
+    embeddings (B, T, d): the sinusoidal positions 0..T-1, its stages
+    with their windows dropped, then its final norm."""
+    x = frames + rope.sinusoidal_embedding(
+        frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None]
+    x, _, _ = _run_stages(params["enc"]["stages"], cfg.enc_stages(), x,
+                          cfg=cfg, mode="train", causal=False)
+    fn = params["enc"]["final_norm"]
+    return ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
+
+
+def _encoder_out(params, cfg: ModelConfig, extra):
+    """The encoder's output for the frames of ``extra`` (None for a
+    decoder-only arch)."""
+    if not cfg.encdec:
+        return None
+    if not extra or "frames" not in extra:
+        raise ValueError(f"{cfg.name} needs extra={{'frames': (B, "
+                         f"{cfg.cross_len}, {cfg.d_model})}}")
+    return encode(params, extra["frames"], cfg)
+
+
+def forward(params, tokens, cfg: ModelConfig, *,
+            extra: Optional[dict] = None):
+    """Full train-mode forward -> (logits, aux_loss). ``extra``: the
+    encoder's ``{"frames": (B, T, d)}`` of an encoder-decoder arch."""
+    enc_out = _encoder_out(params, cfg, extra)
     x = _add_positions(embed(params, tokens, cfg), cfg)
     x, aux, _ = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                            mode="train", positions=_positions(tokens))
+                            mode="train", positions=_positions(tokens),
+                            enc_out=enc_out)
     return unembed(params, x, cfg), torch.tensor(aux, dtype=torch.float32)
 
 
@@ -203,7 +246,9 @@ def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
     blocks._check(blk)
     c = {}
     if blk.mixer == "attn":
-        shape = (repeat, batch, alloc, cfg.n_kv_heads, cfg.head_dim)
+        # a windowed layer keeps a ring of at most ``window`` slots
+        slots = min(alloc, blk.window) if blk.window else alloc
+        shape = (repeat, batch, slots, cfg.n_kv_heads, cfg.head_dim)
         c["kv"] = KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device))
@@ -215,6 +260,10 @@ def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
                                     dtype=dtype, device=device),
             "wkv": torch.zeros((repeat, batch, h, r.head_dim, r.head_dim),
                                dtype=torch.float32, device=device)}
+    if blk.cross_attn:
+        shape = (repeat, batch, cfg.cross_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross_kv"] = (torch.zeros(shape, dtype=dtype, device=device),
+                         torch.zeros(shape, dtype=dtype, device=device))
     if blk.ffn == "rwkv6_cmix":
         c["rwkv_c"] = {"x_prev_c": torch.zeros(
             (repeat, batch, cfg.d_model), dtype=dtype, device=device)}
@@ -237,8 +286,9 @@ def _init_cache_tree(cfg: ModelConfig, batch, alloc, dtype, device):
 def init_cache(cfg: ModelConfig, batch: int, alloc: Optional[int] = None,
                dtype=None, device="cuda"):
     """Zeroed decode cache: KV leaves of ``alloc`` positions (required
-    when the arch has attention; the recurrent state has no sequence
-    axis)."""
+    when the arch has attention; a windowed layer's ring holds
+    min(alloc, window); the cross K/V ``cross_len``; the recurrent state
+    has no sequence axis)."""
     device = runtime.resolve_device(device)
     dtype = dtype or DTYPES[cfg.dtype]
     if alloc is None and any(blk.mixer == "attn" for stage in cfg.stages()
@@ -248,17 +298,39 @@ def init_cache(cfg: ModelConfig, batch: int, alloc: Optional[int] = None,
     return _init_cache_tree(cfg, batch, alloc, dtype, device)
 
 
+def _ring_from_prefill(k, window):
+    """Stacked prefill states (R, B, S, ...) as a ring buffer of
+    ``window`` slots holding the last ``window`` positions at slots
+    p % window (zero-padded when S <= window)."""
+    s = k.shape[2]
+    if s <= window:
+        return _pad_seq(k, window)
+    p = torch.arange(s - window, s, device=k.device)
+    return k[:, :, p[torch.argsort(p % window)]]
+
+
 def states_to_cache(cfg: ModelConfig, all_states, alloc: int):
-    """Prefill states -> decode cache: attention KV padded with zeros to
-    ``alloc`` positions; recurrent state passes through."""
+    """Prefill states -> decode cache: a global layer's KV padded with
+    zeros to ``alloc`` positions, a windowed layer's as its ring of
+    ``window`` slots (whatever ``alloc``, as in JAX, where ``init_cache``
+    makes min(alloc, window)); the cross K/V and the recurrent state pass
+    through."""
     out = []
-    for states in all_states:
+    for stage, states in zip(cfg.stages(), all_states):
         sc = {}
-        for key, st in states.items():
+        for i, blk in enumerate(stage.body):
+            st = states.get(str(i))
+            if st is None:
+                continue
             c = dict(st)
             if "kv" in st:
-                c["kv"] = KVCache(*(_pad_seq(t, alloc) for t in st["kv"]))
-            sc[key] = c
+                if blk.window:
+                    c["kv"] = KVCache(*(_ring_from_prefill(t, blk.window)
+                                        for t in st["kv"]))
+                else:
+                    c["kv"] = KVCache(*(_pad_seq(t, alloc)
+                                        for t in st["kv"]))
+            sc[str(i)] = c
         out.append(sc)
     return out
 
@@ -274,26 +346,30 @@ def _pad_seq(t, alloc):
     return out
 
 
-def prefill_states(params, tokens, cfg: ModelConfig, *, last_pos=None):
+def prefill_states(params, tokens, cfg: ModelConfig, *,
+                   extra: Optional[dict] = None, last_pos=None):
     """Full-sequence prefill -> (last-position logits, raw per-layer
-    states). Recurrent mixers fold any padding into their state, so the
-    recurrent archs prefill at exact lengths: ``last_pos`` (bucketed
-    prefill of attention archs) is not taken."""
+    states). ``extra``: the encoder's ``{"frames": (B, T, d)}`` of an
+    encoder-decoder arch. Recurrent mixers fold any padding into their
+    state, so the recurrent archs prefill at exact lengths: ``last_pos``
+    (bucketed prefill of attention archs) is not taken."""
     if last_pos is not None:
         raise NotImplementedError(
             "bucketed prefill (last_pos): ROADMAP.md queue 1 item 5")
+    enc_out = _encoder_out(params, cfg, extra)
     x = _add_positions(embed(params, tokens, cfg), cfg)
     x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                               mode="prefill", positions=_positions(tokens))
+                               mode="prefill", positions=_positions(tokens),
+                               enc_out=enc_out)
     logits = unembed(params, x[:, -1:], cfg)
     return logits[:, 0], states
 
 
 def prefill(params, tokens, cfg: ModelConfig, *,
-            alloc: Optional[int] = None):
+            extra: Optional[dict] = None, alloc: Optional[int] = None):
     """Full-sequence prefill -> (last-position logits, dense cache of
     ``alloc`` positions; default: the prompt length)."""
-    logits, states = prefill_states(params, tokens, cfg)
+    logits, states = prefill_states(params, tokens, cfg, extra=extra)
     return logits, states_to_cache(cfg, states, alloc or tokens.shape[1])
 
 
@@ -316,13 +392,14 @@ def decode_step(params, cache, tokens, lengths, cfg: ModelConfig):
     return logits[:, 0], new_cache
 
 
-def greedy(params, prompts, cfg: ModelConfig, n_new: int):
+def greedy(params, prompts, cfg: ModelConfig, n_new: int, *,
+           extra: Optional[dict] = None):
     """Greedy generation for a batch of equal-length prompts (B, S):
     prefill, then ``n_new - 1`` decode steps, each feeding back the
     argmax. Returns the (B, n_new) picked tokens — the stream
     ``tests/conftest.py::manual_greedy`` gives per prompt (its cache
-    sized ``S + n_new``)."""
-    logits, cache = prefill(params, prompts, cfg,
+    sized ``S + n_new``). ``extra``: as :func:`prefill_states`."""
+    logits, cache = prefill(params, prompts, cfg, extra=extra,
                             alloc=prompts.shape[1] + n_new)
     toks = [torch.argmax(logits, dim=-1)]
     lengths = torch.full((prompts.shape[0],), prompts.shape[1],
@@ -354,15 +431,19 @@ class LanguageModel(nn.Module):
         self.cfg = cfg
         self.params = ParamTree(params)
 
-    def forward(self, tokens: torch.Tensor):
-        return forward(self.params.tree(), tokens, self.cfg)
+    def forward(self, tokens: torch.Tensor, extra: Optional[dict] = None):
+        return forward(self.params.tree(), tokens, self.cfg, extra=extra)
 
-    def prefill(self, tokens: torch.Tensor, alloc: Optional[int] = None):
-        return prefill(self.params.tree(), tokens, self.cfg, alloc=alloc)
+    def prefill(self, tokens: torch.Tensor, alloc: Optional[int] = None,
+                extra: Optional[dict] = None):
+        return prefill(self.params.tree(), tokens, self.cfg, extra=extra,
+                       alloc=alloc)
 
     def decode_step(self, cache, tokens: torch.Tensor, lengths: torch.Tensor):
         return decode_step(self.params.tree(), cache, tokens, lengths,
                            self.cfg)
 
-    def greedy(self, prompts: torch.Tensor, n_new: int) -> torch.Tensor:
-        return greedy(self.params.tree(), prompts, self.cfg, n_new)
+    def greedy(self, prompts: torch.Tensor, n_new: int,
+               extra: Optional[dict] = None) -> torch.Tensor:
+        return greedy(self.params.tree(), prompts, self.cfg, n_new,
+                      extra=extra)

@@ -209,6 +209,45 @@ def test_matmul_split_k_repeats_bitwise(dev, dtype):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=str)
+@pytest.mark.parametrize("m", [2, 8, 130])
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm_prologue_either_side(dev, monkeypatch, dtype, m, kind):
+    """``ops.matmul`` and ``ops.gate_up_proj`` with a norm at K = 700,
+    ``SKINNY_NORM_MAX_K`` moved to either side of it: on the skinny
+    design at K or above, one launch with the norm in the prologue;
+    below it, and on the other designs on either side, the standalone
+    norm then the matmul without one. Both against the plain pipeline
+    (the norm cast to the streaming dtype before the dot)."""
+    if dtype == torch.int8:
+        pytest.skip("the int8 mode has no norm prologue (JAX asserts it)")
+    k, n = 700, 300
+    design = rm.pick_design(2 * m, dtype)
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dev, dtype)
+    x, w, wgi = r(2, m, k), r(k, n, scale=k ** -0.5), r(k, 2 * n,
+                                                        scale=k ** -0.5)
+    norm = ops.NormSpec(kind, 1 + r(k, scale=0.1),
+                        r(k, scale=0.1) if kind == "layer" else None)
+    for max_k in (k, k - 1):
+        monkeypatch.setattr(rm, "SKINNY_NORM_MAX_K", max_k)
+        splits = 0 if design == "skinny" and max_k >= k else 1
+        assert rm.norm_prologue_fits(2 * m, k, dtype) == (not splits)
+        for fn in (lambda: ops.matmul(x, w, norm=norm),
+                   lambda: ops.gate_up_proj(x, wgi, activation="gelu",
+                                            norm=norm)):
+            before = (rowwise_matmul_p.launches, layernorm_p.launches)
+            got = fn()
+            assert (rowwise_matmul_p.launches - before[0],
+                    layernorm_p.launches - before[1]) == (1, splits)
+            with runtime.use_impl("ref"):
+                want = fn()
+            _close(got, want, TOLS[dtype])
+
+
 def test_matmul_int8_op(dev):
     """``ops.matmul_int8`` with leading dims, concatenated wide-N scales
     and a residual, on the kernel against ``impl="ref"``."""
@@ -267,6 +306,23 @@ ATTN_CASES = {
                             hd=128),
     "prefill-333-mqa": dict(b=2, hq=4, hkv=1, sq=333, skv=333, causal=True,
                             hd=128),
+    # gemma3-27b's prefill at B=2 x 2048: GQA 32 over 16, head dim 128,
+    # the local layers' 1024-token window and the global layers
+    "gemma-window": dict(b=2, hq=32, hkv=16, sq=2048, skv=2048, causal=True,
+                         window=1024, hd=128),
+    "gemma-global": dict(b=2, hq=32, hkv=16, sq=2048, skv=2048, causal=True,
+                         hd=128),
+    # whisper-base: its encoder's 1500 frames (ragged against the 64-row
+    # query tile) at head dim 64, causal as the JAX encoder runs them and
+    # non-causal; cross-attention of 64 and of 17 prompt tokens to them
+    "whisper-enc-causal": dict(b=4, hq=8, hkv=8, sq=1500, skv=1500,
+                               causal=True, hd=64),
+    "whisper-enc": dict(b=4, hq=8, hkv=8, sq=1500, skv=1500, causal=False,
+                        hd=64),
+    "whisper-cross": dict(b=4, hq=8, hkv=8, sq=64, skv=1500, causal=False,
+                          hd=64),
+    "whisper-cross-17": dict(b=1, hq=8, hkv=8, sq=17, skv=1500,
+                             causal=False, hd=64),
 }
 
 
@@ -610,7 +666,10 @@ def test_dense_prefill_and_decode_on_kernels(dev, arch):
     on the card, teacher-forced on the same tokens, each path with its
     own cache; launches per prefill and per step 4 L + 1 matmuls (qkv,
     wo, the gated or plain first MLP matmul, the second; the head), 1
-    norm, and L attention at prefill (decode attends in torch ops)."""
+    norm (and 2 L more at prefill, whose 42 rows take the ffma design:
+    its prologue panels split; the 2 rows of a step keep theirs on the
+    skinny design), and L attention at prefill (decode attends in torch
+    ops)."""
     import dataclasses
     cfg = get_reduced(arch)
     if cfg.head_dim < 16:
@@ -630,7 +689,7 @@ def test_dense_prefill_and_decode_on_kernels(dev, arch):
         before = [k.launches for k in counts]
         got, cache = model.prefill(toks[:, :21], alloc=24)
         assert [k.launches - b for k, b in zip(counts, before)] == [
-            4 * cfg.n_layers + 1, cfg.n_layers, 1]
+            4 * cfg.n_layers + 1, cfg.n_layers, 1 + 2 * cfg.n_layers]
         with runtime.use_impl("ref"):
             want, want_cache = model.prefill(toks[:, :21], alloc=24)
         _close(got, want, 1e-3)
@@ -647,3 +706,72 @@ def test_dense_prefill_and_decode_on_kernels(dev, arch):
             lengths = lengths + 1
         for a, b in zip(cache[0]["0"]["kv"], want_cache[0]["0"]["kv"]):
             _close(a, b, 1e-3)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "whisper-base"])
+def test_window_and_encdec_on_kernels(dev, arch):
+    """gemma3-smoke (16-token window, prompts past it, decode across the
+    ring's wrap) and whisper-smoke (encoder, cross-attention; frames of
+    cross_len) on the kernels against the plain path on the card,
+    teacher-forced, each path with its own cache; launches per prefill
+    and per step: gemma3 4 L + 1 matmuls, L attention at prefill, 1 norm
+    (+ 2 L where the prologue splits); whisper 4 matmuls and 1 attention
+    an encoder layer, 7 matmuls (qkv, wo, wq, wkv, cross wo, mlp1, mlp2;
+    6 at decode: no wkv) and 2 attention a decoder layer at prefill, the
+    cross norm each layer and the final norms; + 2 norms a layer at
+    prefill, whose rows (42, and the encoder's 2 x cross_len) take the
+    ffma design and split its prologue panels, none at a step of 2 rows
+    (skinny: the prologue stays, d_model <= SKINNY_NORM_MAX_K)."""
+    cfg = get_reduced(arch)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
+                             generator=g)
+    with torch.no_grad():
+        tree = model.params.tree()
+        for t in [t for tr in (tree, tree.get("enc", {})) for stage in
+                  tr.get("stages", []) for blk in stage["stacked"].values()
+                  for n in ("norm1", "norm2", "norm_x") if n in blk
+                  for t in blk[n].values()]:
+            t.add_(0.1 * torch.randn(t.shape, generator=g).to(dev))
+    s, steps, b = 21, 6, 2
+    toks = torch.randint(0, cfg.vocab, (b, s + steps), generator=g).to(dev)
+    extra = ({"frames": torch.randn(b, cfg.cross_len, cfg.d_model,
+                                    generator=g).to(dev)}
+             if cfg.encdec else None)
+    L = cfg.n_layers
+    if cfg.encdec:
+        enc = cfg.n_enc_layers
+        pre = [4 * enc + 7 * L + 1, enc + 2 * L, 2 + L + 2 * enc + 2 * L]
+        step = [6 * L + 1, 0, 1 + L]
+    else:
+        pre = [4 * L + 1, L, 1 + 2 * L]
+        step = [4 * L + 1, 0, 1]
+    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    with torch.no_grad():
+        before = [k.launches for k in counts]
+        got, cache = model.prefill(toks[:, :s], alloc=s + steps, extra=extra)
+        assert [k.launches - n for k, n in zip(counts, before)] == pre
+        with runtime.use_impl("ref"):
+            want, want_cache = model.prefill(toks[:, :s], alloc=s + steps,
+                                             extra=extra)
+        _close(got, want, 1e-3)
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        for t in range(s, s + steps):
+            before = [k.launches for k in counts]
+            got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
+            assert [k.launches - n for k, n in zip(counts, before)] == step
+            with runtime.use_impl("ref"):
+                want, want_cache = model.decode_step(
+                    want_cache, toks[:, t:t + 1], lengths)
+            _close(got, want, 1e-3)
+            lengths = lengths + 1
+        for a, w in zip(_tensors(cache), _tensors(want_cache)):
+            _close(a, w, 1e-3)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _tensors(t)]
+    return [tree]

@@ -25,7 +25,8 @@ import pytest
 import torch
 from conftest import manual_greedy
 
-from repro.configs import deepseek_7b, granite_20b, internlm2_20b
+from repro.configs import (deepseek_7b, gemma3_27b, granite_20b,
+                           internlm2_20b, whisper_base)
 from repro.core import runtime as jruntime
 from repro.kernels import ops as jops
 from repro.models import attention as jattn
@@ -436,30 +437,44 @@ def test_from_jax_params_dense_tree(arch):
 
 
 def test_configs_match_jax():
-    for arch, mod in ARCHS.items():
+    for arch, mod in {**ARCHS, "gemma3-27b": gemma3_27b,
+                      "whisper-base": whisper_base}.items():
         for mine, theirs in ((get_config(arch), mod.CONFIG),
                              (get_reduced(arch), mod.reduced())):
             assert mine == type(mine)(**dataclasses.asdict(theirs))
             assert mine.param_counts() == theirs.param_counts()
             assert [dataclasses.asdict(s) for s in mine.stages()] == [
                 dataclasses.asdict(s) for s in theirs.stages()]
+            if mine.encdec:
+                assert [dataclasses.asdict(s) for s in mine.enc_stages()] == [
+                    dataclasses.asdict(s) for s in theirs.enc_stages()]
     assert lm.padded_vocab(get_config("internlm2-20b")) == 92672
 
 
 def test_unported_attention_paths_raise():
-    """Sliding windows, cross-attention and paged pools raise, naming
-    their ROADMAP.md item."""
-    gemma = dataclasses.replace(get_reduced("deepseek-7b"), pattern_local=1,
-                                pattern_global=1, local_window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_lm(gemma, torch.Generator().manual_seed(0), device="cpu")
+    """What the port does not run yet raises, naming its ROADMAP.md item:
+    paged pools, the chunked-prefill and speculative-verify modes,
+    M-RoPE, and the MoE and mamba2 architectures of the registry."""
     cfg = get_reduced("deepseek-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.init(torch.Generator(), cfg, None, torch.float32, "cpu",
-                       cross=True)
     x = torch.zeros(1, 4, 1, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         attention.chunked_attention(x, x, x, pages=torch.zeros(1, 1))
+    for mode in ("chunk", "verify"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            blocks.apply_block(cfg.stages()[0].body[0], {}, x, cfg=cfg,
+                               mode=mode)
+    mrope = dataclasses.replace(cfg, rope="mrope")
+    q = torch.zeros(1, 3, 4, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.apply_block(cfg.stages()[0].body[0], {}, x, cfg=cfg,
-                           mode="chunk")
+        attention._apply_rope(q, q, mrope, torch.zeros(1, 3))
+    for arch in ("qwen2-vl-2b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
+                 "zamba2-1.2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_config(arch)
+    for kind in ("moe", "mamba2"):
+        blk = dataclasses.replace(cfg.stages()[0].body[0],
+                                  **({"ffn": kind} if kind == "moe"
+                                     else {"mixer": kind}))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            blocks.init_block(torch.Generator(), blk, cfg, None,
+                              torch.float32, "cpu")
