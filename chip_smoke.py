@@ -67,7 +67,25 @@ Phases, each printing its lines:
    unfused prefill (211 / 30 / 61 / 0) against the fused one; bf16
    layer by layer against fp32 beside the float8 control, fused and
    unfused, the unfused bf16 prefill counted, and at full depth as
-   readings; prefill and decode tokens/s;
+   readings; prefill and decode tokens/s; then paged serving (the
+   JAX engine's step programs replayed on the host, ``PagedServing``):
+   six greedy requests of 97, 333, 512, 700, 64 and 900 tokens, 32 new
+   tokens each, on 4 slots of 16-token pages (max_len 1024) in fp32,
+   the 700 and 900 chunked at 256 between lockstep paged decode steps,
+   the others by bucketed one-shot prefill + ``insert_prefill``; slots
+   retire and refill on reused pages; one verify step over a 4-token
+   panel with 3 / 2 / 1 / 0 drafts kept (``insert_verify``) and one
+   copy-on-write of a live page into a free one (the copy equal to its
+   source); each stream held to the dense path's greedy stream
+   (``dense_oracle``, near-tie rule), the first-token logits within
+   1e-3 x max(1, max|logit|) and every layer's pool rows at every
+   written position within 1e-3 of the dense cache's; every call's
+   launches exact (a bucketed prefill 121 / 30 / 61 / 0, a chunk, a
+   verify and a step 121 / 0 / 61 / 0, the inserts and the copy none);
+   in bf16 (``paged_rates``) paged against dense decode tokens/s at B=4
+   after 512 tokens, the profile of a paged step and of a chunk, and
+   the 900-token prompt chunked at 256 against its one-shot prefill in
+   bucket 1024;
 10. gemma3-27b at full width (jittered norms): 8 layers (one 5:1 group
    and the 2-layer local tail) in fp32, 2 prompts of 2048 tokens then 16
    greedy steps and 1 prompt of 1020 then 12 (its ring wraps from the
@@ -79,9 +97,18 @@ Phases, each printing its lines:
    249 / 0 / 125 / 0, layer by layer against fp32 beside the float8
    control, its logits as readings; prefill and decode tokens/s
    (fused, unfused, plain), peak memory, the tied head's per-call
-   transpose; whisper-base at full width and depth on seeded frames
-   (B=4 x 1500 x 512): the encoder's launches, 4 prompts of 64 tokens
-   then 32 steps and 1 of 16 then 8, fp32 teacher-forced (logits, picks,
+   transpose; paged serving of a 1500-token prompt chunked at 512 (its
+   chunks cross the 1024 window: the ring pages wrap mid-prompt) and a
+   300-token one-shot on 2 slots (max_len 2048), 17 tokens each with
+   one verify step (3 / 1 drafts kept), held to the dense path as for
+   deepseek-7b at 8 fp32 layers (33 / 8 / 17 / 0 a bucketed prefill,
+   33 / 0 / 17 / 0 a chunk, verify and step) and at 62 bf16 layers
+   (249 / 62 / 125 / 0, 249 / 0 / 125 / 0; logits and pool rows within
+   the bf16 tolerance 3e-2), and the bf16 readings at B=2 after 1024
+   tokens and for the 1500-token prompt chunked at 512; whisper-base at
+   full width and depth on seeded frames (B=4 x 1500 x 512): the
+   encoder's launches, 4 prompts of 64 tokens then 32 steps and 1 of 16
+   then 8, fp32 teacher-forced (logits, picks,
    self and cross caches), the unfused prefill, bf16 layer by layer
    (encoder and decoder) and as readings; tokens/s;
 11. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
@@ -346,7 +373,18 @@ LAUNCHES = {
     "whisper-base prefill": (67, 18, 32, 0),    # 4 x 64, the encoder's too
     "whisper-base prefill 1x16": (67, 18, 20, 0),   # 16 rows: skinny fp32
     "whisper-base step": (37, 0, 7, 0),         # K = 512: the norm stays
+    # paged serving: a bucketed prefill launches as the dense prefill at
+    # its bucket ("... prefill"), a paged step as the dense step; a
+    # chunk (256 or 512 rows) and a verify panel (16 or 8 rows) attend
+    # in torch ops, as JAX does in jnp: no attention launch
+    "deepseek-7b chunk": (121, 0, 61, 0),
+    "deepseek-7b verify": (121, 0, 61, 0),
+    "gemma3-27b/8 chunk": (33, 0, 17, 0),
+    "gemma3-27b/8 verify": (33, 0, 17, 0),
+    "gemma3-27b chunk": (249, 0, 125, 0),
+    "gemma3-27b verify": (249, 0, 125, 0),
 }
+NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 
 
 class Case:
@@ -1858,6 +1896,507 @@ def rwkv_phase(smi):
     return out
 
 
+# ------------------------------ paged serving ---------------------------
+
+
+def dense_oracle(model, prompt, n_new, tol):
+    """The dense path's greedy stream of one prompt on the card, as
+    ``lm.greedy`` runs it (prefill into a cache of plen + ``n_new``,
+    then ``n_new`` - 1 steps feeding back the argmax). Its
+    tokens, its first-token logits (the real vocabulary), each step's
+    near-tie flag (top-2 gap within tol * max(1, max|logit|), the rule
+    of :func:`check_serving`) and its final cache."""
+    import torch
+    vocab, plen = model.cfg.vocab, prompt.shape[0]
+    toks, gaps, scales = [], [], []
+    with torch.no_grad():
+        lg, cache = model.prefill(prompt[None], alloc=plen + n_new)
+        first = lg[0, :vocab].clone()
+        lengths = torch.full((1,), plen, dtype=torch.int32,
+                             device=prompt.device)
+        for i in range(n_new):
+            row = lg[0, :vocab]
+            top2 = row.topk(2).values
+            gaps.append(top2[0] - top2[1])
+            scales.append(row.abs().max())
+            toks.append(row.argmax())
+            if i < n_new - 1:
+                lg, cache = model.decode_step(cache, toks[-1].view(1, 1),
+                                              lengths + i)
+    ties = (torch.stack(gaps) <= tol * torch.stack(scales).clamp(min=1.0))
+    return {"tokens": torch.stack(toks).tolist(), "first": first,
+            "ties": ties.tolist(), "cache": cache}
+
+
+class PagedServing:
+    """Paged serving on the card, replayed on the host as the JAX
+    engine's step programs run it (``src/repro/serve/engine.py``:
+    ``admit_fn``, ``chunk_fn``, ``step_fn``, ``spec_fn``; tables shipped
+    as ``_ship_tables`` ships them): a ``serve.paging.PagePool`` hands
+    out pages; each step admits requests into free slots (bucketed
+    one-shot prefill + ``insert_prefill``, or a chunk schedule), runs one
+    chunk of each mid-prefill slot, then one lockstep paged decode step
+    (or, once, a speculative verify over a panel of 1 + ``K_DRAFT``
+    tokens and ``insert_verify`` with a fixed accept pattern), and
+    retires finished slots, whose pages the next admissions reuse. Every
+    call is counted and held to its launches; every request's greedy
+    stream, first-token logits and pool rows are held to the dense
+    path's (:func:`dense_oracle`)."""
+
+    K_DRAFT = 3
+
+    def __init__(self, phase, model, prompts, *, chunked, slots, page_size,
+                 max_len, chunk, n_new, tol, want, accept, cow=False):
+        import numpy as np
+        import torch
+        from repro_torch.models import lm
+        from repro_torch.serve import paging
+        self.np, self.torch, self.lm, self.paging = np, torch, lm, paging
+        self.phase, self.model, self.prompts = phase, model, prompts
+        self.cfg, self.tree = model.cfg, model.params.tree()
+        self.chunked, self.slots, self.ps = chunked, slots, page_size
+        self.chunk, self.n_new, self.tol, self.want = chunk, n_new, tol, want
+        self.accept, self.do_cow = accept, cow
+        t0 = time.perf_counter()
+        self.oracle = [dense_oracle(model, p, n_new, tol) for p in prompts]
+        self.oracle_s = time.perf_counter() - t0
+        max_pages = -(-max_len // page_size)
+        self.pool = paging.PagePool(slots * max_pages, page_size, slots,
+                                    max_pages)
+        self.buckets = paging.default_buckets(max_len)
+        with torch.no_grad():
+            self.cache = lm.init_paged_cache(
+                self.cfg, slots, max_len, page_size=page_size,
+                dtype=self.tree["embed"].dtype, device="cuda")
+        self.slot_req = [None] * slots
+        self.lengths = [0] * slots
+        self.chunks = {}
+        self.out = {i: [] for i in range(len(prompts))}
+        self.counts = {"prefill": [], "chunk": [], "step": [], "verify": [],
+                       "insert_verify": [], "cow_copy": []}
+        self.first_errs, self.pool_errs = {}, {}
+        self.tables_key, self.tables = None, None
+        self.cow_pages = None
+
+    # -- host side ------------------------------------------------------
+
+    def ship(self):
+        """The block tables on the card (int32), re-sent when they
+        changed; mid-prefill slots' rows point at their scratch page, so
+        the lockstep decode write lands there."""
+        key = (self.pool.version, frozenset(self.chunks))
+        if key != self.tables_key:
+            tables = self.pool.tables.copy()
+            for s in self.chunks:
+                tables[s, :] = self.pool.scratch[s]
+            self.tables = self.torch.from_numpy(tables).to("cuda")
+            self.tables_key = key
+        return self.tables
+
+    def active(self):
+        return [s for s in range(self.slots) if self.slot_req[s] is not None
+                and s not in self.chunks]
+
+    def call(self, kind, fn, rows=None):
+        """fn() counted and held to its kind's launches."""
+        with self.torch.no_grad():
+            result, c = counted(fn)
+        want = self.want[kind]
+        want = want(rows) if callable(want) else want
+        self.counts[kind].append(c)
+        if c != want:
+            raise AssertionError(f"{self.phase}: {kind} launches {c}, want "
+                                 f"{want}")
+        return result
+
+    def first_token(self, i, logits):
+        row = logits[:self.cfg.vocab]
+        err, ok = err_ok(row, self.oracle[i]["first"], self.tol)
+        self.first_errs[i] = err
+        if not ok:
+            raise AssertionError(f"{self.phase}: request {i} first-token "
+                                 f"logits off by {err} (tol {self.tol})")
+        self.out[i].append(int(row.argmax()))
+
+    # -- the step programs ----------------------------------------------
+
+    def admit(self, s, i):
+        torch, lm = self.torch, self.lm
+        p = self.prompts[i]
+        plen = p.shape[0]
+        self.pool.admit(s, plen + self.n_new)
+        self.slot_req[s] = i
+        if i in self.chunked:
+            self.chunks[s] = self.paging.chunk_schedule(plen, self.chunk,
+                                                        self.buckets)
+            return
+        self.pool.ensure(s, plen)
+        bucket = self.paging.bucket_for(plen, self.buckets)
+        toks = torch.zeros((1, bucket), dtype=p.dtype, device="cuda")
+        toks[0, :plen] = p
+        row = torch.from_numpy(self.pool.tables[s]).to("cuda")
+
+        def run():
+            lg, st = lm.prefill_states(self.tree, toks, self.cfg,
+                                       last_pos=plen)
+            return lg, lm.insert_prefill(self.cfg, self.cache, st, slot=s,
+                                         pages=row, plen=plen,
+                                         page_size=self.ps)
+        lg, self.cache = self.call("prefill", run, bucket)
+        self.first_token(i, lg[0])
+        self.lengths[s] = plen
+
+    def run_chunk(self, s):
+        torch = self.torch
+        i = self.slot_req[s]
+        off, clen, shape = self.chunks[s].pop(0)
+        self.pool.ensure(s, off + clen)
+        toks = torch.zeros((1, shape), dtype=self.prompts[i].dtype,
+                           device="cuda")
+        toks[0, :clen] = self.prompts[i][off:off + clen]
+        row = torch.from_numpy(self.pool.tables[s][None]).to("cuda")
+        lg, self.cache = self.call("chunk", lambda: self.lm.prefill_chunk(
+            self.tree, self.cache, toks, self.cfg, offset=off,
+            chunk_len=clen, pages=row), shape)
+        if not self.chunks[s]:
+            del self.chunks[s]
+            self.first_token(i, lg[0])
+            self.lengths[s] = off + clen
+
+    def decode(self):
+        torch = self.torch
+        act = self.active()
+        for s in act:
+            self.pool.ensure(s, self.lengths[s] + 1)
+        tables = self.ship()
+        toks = torch.tensor([[self.out[self.slot_req[s]][-1] if s in act
+                              else 0] for s in range(self.slots)],
+                            device="cuda")
+        lens = torch.tensor([self.lengths[s] if s in act else 0
+                             for s in range(self.slots)], dtype=torch.int32,
+                            device="cuda")
+        lg, self.cache = self.call("step", lambda: self.lm.decode_step(
+            self.tree, self.cache, toks, lens, self.cfg, pages=tables),
+            self.slots)
+        picks = lg[:, :self.cfg.vocab].argmax(-1).tolist()
+        for s in act:
+            self.out[self.slot_req[s]].append(picks[s])
+            self.lengths[s] += 1
+
+    def ready_to_verify(self):
+        return (len(self.active()) == self.slots and all(
+            self.n_new - len(self.out[i]) >= self.K_DRAFT + 2
+            for i in self.slot_req))
+
+    def verify(self):
+        """One speculative step: each slot's last token and the next
+        ``K_DRAFT`` tokens of the dense stream as drafts; ``accept[s]``
+        of them kept (the panel's argmax must agree with them but at a
+        near-tie), then the panel's pick after them."""
+        torch, k = self.torch, self.K_DRAFT
+        panel, starts = [], []
+        for s in range(self.slots):
+            i = self.slot_req[s]
+            j = len(self.out[i])
+            starts.append(j)
+            panel.append([self.out[i][-1]]
+                         + self.oracle[i]["tokens"][j:j + k])
+        self.pool.begin()
+        for s in range(self.slots):
+            self.pool.ensure(s, self.lengths[s] + 1 + k)
+        self.pool.commit()
+        tables = self.ship()
+        panel_t = torch.tensor(panel, device="cuda")
+        offset = torch.tensor(self.lengths, dtype=torch.int32, device="cuda")
+        clen = torch.full((self.slots,), 1 + k, dtype=torch.int32,
+                          device="cuda")
+        lg, states = self.call("verify", lambda: self.lm.verify_states(
+            self.tree, self.cache, panel_t, self.cfg, offset=offset,
+            chunk_len=clen, pages=tables), self.slots * (1 + k))
+        amax = lg[..., :self.cfg.vocab].argmax(-1).tolist()
+        for s, n_acc in enumerate(self.accept):
+            i = self.slot_req[s]
+            for r in range(n_acc):
+                if (amax[s][r] != panel[s][1 + r]
+                        and not self.oracle[i]["ties"][starts[s] + r]):
+                    raise AssertionError(
+                        f"{self.phase}: verify row {r} of slot {s} picks "
+                        f"{amax[s][r]}, the dense stream {panel[s][1 + r]}")
+        n_keep = torch.tensor([1 + a for a in self.accept], dtype=torch.int32,
+                              device="cuda")
+        self.cache = self.call("insert_verify", lambda: self.lm.insert_verify(
+            self.cfg, self.cache, states, pages=tables, offset=offset,
+            n_keep=n_keep))
+        for s, n_acc in enumerate(self.accept):
+            self.out[self.slot_req[s]] += (panel[s][1:1 + n_acc]
+                                           + [amax[s][n_acc]])
+            self.lengths[s] += 1 + n_acc
+            self.pool.rollback_tail(s, self.lengths[s])
+
+    def cow(self):
+        """Slot 0's first page, shared (a prefix cache's reference),
+        copied on write into a free page: every pool's copy equal to its
+        source; the source's last reference dropped."""
+        from repro_torch.models.attention import PagedKVCache
+        src = int(self.pool.tables[0, 0])
+        self.pool.ref_page(src)
+        src, dst = self.pool.cow(0, 0)
+        if src == dst:
+            raise AssertionError(f"{self.phase}: cow drew no page")
+        self.cache = self.call("cow_copy", lambda: self.lm.cow_copy(
+            self.cache, src, dst))
+        for sc in self.cache:
+            for c in sc.values():
+                kv = c.get("kv")
+                if isinstance(kv, PagedKVCache) and not (
+                        self.torch.equal(kv.k[:, dst], kv.k[:, src])
+                        and self.torch.equal(kv.v[:, dst], kv.v[:, src])):
+                    raise AssertionError(f"{self.phase}: page {dst} is not "
+                                         f"a copy of page {src}")
+        if not self.pool.deref(src):
+            raise AssertionError(f"{self.phase}: page {src} still held")
+        self.cow_pages = (src, dst)
+
+    def agree(self, i):
+        """How many leading tokens of request i's stream equal the dense
+        stream's; a difference before the dense stream's first near-tie
+        raises."""
+        got, want = self.out[i][:self.n_new], self.oracle[i]["tokens"]
+        j = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+                 len(got))
+        if j < len(got) and not any(self.oracle[i]["ties"][:j + 1]):
+            raise AssertionError(f"{self.phase}: request {i} leaves the "
+                                 f"dense stream at token {j} before a "
+                                 "near-tie")
+        return j
+
+    def check_pool(self, s, i):
+        """Slot s's pool rows against request i's dense cache at every
+        written position whose token both streams share: a global
+        layer's at position p, a windowed layer's ring slots (the last
+        ``window`` positions) at p % window in the pool and p % slots in
+        the dense ring; every layer, K and V."""
+        from repro_torch.models.attention import PagedKVCache
+        torch = self.torch
+        plen = self.prompts[i].shape[0]
+        written = self.lengths[s]
+        upto = min(written, plen + self.agree(i))
+        table = torch.from_numpy(self.pool.tables[s]).to("cuda").long()
+        worst, ok = 0.0, True
+        for stage, sc, dc in zip(self.cfg.stages(), self.cache,
+                                 self.oracle[i]["cache"]):
+            for key, c in sc.items():
+                if not isinstance(c.get("kv"), PagedKVCache):
+                    continue
+                w = stage.body[int(key)].window
+                lo = max(0, written - w) if w else 0
+                pos = torch.arange(lo, upto, device="cuda")
+                r = pos % w if w else pos
+                pid, off = table[r // self.ps], r % self.ps
+                for pool_t, dense_t in zip(c["kv"], dc[key]["kv"]):
+                    err, good = err_ok(pool_t[:, pid, off],
+                                       dense_t[:, 0, pos % dense_t.shape[2]],
+                                       self.tol)
+                    worst, ok = max(worst, err), ok and good
+        self.pool_errs[i] = worst
+        if not ok:
+            raise AssertionError(f"{self.phase}: request {i}'s pool rows "
+                                 f"off the dense cache's by {worst}")
+
+    def retire(self):
+        for s in self.active():
+            i = self.slot_req[s]
+            if len(self.out[i]) >= self.n_new:
+                self.check_pool(s, i)
+                self.pool.release(s)
+                self.slot_req[s], self.lengths[s] = None, 0
+
+    def run(self):
+        t0 = time.perf_counter()
+        queue = list(range(len(self.prompts)))
+        verified = False
+        while queue or any(r is not None for r in self.slot_req):
+            for s in range(self.slots):
+                if self.slot_req[s] is None and queue:
+                    self.admit(s, queue.pop(0))
+            for s in list(self.chunks):
+                self.run_chunk(s)
+            if not verified and self.accept and self.ready_to_verify():
+                self.verify()
+                verified = True
+                if self.do_cow:
+                    self.cow()
+            elif self.active():
+                self.decode()
+            self.retire()
+        self.pool.check_conservation()
+        if self.accept and not verified:
+            raise AssertionError(f"{self.phase}: the verify step never ran")
+        same = [self.agree(i) for i in self.out]
+        res = {"first_token_err": max(self.first_errs.values()),
+               "max_logit": max(o["first"].abs().max().item()
+                                for o in self.oracle),
+               "pool_err": max(self.pool_errs.values()),
+               "tokens_equal_dense": [j / self.n_new for j in same],
+               "calls": {k: len(v) for k, v in self.counts.items()},
+               "launches": {k: v[0] for k, v in self.counts.items() if v},
+               "cow_pages": self.cow_pages, "accept": list(self.accept),
+               "oracle_s": self.oracle_s,
+               "seconds": time.perf_counter() - t0,
+               "tokens": [self.out[i][:self.n_new] for i in self.out]}
+        say(self.phase, f"paged serving of {len(self.prompts)} requests "
+            f"(prompts {[p.shape[0] for p in self.prompts]}, chunked "
+            f"{sorted(self.chunked)} at {self.chunk}) on {self.slots} slots "
+            f"of pages of {self.ps}, {self.n_new} tokens each: calls "
+            f"{res['calls']}, launches {res['launches']} (a bucketed "
+            "prefill as the dense prefill at its length, a chunk and a "
+            "verify with no attention launch, a step as the dense step); "
+            f"first-token logits max_abs_err {res['first_token_err']:.4g} "
+            f"(max|logit| {res['max_logit']:.4g}), "
+            f"pool rows against the dense caches {res['pool_err']:.4g} "
+            f"(tol={self.tol}*max(1,max|ref|)); verify kept "
+            f"{list(self.accept)} drafts; cow pages {self.cow_pages}; "
+            "tokens equal to the dense greedy stream: "
+            f"{[round(x, 3) for x in res['tokens_equal_dense']]} (a "
+            f"difference only after a near-tie); {res['seconds']:.1f} s "
+            f"(dense oracle {self.oracle_s:.1f} s)")
+        return res
+
+
+def paged_rates(phase, model, prompts, long_prompt, *, chunk, max_len,
+                page_size, smi, steps=8):
+    """Readings on the card: paged decode tokens/s against dense decode
+    tokens/s at the batch and lengths of ``prompts`` (host clock around
+    ``steps`` synchronised steps, after a warm-up), the profile of a
+    paged step (``launch/profile.py::profile_call``: wall, device busy,
+    idle share, "other"), the chunked prefill of
+    ``long_prompt`` at ``chunk`` against its bucketed one-shot prefill
+    (tokens/s), and the profile of one chunk."""
+    import torch
+    from repro_torch.launch.profile import profile_call
+    from repro_torch.models import lm
+    from repro_torch.serve import paging
+    cfg, tree = model.cfg, model.params.tree()
+    dt = tree["embed"].dtype
+    b, s = prompts.shape
+    buckets = paging.default_buckets(max_len)
+    max_pages = -(-max_len // page_size)
+    out = {}
+    # when each part ended, seconds from the start
+    seconds = out["seconds"] = {}
+    t0 = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def decode_loop(cache, tok, lengths, pages=None):
+        for i in range(steps):
+            lg, cache = lm.decode_step(tree, cache, tok, lengths + i, cfg,
+                                       pages=pages)
+            tok = lg.argmax(-1)[:, None]
+        return cache
+
+    def admit_one_shot(cache, pool, slot, p):
+        plen = p.shape[0]
+        pool.admit(slot, plen + steps)
+        pool.ensure(slot, plen + steps)
+        toks = torch.zeros((1, paging.bucket_for(plen, buckets)),
+                           dtype=p.dtype, device="cuda")
+        toks[0, :plen] = p
+        lg, st = lm.prefill_states(tree, toks, cfg, last_pos=plen)
+        return lg, lm.insert_prefill(
+            cfg, cache, st, slot=slot,
+            pages=torch.from_numpy(pool.tables[slot]).to("cuda"), plen=plen,
+            page_size=page_size)
+
+    with torch.no_grad():
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        lg, dense = model.prefill(prompts, alloc=s + steps)
+        tok = lg.argmax(-1)[:, None]
+        decode_loop(dense, tok, lengths)                  # warm-up
+        _, t_dense = timed(lambda: decode_loop(dense, tok, lengths))
+        pool = paging.PagePool(b * max_pages, page_size, b, max_pages)
+        paged = lm.init_paged_cache(cfg, b, max_len, page_size=page_size,
+                                    dtype=dt, device="cuda")
+        for r in range(b):
+            _, paged = admit_one_shot(paged, pool, r, prompts[r])
+        tables = torch.from_numpy(pool.tables).to("cuda")
+        decode_loop(paged, tok, lengths, tables)
+        _, t_paged = timed(lambda: decode_loop(paged, tok, lengths, tables))
+        out["decode_tokens_per_s"] = {"paged": b * steps / t_paged,
+                                      "dense": b * steps / t_dense}
+        seconds["decode"] = time.perf_counter() - t0
+        # one call a profile: a profile of thousands of launches takes
+        # seconds to read
+        out["step_profile"] = profile_call(lambda: lm.decode_step(
+            tree, paged, tok, lengths + steps - 1, cfg, pages=tables), b,
+            iters=1)
+        seconds["step_profile"] = time.perf_counter() - t0
+        del dense, paged
+        # the long prompt, chunked and one-shot, into slot 0 of one pool
+        plen = long_prompt.shape[0]
+        pool = paging.PagePool(max_pages, page_size, 1, max_pages)
+        one = lm.init_paged_cache(cfg, 1, max_len, page_size=page_size,
+                                  dtype=dt, device="cuda")
+        pool.admit(0, plen)
+        pool.ensure(0, plen)
+        row = torch.from_numpy(pool.tables[0][None]).to("cuda")
+        sched = paging.chunk_schedule(plen, chunk, buckets)
+        pieces = []
+        for off, clen, shape in sched:
+            toks = torch.zeros((1, shape), dtype=long_prompt.dtype,
+                               device="cuda")
+            toks[0, :clen] = long_prompt[off:off + clen]
+            pieces.append((toks, off, clen))
+
+        def chunked():
+            for toks, off, clen in pieces:
+                lm.prefill_chunk(tree, one, toks, cfg, offset=off,
+                                 chunk_len=clen, pages=row)
+
+        def one_shot():
+            toks = torch.zeros((1, paging.bucket_for(plen, buckets)),
+                               dtype=long_prompt.dtype, device="cuda")
+            toks[0, :plen] = long_prompt
+            _, st = lm.prefill_states(tree, toks, cfg, last_pos=plen)
+            lm.insert_prefill(cfg, one, st, slot=0, pages=row[0], plen=plen,
+                              page_size=page_size)
+        for fn in (chunked, one_shot):
+            fn()                                          # warm-up
+        out["prefill_tokens_per_s"] = {
+            name: plen / timed(fn)[1] for name, fn in
+            (("chunked", chunked), ("one_shot", one_shot))}
+        seconds["prefill"] = time.perf_counter() - t0
+        toks, off, clen = pieces[min(2, len(pieces) - 1)]
+        out["chunk_profile"] = profile_call(lambda: lm.prefill_chunk(
+            tree, one, toks, cfg, offset=off, chunk_len=clen, pages=row),
+            clen, iters=1)
+        seconds["chunk_profile"] = time.perf_counter() - t0
+        del one
+    dec, pre = out["decode_tokens_per_s"], out["prefill_tokens_per_s"]
+    say("throughput", f"{cfg.name} {phase} paged decode tokens/s at B={b} "
+        f"after {s} tokens: paged {dec['paged']:.2f}, dense "
+        f"{dec['dense']:.2f} ({steps} steps, host clock); prefill of "
+        f"{plen} tokens, chunked at {chunk} / one-shot in bucket "
+        f"{paging.bucket_for(plen, buckets)}: {pre['chunked']:.1f} / "
+        f"{pre['one_shot']:.1f} tokens/s; seconds at the end of each part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" | {smi}")
+    for name, prof in (("paged step", out["step_profile"]),
+                       (f"chunk of {clen} at {off}", out["chunk_profile"])):
+        say("profile", f"{cfg.name} {phase} {name}: wall "
+            f"{prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}, own kernels " + ", ".join(
+                f"{k} {v:.3f}" for k, v in prof["own_kernels_ms"].items())
+            + f", other device {prof['other_device_ms']:.3f} ms | {smi}")
+    return out
+
+
 # ------------------------------ deepseek-7b -----------------------------
 
 
@@ -1976,6 +2515,18 @@ def dense_phase(smi):
         rates["plain_fp32"] = lm_rates(model, prompts)
     out["skinny_norm_ab"] = skinny_norm_ab(
         "deepseek-7b", {"fp32": model, "bf16": model16}, prompts, smi)
+    # paged serving: six requests on four slots in fp32 (the checks),
+    # then the bf16 readings
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (97, 333, 512, 700, 64, 900)]
+    out["paged_fp32"] = PagedServing(
+        "dense-paged", model, reqs, chunked={3, 5}, slots=4, page_size=16,
+        max_len=1024, chunk=256, n_new=32, tol=LOGIT_TOL,
+        want=paged_launches("deepseek-7b", cfg, torch.float32),
+        accept=(3, 2, 1, 0), cow=True).run()
+    out["paged_bf16"] = paged_rates("bf16", model16, prompts, reqs[5],
+                                    chunk=256, max_len=1024, page_size=16,
+                                    smi=smi)
     out.update(rates=rates, peak_memory_gib=peak_gb,
                seconds=time.perf_counter() - t_phase)
     say("throughput", "deepseek-7b prefill tokens/s at B=4 x 512: "
@@ -2009,6 +2560,18 @@ def lm_counts(cfg, rows, dtype, *, attention, matmuls_per_layer=4,
             "layernorm": 1 + extra_norms + prologue_splits(
                 rows, cfg.d_model, dtype, 2 * layers),
             "wkv": 0}
+
+
+def paged_launches(key, cfg, dtype):
+    """The launches each paged call is held to, by kind (a callable of
+    the call's rows): the literals of ``LAUNCHES`` under ``key``, each
+    checked against the count the config and the split rule give."""
+    def held(kind, attention):
+        return lambda rows: want_launches(f"{key} {kind}", lm_counts(
+            cfg, rows, dtype, attention=attention))
+    return {"prefill": held("prefill", True), "chunk": held("chunk", False),
+            "step": held("step", False), "verify": held("verify", False),
+            "insert_verify": NO_LAUNCHES, "cow_copy": NO_LAUNCHES}
 
 
 def tied_head_copy(model, name):
@@ -2109,6 +2672,17 @@ def gemma_phase(smi):
         rates["plain_fp32_8_layers"] = lm_rates(model, prompts)
     out["peak_memory_fp32_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["tied_head_fp32"] = tied_head_copy(model, "fp32")
+    # paged serving: a 1500-token prompt chunked at 512 (its chunks cross
+    # the 1024 window: the ring pages wrap mid-prompt) and a 300-token
+    # one-shot on two slots, held to the dense path in fp32 here and in
+    # bf16 at full depth below
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (1500, 300)]
+    paged = dict(chunked={0}, slots=2, page_size=16, max_len=2048, chunk=512,
+                 n_new=17, accept=(3, 1))
+    out["paged_fp32_8_layers"] = PagedServing(
+        "gemma-paged-fp32", model, reqs, tol=LOGIT_TOL,
+        want=paged_launches("gemma3-27b/8", cfg, f32), **paged).run()
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2145,6 +2719,12 @@ def gemma_phase(smi):
         rates["plain_bf16"] = lm_rates(model16, prompts)
     out["skinny_norm_ab"] = skinny_norm_ab(
         "gemma3-27b", {"bf16, 62 layers": model16}, prompts, smi)
+    out["paged_bf16"] = PagedServing(
+        "gemma-paged-bf16", model16, reqs, tol=BF16_TOL,
+        want=paged_launches("gemma3-27b", full, bf), **paged).run()
+    out["paged_rates_bf16"] = paged_rates(
+        "bf16, 62 layers", model16, prompts[:, :1024], reqs[0], chunk=512,
+        max_len=2048, page_size=16, smi=smi)
     out["tied_head_bf16"] = tied_head_copy(model16, "bf16")
     out.update(rates=rates, seconds=time.perf_counter() - t_phase)
     say("throughput", "gemma3-27b prefill tokens/s at B=2 x 2048: "

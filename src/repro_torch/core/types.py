@@ -50,6 +50,66 @@ class RWKVConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PagingConfig:
+    """Paged-KV serving geometry (vLLM-style block tables).
+
+    The serving engine carves each attention layer's KV storage into a
+    global pool of fixed-size pages ``(n_pages + n_slots, page_size,
+    Hkv, hd)`` and maps every slot's logical positions onto physical
+    pages through a per-slot block table. Physical page ``n_pages +
+    slot`` is the slot's private *scratch page*: idle and mid-prefill
+    slots' tables point at it so lockstep decode writes land in storage
+    nobody reads — and, being per-slot, never serialize on one page.
+
+    ``n_pages == 0`` means "size for full occupancy": the engine
+    allocates ``n_slots * ceil(max_len / page_size)`` real pages, i.e.
+    the same capacity as the dense lockstep caches; smaller values
+    oversubscribe and the engine defers admissions until pages free up.
+
+    ``prefill_chunk > 0`` enables *chunked prefill*: prompts longer than
+    the chunk split into successive row panels processed across engine
+    steps, interleaved with decode — the monolithic largest-bucket
+    prefill program no longer stalls co-resident decode slots (the TTFT
+    cliff). The chunk must sit on the bucket ladder (a power of two) so
+    compiled chunk shapes stay bounded, and requires a bucketing-capable
+    arch (pure causal attention).
+    """
+
+    page_size: int = 16            # tokens per KV page
+    n_pages: int = 0               # real pages per layer pool (0 => full)
+    min_bucket: int = 16           # smallest prefill padding bucket
+    prefill_chunk: int = 0         # chunked-prefill panel size (0 => off)
+    # Slice the decode block table to the batch's max live pages,
+    # rounded up to a power of two, so executed gather volume tracks
+    # live-page traffic instead of always reading max_pages entries.
+    # Costs up to log2(max_pages) extra compiled decode programs (one
+    # per table width), so it is opt-in.
+    table_width_bucketing: bool = False
+    # Radix-tree prefix cache over token prefixes: admission maps fully
+    # shared prompt pages straight into the new slot's block table
+    # (refcount++, zero prefill FLOPs) and chunked prefill processes
+    # only the uncached suffix. Requires prefill_chunk > 0 (suffixes
+    # replay through the chunk ladder, keeping the compile bound) and a
+    # bucketing-capable, all-global-attention arch (sliding-window ring
+    # writes would clobber shared pages); silently off otherwise.
+    prefix_cache: bool = False
+    # Sarathi-style cap on prefill tokens advanced per engine step
+    # across mid-prefill slots (0 => unbounded). The head of the chunk
+    # queue always advances, so prefill can't fully starve.
+    prefill_token_budget: int = 0
+    # Self-speculative decode: max draft tokens per slot per step
+    # (0 => off). Drafts come from a host-side prompt-lookup n-gram
+    # drafter (serve/spec.py); a batched verify step scores the panel
+    # through the chunk kernels and writes only accepted rows. Panel
+    # widths pad up the documented ``paging.spec_ladder`` so the
+    # compile bound grows by len(ladder) programs exactly. Requires a
+    # bucketing-capable arch, and is mutually exclusive with
+    # table_width_bucketing (the width ladder would multiply the
+    # k-ladder; speculative steps ship full-width tables instead).
+    speculate_k: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockDef:
     """One layer inside a stage body.
 

@@ -7,8 +7,10 @@ the config's stage compilation. The port runs the ``attn`` mixer
 (global or sliding-window) with the ``mlp`` FFN, with or without
 cross-attention, and the RWKV6 pair (the ``rwkv6`` time-mix mixer and
 the ``rwkv6_cmix`` channel-mix FFN), in modes ``train``, ``prefill`` and
-``decode``. The other kinds raise, naming the ROADMAP.md item that
-ports them. All dense ops route through the row-wise primitive.
+``decode`` (dense or paged), and the paged serving modes ``chunk`` and
+``verify`` of the attention-only archs. The other kinds raise, naming
+the ROADMAP.md item that ports them. All dense ops route through the
+row-wise primitive.
 """
 from __future__ import annotations
 
@@ -21,29 +23,27 @@ from repro_torch.core.types import BlockDef, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention, mlp, rwkv6
 
-MODES = ("train", "prefill", "decode")
+MODES = ("train", "prefill", "decode", "chunk", "verify")
 
 # block kinds of the JAX package the port does not run yet
 _PENDING = {
     "mamba2": "mamba2 mixer: ROADMAP.md queue 1 item 8",
     "moe": "MoE FFN: ROADMAP.md queue 1 item 8",
-    "chunk": "chunked prefill: ROADMAP.md queue 1 item 5 (paged serving)",
-    "verify": "speculative verify: ROADMAP.md queue 1 item 5 (paged "
-              "serving)",
 }
-
-
-def _pending(kind: str):
-    return NotImplementedError(f"not ported yet: {_PENDING[kind]}")
 
 
 def _check(blk: BlockDef, mode: str = "train"):
     if mode not in MODES:
-        raise _pending(mode) if mode in _PENDING else ValueError(
-            f"mode {mode!r}")
+        raise ValueError(f"mode {mode!r}")
     for kind in (blk.mixer, blk.ffn):
         if kind in _PENDING:
-            raise _pending(kind)
+            raise NotImplementedError(f"not ported yet: {_PENDING[kind]}")
+    if mode in ("chunk", "verify") and (blk.mixer != "attn"
+                                        or blk.cross_attn):
+        raise ValueError(
+            "chunked prefill requires every position's state to be "
+            f"causal-attention KV; {blk.mixer}/cross_attn blocks must "
+            "prefill in one shot (paging.supports_bucketing)")
 
 
 def _norm_init(cfg: ModelConfig, stack, dtype, device):
@@ -88,20 +88,33 @@ class BlockIO(NamedTuple):
     """Everything a block may consume/produce besides the hidden state."""
     aux: float = 0.0                      # aux loss (MoE only)
     new_cache: Any = None                 # decode: updated cache slice
-    prefill_state: Any = None             # prefill: mixer state
+    prefill_state: Any = None             # prefill / verify: mixer state
 
 
 def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
                 positions=None, lengths=None, cache=None, enc_out=None,
+                pages=None, chunk_len=None, targets=None,
                 window_override: Optional[int] = None) -> tuple:
-    """mode: 'train' | 'prefill' | 'decode'. ``positions``: (B, S) RoPE
-    positions (train, prefill); ``lengths``: (B,) tokens already in the
-    cache (decode); ``cache``: this layer's slice of the decode cache;
-    ``enc_out``: the encoder's output, (B, T, d), which cross-attention
-    reads at train and prefill; ``window_override``: the window in place
-    of the block's own (0 in the encoder). The attention KV is written
-    into the cache slice in place and the cross KV is read from it, so
-    neither is in the returned ``new_cache``. Returns (x, BlockIO)."""
+    """mode: 'train' | 'prefill' | 'decode' | 'chunk' | 'verify'.
+    ``positions``: (B, S) RoPE positions (train, prefill); ``lengths``:
+    (B,) tokens already in the cache (decode, chunk, verify); ``cache``:
+    this layer's slice of the decode cache; ``enc_out``: the encoder's
+    output, (B, T, d), which cross-attention reads at train and prefill;
+    ``window_override``: the window in place of the block's own (0 in
+    the encoder). The attention KV is written into the cache slice in
+    place and the cross KV is read from it, so neither is in the
+    returned ``new_cache``.
+
+    pages: (B, max_pages) block table of paged decode, chunk and verify
+    (the cache's KV leaf is then a ``PagedKVCache`` pool). 'chunk' is
+    chunked prefill: x is a row panel of prompt tokens at position
+    offset ``lengths`` of which the first ``chunk_len`` are real;
+    attention layers attend prefix pages + the in-flight chunk and
+    append their KV (``targets``: ``attention.chunk_targets`` of the
+    call, by window). 'verify' scores a speculative panel the same way
+    but leaves the pool as it is: each layer returns the panel's (k, v)
+    as ``prefill_state``. Only causal-attention blocks without
+    cross-attention take these two modes. Returns (x, BlockIO)."""
     _check(blk, mode)
     new_cache = {}
     prefill_state = {}
@@ -116,10 +129,27 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
         nspec = _norm_spec(params["norm1"], cfg) if fuse else None
         h = x if fuse else _norm_apply(params["norm1"], x, cfg)
         res = x if fuse else None
-        if mode == "decode":
+        if mode == "decode" and isinstance(cache["kv"],
+                                           attention.PagedKVCache):
+            out, _ = attention.paged_decode_apply(
+                params["attn"], h, cache["kv"], cfg=cfg, lengths=lengths,
+                pages=pages, window=window, norm=nspec, residual=res)
+        elif mode == "decode":
             out, _ = attention.decode_apply(
                 params["attn"], h, cache["kv"], cfg=cfg, lengths=lengths,
                 window=window, norm=nspec, residual=res)
+        elif mode == "chunk":
+            out, _ = attention.paged_chunk_apply(
+                params["attn"], h, cache["kv"], cfg=cfg, offset=lengths,
+                chunk_len=chunk_len, pages=pages, window=window,
+                norm=nspec, residual=res,
+                targets=None if targets is None else targets[window])
+        elif mode == "verify":
+            out, (k, v) = attention.paged_verify_apply(
+                params["attn"], h, cache["kv"], cfg=cfg, offset=lengths,
+                chunk_len=chunk_len, pages=pages, window=window,
+                norm=nspec, residual=res)
+            prefill_state["kv"] = (k, v)
         else:
             # causal in the encoder too, as the JAX package's block runs
             # it (its non-causal stages only drop the window)

@@ -7,16 +7,23 @@ keep the JAX package's layout — stacked leaves ``(R, ...)``, cache
 leaves ``(R, B, ...)`` — so the two packages' trees compare leaf for
 leaf (``convert.from_jax_params`` loads a JAX tree).
 
-Serving runs as the JAX package's dense-cache oracle does: one-shot
-:func:`prefill` at the prompts' exact lengths into a cache of ``alloc``
-positions, then :func:`decode_step` with greedy picks (:func:`greedy`).
-The port runs the dense decoder archs (attention + MLP: a global
-layer's KV cache leaves ``(R, B, alloc, Hkv, hd)``, a windowed layer's a
-ring of ``window`` slots, both written in place at decode), the
-encoder-decoder arch (:func:`encode` over ``extra={"frames": ...}``,
-the cross K/V cached at prefill) and RWKV6 (recurrent state); the
-hybrid path, paged serving and tied TP heads come with later slices
-(ROADMAP.md queue 1).
+Serving runs two ways, as in the JAX package. The dense-cache oracle:
+one-shot :func:`prefill` at the prompts' exact lengths into a cache of
+``alloc`` positions, then :func:`decode_step` with greedy picks
+(:func:`greedy`). The paged core the serving engine drives: a cache of
+page pools (:func:`init_paged_cache`) addressed through block tables,
+filled by bucketed one-shot prefill (:func:`prefill_states` with
+``last_pos``, then :func:`insert_prefill`) or chunk by chunk
+(:func:`prefill_chunk`), advanced by :func:`decode_step` with
+``pages``, scored speculatively (:func:`verify_states`, then
+:func:`insert_verify`), and copied on write (:func:`cow_copy`). Every
+pool is written in place. The port runs the dense decoder archs
+(attention + MLP: a global layer's KV cache leaves ``(R, B, alloc, Hkv,
+hd)``, a windowed layer's a ring of ``window`` slots, both written in
+place at decode), the encoder-decoder arch (:func:`encode` over
+``extra={"frames": ...}``, the cross K/V cached at prefill) and RWKV6
+(recurrent state); the hybrid path and tied TP heads come with later
+slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ from repro_torch.core import runtime
 from repro_torch.core.params import ParamTree
 from repro_torch.core.types import ModelConfig, Stage
 from repro_torch.kernels import ops
-from repro_torch.models import blocks, rope
-from repro_torch.models.attention import KVCache
+from repro_torch.models import attention, blocks, rope
+from repro_torch.models.attention import KVCache, PagedKVCache
 
 NEG_INF = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -113,12 +120,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                positions=None, lengths=None, cache=None, enc_out=None,
+               pages=None, chunk_len=None, targets=None,
                causal: bool = True):
-    """Walk a stage's repeats. Returns (x, aux, states): the decode
-    mode's new cache or the prefill mode's per-layer states, stacked
-    over the repeats as the JAX scan stacks them (``{}`` in train).
-    ``enc_out`` goes to every block; ``causal=False`` (the encoder)
-    drops the blocks' windows, as the JAX package's does."""
+    """Walk a stage's repeats. Returns (x, aux, states): the decode and
+    chunk modes' new cache (its pools written in place) or the prefill
+    and verify modes' per-layer states, stacked over the repeats as the
+    JAX scan stacks them (``{}`` in train). ``enc_out``, ``pages`` (the
+    serving block table: every layer indexes its own pool through it),
+    ``chunk_len`` and ``targets`` (``attention.chunk_targets`` of the
+    call) go to every block; ``causal=False`` (the encoder) drops the
+    blocks' windows, as the JAX package's does."""
     stacked, shared = sp["stacked"], sp["shared"]
     aux = 0.0
     per_layer: List[dict] = []
@@ -132,16 +143,18 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                    if cache and key in cache else None)
             x, io = blocks.apply_block(
                 blk, bp, x, cfg=cfg, mode=mode, positions=positions,
-                lengths=lengths, cache=csl, enc_out=enc_out,
+                lengths=lengths, cache=csl, enc_out=enc_out, pages=pages,
+                chunk_len=chunk_len, targets=targets,
                 window_override=None if causal else 0)
             aux += io.aux
-            state = io.new_cache if mode == "decode" else io.prefill_state
+            state = (io.new_cache if mode in ("decode", "chunk")
+                     else io.prefill_state)
             if state is not None:
                 out_states[key] = state
         per_layer.append(out_states)
     states = ({} if not per_layer[0] else
               _tree_map(lambda *ls: torch.stack(ls), *per_layer))
-    if mode == "decode":
+    if mode in ("decode", "chunk"):
         # the leaves a block wrote in place (the attention KV) or only
         # read (the cross KV) are not in its new cache: the stage's
         # stacked leaves hold the step already
@@ -242,10 +255,17 @@ def forward(params, tokens, cfg: ModelConfig, *,
 
 
 def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
-                     device):
+                     device, pool=None):
     blocks._check(blk)
     c = {}
-    if blk.mixer == "attn":
+    if blk.mixer == "attn" and pool is not None:
+        # paged serving: (R, n_pages + n_slots scratch, ps, Hkv, hd)
+        n_pages, ps = pool
+        shape = (repeat, n_pages + batch, ps, cfg.n_kv_heads, cfg.head_dim)
+        c["kv"] = PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device))
+    elif blk.mixer == "attn":
         # a windowed layer keeps a ring of at most ``window`` slots
         slots = min(alloc, blk.window) if blk.window else alloc
         shape = (repeat, batch, slots, cfg.n_kv_heads, cfg.head_dim)
@@ -270,13 +290,14 @@ def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
     return c
 
 
-def _init_cache_tree(cfg: ModelConfig, batch, alloc, dtype, device):
+def _init_cache_tree(cfg: ModelConfig, batch, alloc, dtype, device,
+                     pool=None):
     out = []
     for stage in cfg.stages():
         sc = {}
         for i, blk in enumerate(stage.body):
             c = _slot_cache_init(blk, cfg, stage.repeat, batch, alloc,
-                                 dtype, device)
+                                 dtype, device, pool=pool)
             if c:
                 sc[str(i)] = c
         out.append(sc)
@@ -296,6 +317,33 @@ def init_cache(cfg: ModelConfig, batch: int, alloc: Optional[int] = None,
         raise ValueError(f"{cfg.name}: init_cache needs alloc, the KV "
                          "positions to hold")
     return _init_cache_tree(cfg, batch, alloc, dtype, device)
+
+
+def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
+                     page_size: int = 16, n_pages: int = 0, dtype=None,
+                     device="cuda"):
+    """Serving cache with paged attention KV: every attention layer gets
+    a page pool ``(R, n_pages + n_slots, page_size, Hkv, hd)`` indexed
+    by the engine's block tables (the ``+ n_slots`` are per-slot
+    *scratch* pages idle and mid-prefill slots write to); recurrent and
+    cross-attention state stays per-slot dense.
+
+    ``n_pages == 0`` sizes the pool for full occupancy
+    (``n_slots * ceil(max_len / page_size)`` real pages); pass less to
+    oversubscribe. Sliding windows must be page-aligned
+    (``window % page_size == 0``) so ring pages tile exactly.
+    """
+    device = runtime.resolve_device(device)
+    dtype = dtype or DTYPES[cfg.dtype]
+    max_pages = -(-max_len // page_size)
+    n_pages = n_pages or n_slots * max_pages
+    for stage in cfg.stages():
+        for blk in stage.body:
+            if blk.mixer == "attn" and blk.window % page_size:
+                raise ValueError(f"sliding window {blk.window} must be a "
+                                 f"multiple of page_size {page_size}")
+    return _init_cache_tree(cfg, n_slots, max_len, dtype, device,
+                            pool=(n_pages, page_size))
 
 
 def _ring_from_prefill(k, window):
@@ -348,20 +396,29 @@ def _pad_seq(t, alloc):
 
 def prefill_states(params, tokens, cfg: ModelConfig, *,
                    extra: Optional[dict] = None, last_pos=None):
-    """Full-sequence prefill -> (last-position logits, raw per-layer
-    states). ``extra``: the encoder's ``{"frames": (B, T, d)}`` of an
-    encoder-decoder arch. Recurrent mixers fold any padding into their
-    state, so the recurrent archs prefill at exact lengths: ``last_pos``
-    (bucketed prefill of attention archs) is not taken."""
-    if last_pos is not None:
-        raise NotImplementedError(
-            "bucketed prefill (last_pos): ROADMAP.md queue 1 item 5")
+    """Full-sequence prefill -> (logits, raw per-layer states).
+    ``extra``: the encoder's ``{"frames": (B, T, d)}`` of an
+    encoder-decoder arch.
+
+    ``last_pos`` ((B,) or int) is *bucketed* prefill: the tokens are
+    right-padded to a bucket length and the logits are taken at position
+    ``last_pos - 1`` (the last real token). Causal attention keeps every
+    real position's activations and KV untouched by the tail padding;
+    :func:`insert_prefill` drops the pad rows' KV. Recurrent mixers
+    fold padding into their state, so recurrent archs prefill at exact
+    lengths (``last_pos=None``)."""
+    b = tokens.shape[0]
     enc_out = _encoder_out(params, cfg, extra)
     x = _add_positions(embed(params, tokens, cfg), cfg)
     x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
                                mode="prefill", positions=_positions(tokens),
                                enc_out=enc_out)
-    logits = unembed(params, x[:, -1:], cfg)
+    if last_pos is None:
+        xl = x[:, -1:]
+    else:
+        idx = torch.as_tensor(last_pos, device=x.device).long().expand(b) - 1
+        xl = x[torch.arange(b, device=x.device), idx][:, None]
+    logits = unembed(params, xl, cfg)
     return logits[:, 0], states
 
 
@@ -373,21 +430,195 @@ def prefill(params, tokens, cfg: ModelConfig, *,
     return logits, states_to_cache(cfg, states, alloc or tokens.shape[1])
 
 
-def decode_step(params, cache, tokens, lengths, cfg: ModelConfig):
+def _pools(cache):
+    """The paged KV pools of a cache, stage by stage."""
+    return [c["kv"] for sc in cache for c in sc.values()
+            if isinstance(c.get("kv"), PagedKVCache)]
+
+
+def _windows(cfg: ModelConfig):
+    """The distinct windows of the attention layers (0: global)."""
+    return tuple(sorted({blk.window for stage in cfg.stages()
+                         for blk in stage.body if blk.mixer == "attn"}))
+
+
+def _insert_slot(dst, src, slot):
+    """Write a (R, 1, ...) prefill state into batch row ``slot`` of a
+    (R, B, ...) per-slot cache leaf, in place."""
+    dst[:, slot] = src[:, 0].to(dst.dtype)
+    return dst
+
+
+def _insert_pages(pool: PagedKVCache, k, v, targets):
+    """Scatter prefilled KV states (R, 1, S_pad, Hkv, hd) into the
+    slot's pages of every repeat's pool, in place: the rows ``targets``
+    (``attention.chunk_targets`` of the prompt) name. Positions >= plen
+    (padding) and, for windowed layers, < plen - window (evicted from
+    the ring) are not written; stale rows left in a partial tail page
+    are masked at read time by the kv_len bookkeeping."""
+    bi, si, pid, off = targets
+    pool.k[:, pid, off] = k[:, bi, si].to(pool.k.dtype)
+    pool.v[:, pid, off] = v[:, bi, si].to(pool.v.dtype)
+    return pool
+
+
+def _insert(cfg: ModelConfig, cache, states, targets_of, slot=None):
+    """Write a call's per-layer states into the cache, in place: each
+    attention layer's KV (R, B, S, Hkv, hd) into its pool through the
+    targets ``targets_of(S)`` gives (``attention.chunk_targets``, built
+    once, each layer taking its window's), and the recurrent and
+    cross-attention leaves into batch row ``slot``."""
+    targets = None
+    out = []
+    for stage, stage_cache, stage_states in zip(cfg.stages(), cache, states):
+        sc = {}
+        for key, cur in stage_cache.items():
+            st = (stage_states or {}).get(key) or {}
+            c = dict(cur)
+            if "kv" in st:
+                k, v = st["kv"]
+                if targets is None:
+                    targets = targets_of(k.shape[2])
+                c["kv"] = _insert_pages(
+                    cur["kv"], k, v, targets[stage.body[int(key)].window])
+            for name in ("rwkv_t", "rwkv_c", "cross_kv"):
+                if name in st:
+                    c[name] = _tree_map(lambda d, s_: _insert_slot(d, s_,
+                                                                   slot),
+                                        cur[name], st[name])
+            sc[key] = c
+        out.append(sc)
+    return out
+
+
+def insert_prefill(cfg: ModelConfig, cache, states, *, slot, pages, plen,
+                   page_size: int):
+    """Insert a single-request prefill into a paged serving cache, in
+    place. Attention KV states scatter into the pages the engine
+    granted the slot (``pages``: (max_pages,) physical ids): positions
+    below ``plen`` (and, for a windowed layer, its last ``window``);
+    recurrent and cross-attention state writes batch row ``slot``, so
+    the recurrent and encoder-decoder archs admit here at exact lengths.
+
+    One-shot prefill scatters the *whole* prompt, so every granted page
+    must be slot-private (refcount 1): a prefix-cache hit takes the
+    chunked path, which starts past the shared pages."""
+    pools = _pools(cache)
+    if pools:
+        pages = torch.as_tensor(pages, device=pools[0].k.device)
+    return _insert(cfg, cache, states, lambda s: attention.chunk_targets(
+        0, plen, pages[None], s, _windows(cfg), page_size), slot)
+
+
+def _panel_positions(x, offset, cfg: ModelConfig):
+    """The sinusoidal positions of a panel at ``offset`` ((B,)), for the
+    position-free decoder archs (RoPE archs rotate inside attention)."""
+    if cfg.rope != "none" or cfg.encdec:
+        return x
+    pos = offset[:, None] + torch.arange(x.shape[1], device=x.device)[None]
+    return x + rope.sinusoidal_rows(pos, cfg.d_model).to(x.dtype)
+
+
+def prefill_chunk(params, cache, tokens, cfg: ModelConfig, *, offset,
+                  chunk_len, pages):
+    """Chunked-prefill step: one forward over a row panel of the prompt,
+    resumable across engine steps.
+
+    tokens: (1, Sc_pad) — a chunk of a longer prompt starting at
+    absolute position ``offset`` (tokens already in the paged cache),
+    right-padded to a chunk shape with the true length in ``chunk_len``
+    (<= Sc_pad). Every attention layer attends the slot's written KV
+    pages plus the in-flight chunk (``attention.paged_chunk_apply``) and
+    appends the chunk's KV in place, so successive calls rebuild the KV
+    state one-shot prefill + :func:`insert_prefill` would have written.
+    ``pages``: (1, max_pages) block table. Returns (next-token logits
+    (1, V) at chunk position chunk_len - 1, cache). Only
+    causal-attention archs may chunk (``paging.supports_bucketing``);
+    the final chunk's logits are the prompt's first-token logits."""
+    b, s = tokens.shape
+    dev = tokens.device
+    pages = pages.long()
+    offset = torch.as_tensor(offset, device=dev).long().expand(b)
+    clen = torch.as_tensor(chunk_len, device=dev).long().expand(b)
+    targets = attention.chunk_targets(offset, clen, pages, s,
+                                      _windows(cfg),
+                                      _pools(cache)[0].k.shape[2])
+    x = _panel_positions(embed(params, tokens, cfg), offset, cfg)
+    x, _, new_cache = _run_stages(params["stages"], cfg.stages(), x,
+                                  cfg=cfg, mode="chunk", lengths=offset,
+                                  cache=cache, pages=pages, chunk_len=clen,
+                                  targets=targets)
+    xl = x[torch.arange(b, device=dev), clen - 1][:, None]
+    logits = unembed(params, xl, cfg)
+    return logits[:, 0], new_cache
+
+
+def verify_states(params, cache, tokens, cfg: ModelConfig, *, offset,
+                  chunk_len, pages):
+    """Speculative-verify forward (the batched, read-only sibling of
+    :func:`prefill_chunk`): score a (B, Sc) panel — each slot's last
+    committed token plus its draft tokens, right-padded — against the
+    paged cache, WITHOUT writing the panel's KV. ``offset`` /
+    ``chunk_len``: per-row (B,) (tokens already in the cache / real
+    panel rows; 0 rows are fully masked). Returns (full panel logits
+    (B, Sc, V), per-layer panel KV states): acceptance needs every
+    panel position's distribution; the caller then writes only the
+    accepted rows with :func:`insert_verify`."""
+    b, _ = tokens.shape
+    dev = tokens.device
+    offset = torch.as_tensor(offset, device=dev).expand(b)
+    clen = torch.as_tensor(chunk_len, device=dev).expand(b)
+    x = _panel_positions(embed(params, tokens, cfg), offset, cfg)
+    x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
+                               mode="verify", lengths=offset, cache=cache,
+                               pages=pages.long(), chunk_len=clen)
+    return unembed(params, x, cfg), states
+
+
+def insert_verify(cfg: ModelConfig, cache, states, *, pages, offset,
+                  n_keep):
+    """Write the accepted prefix of a verify panel into the paged cache,
+    in place: every attention layer scatters its panel rows
+    ``< n_keep[b]`` (per row: the re-scored committed token plus the
+    accepted drafts; ``n_keep == 0`` writes nothing — inactive or fully
+    rolled-back slots), through the chunked-prefill scatter's targets
+    (including the windowed ring routing), built once for the call."""
+    page_size = _pools(cache)[0].k.shape[2]
+    return _insert(cfg, cache, states, lambda s: attention.chunk_targets(
+        offset, n_keep, pages, s, _windows(cfg), page_size))
+
+
+def cow_copy(cache, src, dst):
+    """Copy-on-write page copy across every paged attention layer, in
+    place: physical page ``src``'s K/V rows land in page ``dst`` (see
+    ``attention.copy_page``). ``src == dst`` is the identity. Other
+    state (recurrent, cross-KV) is untouched."""
+    src, dst = int(src), int(dst)
+    for pool in _pools(cache):
+        attention.copy_page(pool, src, dst)
+    return cache
+
+
+def decode_step(params, cache, tokens, lengths, cfg: ModelConfig,
+                pages=None):
     """One decode step. tokens: (B, 1); lengths: (B,) tokens in cache.
     Returns (logits (B, vocab), new_cache). The attention KV leaves are
     written IN PLACE at position ``lengths`` (so ``cache`` holds the
     step too, and ``new_cache`` shares those leaves): a step that copied
     them would move the whole cache, 2.1 GB for deepseek-7b at B=4 x
-    544 in fp32. The recurrent leaves are new tensors."""
+    544 in fp32. The recurrent leaves are new tensors. ``pages``
+    ((B, max_pages) block tables) is required when ``cache`` holds paged
+    KV pools (:func:`init_paged_cache`); every layer indexes its own
+    pool through the same table."""
     x = embed(params, tokens, cfg)
     if cfg.rope == "none":
         # rows ``lengths`` of the JAX package's 65536-row table
         pe = rope.sinusoidal_rows(lengths, cfg.d_model)
         x = x + pe[:, None].to(x.dtype)
-    x, _, new_cache = _run_stages(params["stages"], cfg.stages(), x,
-                                  cfg=cfg, mode="decode", lengths=lengths,
-                                  cache=cache)
+    x, _, new_cache = _run_stages(
+        params["stages"], cfg.stages(), x, cfg=cfg, mode="decode",
+        lengths=lengths, cache=cache,
+        pages=None if pages is None else pages.long())
     logits = unembed(params, x, cfg)
     return logits[:, 0], new_cache
 
@@ -439,9 +670,10 @@ class LanguageModel(nn.Module):
         return prefill(self.params.tree(), tokens, self.cfg, extra=extra,
                        alloc=alloc)
 
-    def decode_step(self, cache, tokens: torch.Tensor, lengths: torch.Tensor):
+    def decode_step(self, cache, tokens: torch.Tensor, lengths: torch.Tensor,
+                    pages: Optional[torch.Tensor] = None):
         return decode_step(self.params.tree(), cache, tokens, lengths,
-                           self.cfg)
+                           self.cfg, pages=pages)
 
     def greedy(self, prompts: torch.Tensor, n_new: int,
                extra: Optional[dict] = None) -> torch.Tensor:

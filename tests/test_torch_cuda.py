@@ -775,3 +775,106 @@ def _tensors(tree):
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in _tensors(t)]
     return [tree]
+
+
+def _paged_schedule(model, toks, dev):
+    """A fixed paged schedule on the card: a bucketed prefill of 11
+    tokens (bucket 16) + ``insert_prefill`` into slot 0; 37 tokens of
+    slot 1 in chunks of 16 (past gemma3-smoke's 16-token window: its ring
+    wraps mid-prompt); three lockstep decode steps; a verify panel of 4
+    with 3 and 2 rows kept; a copy-on-write of slot 0's second page into
+    a free page, remapped; two more steps. Teacher-forced on ``toks``.
+    Returns the logits of every call, its launches (matmul, attention,
+    layernorm) by kind and the cache."""
+    cfg, tree = model.cfg, model.params.tree()
+    ps = 4
+    cache = lm.init_paged_cache(cfg, 2, 64, page_size=ps, n_pages=40,
+                                dtype=torch.float32, device=dev)
+    tables = torch.arange(32, dtype=torch.int32, device=dev).reshape(2, 16)
+    kernels = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    out, counts = [], []
+
+    def run(kind, fn):
+        before = [k.launches for k in kernels]
+        lg, cache = fn()
+        torch.cuda.synchronize()
+        counts.append((kind, [k.launches - b for k, b in zip(kernels,
+                                                            before)]))
+        out.append(lg)
+        return cache
+
+    def admit():
+        t = torch.zeros(1, 16, dtype=torch.long, device=dev)
+        t[0, :11] = toks[0, :11]
+        lg, st = lm.prefill_states(tree, t, cfg, last_pos=11)
+        return lg, lm.insert_prefill(cfg, cache, st, slot=0,
+                                     pages=tables[0], plen=11, page_size=ps)
+    cache = run("prefill", admit)
+    for off, clen in ((0, 16), (16, 16), (32, 5)):
+        t = torch.zeros(1, 16, dtype=torch.long, device=dev)
+        t[0, :clen] = toks[1, off:off + clen]
+        cache = run("chunk", lambda t=t, off=off, clen=clen: lm.prefill_chunk(
+            tree, cache, t, cfg, offset=off, chunk_len=clen,
+            pages=tables[1:2]))
+    lengths = torch.tensor([11, 37], dtype=torch.int32, device=dev)
+    for i in range(3):
+        cache = run("step", lambda i=i: lm.decode_step(
+            tree, cache, toks[:, 40 + i:41 + i], lengths + i, cfg,
+            pages=tables))
+    lengths = lengths + 3
+    panel = toks[:, 50:54]
+    clen = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    lg, st = lm.verify_states(tree, cache, panel, cfg, offset=lengths,
+                              chunk_len=clen, pages=tables)
+    out.append(lg)
+    cache = lm.insert_verify(cfg, cache, st, pages=tables, offset=lengths,
+                             n_keep=torch.tensor([3, 2], device=dev))
+    lengths = lengths + torch.tensor([3, 2], dtype=torch.int32, device=dev)
+    cache = lm.cow_copy(cache, 1, 35)
+    tables[0, 1] = 35
+    for i in range(2):
+        cache = run("step", lambda i=i: lm.decode_step(
+            tree, cache, toks[:, 60 + i:61 + i], lengths + i, cfg,
+            pages=tables))
+    return out, counts, cache
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma3-27b"])
+def test_paged_serving_on_kernels(dev, arch):
+    """The paged serving core on the reduced configs (norm gains
+    jittered) on the kernels against the plain path on the card, each
+    with its own cache, on the schedule of :func:`_paged_schedule`: the
+    logits of every call within 1e-3 and every pool leaf after it; the
+    bucketed prefill launches what a dense prefill of its 16 rows does
+    (4 L + 1 matmuls, L attention), a chunk and a step no attention, the
+    norms split where their design drops the prologue."""
+    cfg = get_reduced(arch)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
+                             generator=g)
+    with torch.no_grad():
+        tree = model.params.tree()
+        for norm in [blk[n] for stage in tree["stages"]
+                     for blk in stage["stacked"].values()
+                     for n in ("norm1", "norm2")] + [tree["final_norm"]]:
+            for t in norm.values():
+                t.add_(0.1 * torch.randn(t.shape, generator=g).to(dev))
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=g).to(dev)
+    with torch.no_grad():
+        got, counts, cache = _paged_schedule(model, toks, dev)
+        with runtime.use_impl("ref"):
+            want, _, want_cache = _paged_schedule(model, toks, dev)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-3)
+    for a, b in zip(_tensors(cache), _tensors(want_cache)):
+        _close(a, b, 1e-3)
+    L = cfg.n_layers
+
+    def norms(rows):
+        return 1 + (0 if rm.norm_prologue_fits(rows, cfg.d_model,
+                                               torch.float32) else 2 * L)
+    want_counts = {"prefill": [4 * L + 1, L, norms(16)],
+                   "chunk": [4 * L + 1, 0, norms(16)],
+                   "step": [4 * L + 1, 0, norms(2)]}
+    for kind, c in counts:
+        assert c == want_counts[kind], (kind, c)

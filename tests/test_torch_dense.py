@@ -453,16 +453,8 @@ def test_configs_match_jax():
 
 def test_unported_attention_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP.md item:
-    paged pools, the chunked-prefill and speculative-verify modes,
     M-RoPE, and the MoE and mamba2 architectures of the registry."""
     cfg = get_reduced("deepseek-7b")
-    x = torch.zeros(1, 4, 1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention.chunked_attention(x, x, x, pages=torch.zeros(1, 1))
-    for mode in ("chunk", "verify"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            blocks.apply_block(cfg.stages()[0].body[0], {}, x, cfg=cfg,
-                               mode=mode)
     mrope = dataclasses.replace(cfg, rope="mrope")
     q = torch.zeros(1, 3, 4, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

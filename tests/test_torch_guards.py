@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.models.blocks, repro_torch.models.mlp, "
         "repro_torch.models.rope, repro_torch.configs.deepseek_7b, "
         "repro_torch.configs.granite_20b, "
-        "repro_torch.configs.internlm2_20b, repro_torch.launch.profile\n"
+        "repro_torch.configs.internlm2_20b, repro_torch.launch.profile, "
+        "repro_torch.serve.paging, repro_torch.serve.sampling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -113,6 +114,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         lm.LanguageModel(dense)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_cache(dense, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_paged_cache(dense, 1, 8)
     model = lm.LanguageModel(dense, device="cpu")
     assert model.greedy(torch.zeros(1, 3, dtype=torch.long), 2).shape == (
         1, 2)
