@@ -56,7 +56,11 @@ Phases, each printing its lines:
    each layer on the plain bf16 path's input against the same layer in
    fp32 (beside a control in float8_e5m2), and at full depth as readings
    (and, for scale, the plain bf16 prefill against the plain fp32 one);
-   prefill and decode tokens/s;
+   prefill and decode tokens/s; then the serving engine
+   (``serve/engine.py``, :func:`serve_engine`) in fp32 on 4 slots at
+   exact lengths: 4 requests of 97, 333, 64 and 200 tokens, 16 new
+   tokens each, every call 321 / 0 / 97 / 32 launches (the engine's
+   path through WKV), every stream held to its dense stream;
 9. deepseek-7b at full width and depth (30 layers, d 4096, jittered
    norms): 4 prompts of 512 tokens, then 32 greedy decode steps, then 1
    prompt of 333 tokens with 8 steps, in fp32 teacher-forced on the
@@ -85,7 +89,26 @@ Phases, each printing its lines:
    in bf16 (``paged_rates``) paged against dense decode tokens/s at B=4
    after 512 tokens, the profile of a paged step and of a chunk, and
    the 900-token prompt chunked at 256 against its one-shot prefill in
-   bucket 1024;
+   bucket 1024; then the serving engine as a user drives it (submit,
+   ``run``; :func:`serve_engine`) in fp32 on 4 slots (max_len 1024,
+   pages of 16, chunks of 256, the prefix cache, speculation k=3): the
+   six requests, one sharing the 700-token prompt's first 520 tokens (a
+   prefix hit ending mid-page: a copy-on-write) and one of 200 whose
+   tail repeats an earlier 24-token span, 32 tokens each; every call's
+   launches exact (as above, the inserts none), every stream equal to
+   its dense stream up to a near-tie, the pool conserved, the shapes
+   within ``n_buckets + n_chunk_shapes + 1 + len(spec_ladder(3))``,
+   prefix hits, copies on write, verify steps and accepted drafts all
+   seen; the run under ``torch.cuda.set_sync_debug_mode("warn")``,
+   whose warnings must be the engine's own reads (``Engine._fetch``):
+   one after each decode step, verify step, admission and final chunk,
+   none after an intermediate chunk or an insert; then four requests
+   under the fault plan ``alloc@2,nan@4.1,exc@6`` (no speculation): the
+   poisoned slot's request failed, one recovery from the injected
+   exception only, the others exact; in bf16, the engine's decode
+   tokens/s at B=4 after 512 against the bare paged loop's (its host
+   cost a step), TTFT and inter-token latency p50 / p95, and accepted
+   tokens a slot-step of the repeated-span request;
 10. gemma3-27b at full width (jittered norms): 8 layers (one 5:1 group
    and the 2-layer local tail) in fp32, 2 prompts of 2048 tokens then 16
    greedy steps and 1 prompt of 1020 then 12 (its ring wraps from the
@@ -105,7 +128,11 @@ Phases, each printing its lines:
    33 / 0 / 17 / 0 a chunk, verify and step) and at 62 bf16 layers
    (249 / 62 / 125 / 0, 249 / 0 / 125 / 0; logits and pool rows within
    the bf16 tolerance 3e-2), and the bf16 readings at B=2 after 1024
-   tokens and for the 1500-token prompt chunked at 512; whisper-base at
+   tokens and for the 1500-token prompt chunked at 512; the serving
+   engine on the same two requests at both depths (2 slots, max_len
+   2048, chunks of 512, speculation k=3; the prefix cache asked for and
+   left out, as a windowed arch opts out), held as for deepseek-7b;
+   whisper-base at
    full width and depth on seeded frames (B=4 x 1500 x 512): the
    encoder's launches, 4 prompts of 64 tokens then 32 steps and 1 of 16
    then 8, fp32 teacher-forced (logits, picks,
@@ -383,6 +410,8 @@ LAUNCHES = {
     "gemma3-27b/8 verify": (33, 0, 17, 0),
     "gemma3-27b chunk": (249, 0, 125, 0),
     "gemma3-27b verify": (249, 0, 125, 0),
+    # the engine's RWKV6-3B calls: an exact-length prefill and a step
+    "rwkv6-3b call": (321, 0, 97, 32),
 }
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 
@@ -1862,6 +1891,9 @@ def rwkv_phase(smi):
                                     LOGIT_TOL, counts),
            "fp32_b1": check_serving("rwkv-fp32", model, prompt1, 8,
                                     LOGIT_TOL, counts)}
+    if counts != dict(zip(REPLACES, LAUNCHES["rwkv6-3b call"])):
+        raise AssertionError(f"rwkv: launches {counts} restated")
+    out["engine_fp32"] = engine_phase_rwkv(model, gen, LOGIT_TOL)
     model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
                                device="cuda")
     # at full depth bf16's rounding, carried through 32 layers, reads
@@ -2397,6 +2429,444 @@ def paged_rates(phase, model, prompts, long_prompt, *, chunk, max_len,
     return out
 
 
+# ------------------------------ the serving engine ----------------------
+
+
+def agree_dense(phase, rid, got, oracle):
+    """How many leading tokens of a served stream equal the dense
+    stream's (``dense_oracle``); a difference before the dense stream's
+    first near-tie raises (the rule of ``PagedServing.agree``)."""
+    want = oracle["tokens"]
+    j = next((t for t, (a, b) in enumerate(zip(got, want)) if a != b),
+             len(got))
+    if j < len(got) and not any(oracle["ties"][:j + 1]):
+        raise AssertionError(f"{phase}: request {rid} leaves the dense "
+                             f"stream at token {j} before a near-tie")
+    return j
+
+
+ENGINE_CALLS = {"_admit": "prefill", "_chunk": "chunk", "_step": "step",
+                "_spec": "verify", "_insert_accepted": "insert_verify"}
+
+
+def serve_engine(phase, model, prompts, oracles, *, want, max_new,
+                 path=("rowwise_matmul", "flash_attention", "layernorm"),
+                 sync_check=True, plan=None, **engine_kw):
+    """Serve ``prompts`` (greedy, ``max_new`` tokens each) through the
+    port's ``serve.engine.Engine`` on the card, as a user would: submit,
+    then ``run``. Every step program the engine calls (``_admit``,
+    ``_chunk``, ``_step``, ``_spec``, ``_insert_accepted``) is wrapped
+    to count its launches, held to ``want`` (by kind, a callable of the
+    call's rows); the launch counts are set to 0 just before ``run`` and
+    read just after: each kernel of ``path`` launched, and no launch
+    outside the calls. With ``sync_check`` the run goes under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising CUDA
+    call warns, and the warnings must be the engine's own reads
+    (``Engine._fetch``, counted in ``device_reads``), one after each
+    decode step, verify step, admission and final chunk and none after
+    an intermediate chunk or an insert. Every stream is held to its
+    dense oracle (``oracles[rid]``, near-tie rule; ``None``: readings),
+    every status must be ``ok`` and no exception may reach the engine's
+    recovery boundary (under a fault ``plan`` the caller holds the
+    statuses, and only the injected faults may reach it). The
+    engine's keyword arguments: those of ``Engine`` and of
+    ``PagingConfig``."""
+    import collections
+    import inspect
+    import linecache
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core.types import PagingConfig
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import paging
+    cfg = model.cfg
+    pkw = {k: engine_kw.pop(k) for k in list(engine_kw)
+           if k in {f.name for f in dataclasses.fields(PagingConfig)}}
+    t0 = time.perf_counter()
+    eng = engine_mod.Engine(model.params.tree(), cfg, eos_id=-1,
+                            device="cuda", paging=PagingConfig(**pkw),
+                            faults=plan, **engine_kw)
+    rows_of = {"_admit": lambda a: a[0].shape[1],
+               "_chunk": lambda a: a[0].shape[1],
+               "_step": lambda a: eng.n_slots,
+               "_spec": lambda a: a[0].numel(),
+               "_insert_accepted": lambda a: None}
+    calls = {kind: [] for kind in ENGINE_CALLS.values()}
+    events = []        # (kind, device reads before, host clock)
+    host_s = {kind: [] for kind in ENGINE_CALLS.values()}
+    read_s = []        # each read's wait for the card, host clock
+
+    def wrap(name):
+        orig = getattr(eng, name)
+
+        def call(*args, **kw):
+            kind = ENGINE_CALLS[name]
+            events.append((kind, eng.device_reads, time.perf_counter()))
+            before = {n: k.launches for n, k in launches().items()}
+            t = time.perf_counter()
+            out = orig(*args, **kw)
+            host_s[kind].append(time.perf_counter() - t)
+            got = {n: k.launches - before[n] for n, k in launches().items()}
+            w = want[kind]
+            w = w(rows_of[name](args)) if callable(w) else w
+            calls[kind].append(got)
+            if got != w:
+                raise AssertionError(f"{phase}: engine {kind} launches {got},"
+                                     f" want {w}")
+            return out
+        setattr(eng, name, call)
+    for name in ENGINE_CALLS:
+        wrap(name)
+    fetch = eng._fetch
+
+    def timed_fetch(*values):
+        t = time.perf_counter()
+        out = fetch(*values)
+        read_s.append(time.perf_counter() - t)
+        return out
+    eng._fetch = timed_fetch
+    for rid, p in enumerate(prompts):
+        eng.submit(engine_mod.Request(rid=rid, prompt=p.cpu().numpy(),
+                                      max_new=max_new))
+    torch.cuda.synchronize()
+    for k in launches().values():
+        k.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("warn")
+        # switching the mode on may itself warn, once in a process
+        n0 = len(caught)
+        try:
+            t_run = time.perf_counter()
+            done = sorted(eng.run(), key=lambda c: c.rid)
+            run_s = time.perf_counter() - t_run
+            caught = caught[n0:]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    totals = {name: k.launches for name, k in launches().items()}
+    # the reads that followed each call, up to the next call (or the end)
+    ends = [e[1] for e in events[1:]] + [eng.device_reads]
+    reads = collections.defaultdict(collections.Counter)
+    for (kind, r0, _), r1 in zip(events, ends):
+        reads[kind][r1 - r0] += 1
+    injected = ("StepFault(", "AllocFault(") if plan else ()
+    if any(not e.startswith(injected) for e in eng.errors):
+        raise AssertionError(f"{phase}: the engine recovered from a real "
+                             f"exception: {eng.errors}")
+    eng.pool.check_conservation()
+    if sorted(c.rid for c in done) != list(range(len(prompts))):
+        raise AssertionError(f"{phase}: completions "
+                             f"{[c.rid for c in done]}")
+    same = {}
+    for c in done:
+        if c.status == "ok" and oracles is not None:
+            same[c.rid] = agree_dense(phase, c.rid, c.tokens,
+                                      oracles[c.rid]) / len(c.tokens)
+    if plan is None and any(c.status != "ok" for c in done):
+        raise AssertionError(f"{phase}: statuses "
+                             f"{[(c.rid, c.status) for c in done]}")
+    read_rule = {"step": {1}, "verify": {1}, "prefill": {1},
+                 "chunk": {0, 1}, "insert_verify": {0}}
+    bad_reads = {k: dict(v) for k, v in reads.items()
+                 if not set(v) <= read_rule[k]}
+    if bad_reads:
+        raise AssertionError(f"{phase}: device reads after each call "
+                             f"{bad_reads}")
+    syncs, source = collections.Counter(), {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{Path(w.filename).name}:{w.lineno}"
+            syncs[at] += 1
+            source[at] = linecache.getline(w.filename, w.lineno).strip()
+    lines, first = inspect.getsourcelines(engine_mod.Engine._fetch)
+    fetch_at = {f"engine.py:{first + i}" for i in range(len(lines))}
+    if sync_check and (sum(syncs.values()) != eng.device_reads
+                       or not set(syncs) <= fetch_at):
+        raise AssertionError(f"{phase}: synchronising calls {dict(syncs)} "
+                             f"({source}), the engine read the device "
+                             f"{eng.device_reads} times at {fetch_at}")
+    summed = {k: sum(c[k] for v in calls.values() for c in v)
+              for k in totals}
+    missing = [k for k in path if not totals[k]]
+    if missing or summed != totals:
+        raise AssertionError(f"{phase}: the engine's run launched "
+                             f"{totals}, its calls {summed}: none of "
+                             f"{missing}")
+    counts = eng.compile_counts()
+    n_chunk_shapes = (len([b for b in eng.buckets if b <= eng.prefill_chunk])
+                      if eng.prefill_chunk else 0)
+    bound = ((len(eng.buckets) if eng.buckets else len(prompts))
+             + n_chunk_shapes + 1 + len(paging.spec_ladder(eng.spec_k)))
+    if sum(counts.values()) > bound:
+        raise AssertionError(f"{phase}: shapes {counts} past the bound "
+                             f"{bound}")
+    steps = [e[2] for e in events if e[0] == "step"]
+    res = {"statuses": {c.rid: c.status for c in done},
+           "tokens": {c.rid: c.tokens for c in done},
+           "tokens_equal_dense": same, "stats": dict(eng.stats),
+           "compile_counts": counts, "shape_bound": bound,
+           "calls": {k: len(v) for k, v in calls.items()},
+           "launches": {k: v[0] for k, v in calls.items() if v},
+           "run_launches": totals,
+           "reads_after": {k: dict(v) for k, v in reads.items()},
+           "device_reads": eng.device_reads, "syncs": dict(syncs),
+           "errors": list(eng.errors),
+           "prefix_cache": eng.prefix_cache is not None,
+           "ttft_s": [c.ttft_s for c in done],
+           "itl_s": [g for c in done for g in c.itl_s],
+           "step_gaps_s": list(np.diff(steps)), "host_s": host_s,
+           "read_s": read_s, "run_s": run_s,
+           "seconds": time.perf_counter() - t0}
+    say(phase, f"engine: {len(prompts)} requests (prompts "
+        f"{[p.shape[0] for p in prompts]}, {max_new} new tokens) on "
+        f"{eng.n_slots} slots of pages of {eng.page_size}, chunk "
+        f"{eng.prefill_chunk}, prefix cache "
+        f"{'on' if res['prefix_cache'] else 'off'}, speculation k="
+        f"{eng.spec_k}{', faults ' + plan.describe() if plan else ''}: "
+        f"statuses {sorted(collections.Counter(res['statuses'].values()).items())}; "
+        f"calls {res['calls']}, launches a call {res['launches']}, in the "
+        f"run {totals}; device reads {eng.device_reads} ("
+        + ("synchronising calls " + ", ".join(
+            f"{k} x{v}" for k, v in syncs.items())
+           if sync_check else "sync debug off")
+        + f"), reads after each call {res['reads_after']}; shapes {counts} "
+        f"(bound {bound}); stats " + ", ".join(
+            f"{k} {v}" for k, v in eng.stats.items() if v)
+        + f"; tokens equal to the dense stream "
+        f"{[round(same[r], 3) for r in sorted(same)]}; recovered from "
+        f"{eng.errors}; {res['run_s']:.1f} s run, "
+        f"{res['seconds']:.1f} s in all")
+    return res
+
+
+def engine_requests(reqs, gen, vocab):
+    """deepseek-7b's eight engine requests: PR 19's six paged requests,
+    then one sharing the 700-token prompt's first 520 tokens (a prefix
+    hit ending mid-page: a copy-on-write of the partial page) and one of
+    200 whose last 24 tokens repeat an earlier 24-token span (so the
+    drafter proposes from the prompt). The shared one comes fifth, so
+    the 700-token prompt's pages are in the tree when it admits."""
+    import torch
+    share = torch.cat([reqs[3][:520], torch.randint(
+        0, vocab, (80,), generator=gen, device="cuda")])
+    head = torch.randint(0, vocab, (176,), generator=gen, device="cuda")
+    rep = torch.cat([head, head[100:124]])
+    return reqs[:4] + [share] + reqs[4:] + [rep]
+
+
+def engine_phase_dense(model, prompts, oracles, tol):
+    """deepseek-7b's engine runs in fp32 (phase 9): the eight requests of
+    :func:`engine_requests` (``oracles``: the dense streams of PR 19's
+    six) with the prefix cache and speculation on; then four under the
+    fault plan ``alloc@2,nan@4.1,exc@6``."""
+    import torch
+    from repro_torch.serve import faults
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    oracles = oracles[:4] + [dense_oracle(model, prompts[4], 32, tol)] \
+        + oracles[4:] + [dense_oracle(model, prompts[7], 32, tol)]
+    for o in oracles:
+        o.pop("cache", None)
+    oracle_s = time.perf_counter() - t0
+    want = paged_launches("deepseek-7b", cfg, torch.float32)
+    kw = dict(n_slots=4, max_len=1024, page_size=16, prefill_chunk=256,
+              prefix_cache=True, speculate_k=3)
+    out = {"oracle_s": oracle_s, "main": serve_engine(
+        "dense-engine", model, prompts, oracles, want=want, max_new=32,
+        **kw)}
+    stats = out["main"]["stats"]
+    short = [k for k in ("prefix_hits", "cow_copies", "spec_steps",
+                         "spec_accepted") if stats[k] < 1]
+    calls = out["main"]["calls"]
+    if short or not all(calls[k] for k in ("prefill", "chunk", "step",
+                                            "verify")):
+        raise AssertionError(f"dense-engine: stats {stats}, calls {calls}")
+    # the fault plan: the slot poisoned at clock 4 (rid 1, admitted at
+    # clock 0 and 8 tokens long: no speculation, so it is still decoding)
+    # ends failed, one recovery, the others exact
+    sel = [0, 5, 1, 7]          # 97, 64, 333 tokens and the repeated span
+    plan = faults.parse_plan("alloc@2,nan@4.1,exc@6")
+    res = serve_engine("dense-engine-faults", model,
+                       [prompts[i] for i in sel],
+                       [oracles[i] for i in sel], want=want, max_new=8,
+                       plan=plan, **dict(kw, speculate_k=0))
+    failed = [r for r, s in res["statuses"].items() if s == "failed"]
+    ok = [r for r, s in res["statuses"].items() if s == "ok"]
+    if (failed != [1] or len(ok) != 3 or res["stats"]["recoveries"] != 1
+            or res["stats"]["nan_quarantined"] != 1):
+        raise AssertionError(f"dense-engine-faults: statuses "
+                             f"{res['statuses']}, stats {res['stats']}")
+    out["faults"] = res
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def engine_readings(model16, prompts, rep, rates, smi):
+    """bf16 deepseek-7b readings through the engine: the B=4 x 512
+    prompts with no speculation (decode tokens/s from the host clock
+    between consecutive decode steps once every slot decodes), against
+    the bare paged decode loop at the same batch and lengths timed in
+    turns with it (bare, engine, engine, bare: the gap is the engine's
+    host cost a step) and against ``paged_rates``' bare loop (timed
+    earlier, before that function's profiler sessions); TTFT and
+    inter-token latency p50 / p95 of the completions; then the
+    repeated-span request alone with speculation (accepted tokens per
+    slot-step)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import paging
+    cfg, tree = model16.cfg, model16.params.tree()
+    want = paged_launches("deepseek-7b", cfg, torch.bfloat16)
+    # 512-token prompts chunk at 256: no attention launch
+    kw = dict(n_slots=4, max_len=1024, page_size=16, prefill_chunk=256,
+              prefix_cache=True, path=("rowwise_matmul", "layernorm"))
+    b, s = prompts.shape
+    steps = 8
+    # the bare loop's cache: the prompts inserted one-shot into a pool
+    with torch.no_grad():
+        pool = paging.PagePool(b * 64, 16, b, 64)
+        cache = lm.init_paged_cache(cfg, b, 1024, page_size=16,
+                                    dtype=torch.bfloat16, device="cuda")
+        for r in range(b):
+            pool.admit(r, s + steps)
+            pool.ensure(r, s + steps)
+            _, st = lm.prefill_states(tree, prompts[r:r + 1], cfg,
+                                      last_pos=s)
+            cache = lm.insert_prefill(cfg, cache, st, slot=r,
+                                      pages=pool.tables[r], plen=s,
+                                      page_size=16)
+    tables = torch.from_numpy(pool.tables).to("cuda")
+    lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+    def bare_ms():
+        """ms a step of the bare paged loop (argmax fed back, no read)."""
+        tok = prompts[:, -1:]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lg, _ = lm.decode_step(tree, cache, tok, lengths + i, cfg,
+                                       pages=tables)
+                tok = lg.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    # the model's own share of each step's enqueue: lm.decode_step timed
+    # on the host, as the bare loop calls it
+    decode_step, model_s = lm.decode_step, []
+
+    def timed_decode_step(*args, **kwargs):
+        t = time.perf_counter()
+        out = decode_step(*args, **kwargs)
+        model_s.append(time.perf_counter() - t)
+        return out
+
+    def engine_run():
+        lm.decode_step = timed_decode_step
+        try:
+            return serve_engine("dense-engine-bf16", model16, list(prompts),
+                                None, want=want, max_new=steps + 1,
+                                sync_check=False, **kw)
+        finally:
+            lm.decode_step = decode_step
+    bare_ms()                                             # warm-up
+    bare = [bare_ms()]
+    runs = [engine_run(), engine_run()]
+    bare.append(bare_ms())
+    res = runs[0]
+    gaps = [g for r in runs for g in r["step_gaps_s"][-(steps - 1):]]
+    gap_ms = 1e3 * float(np.median(gaps))
+    # a step's gap: its launches enqueued, its one read's wait, the rest
+    enqueue_ms = 1e3 * float(np.median(
+        [t for r in runs for t in r["host_s"]["step"]]))
+    wait_ms = 1e3 * float(np.median(
+        [t for r in runs for t in r["read_s"][-steps:]]))
+    model_ms = 1e3 * float(np.median(model_s))
+    bare_now = float(np.mean(bare))
+    engine_tps = b / gap_ms * 1e3
+    bare_tps = b / bare_now * 1e3
+    host_ms = gap_ms - bare_now
+    early_tps = rates["decode_tokens_per_s"]["paged"]
+    spec = serve_engine("dense-engine-bf16-spec", model16, [rep], None,
+                        want=want, max_new=32, sync_check=False,
+                        speculate_k=3, **kw)
+    st = spec["stats"]
+    acc = st["spec_accepted"] / max(st["spec_slot_steps"], 1)
+    q = {k: [float(np.percentile([x for r in runs for x in r[k]], p)) * 1e3
+             for p in (50, 95)] for k in ("ttft_s", "itl_s")}
+    out = {"engine_decode_tokens_per_s": engine_tps,
+           "bare_paged_decode_tokens_per_s": bare_tps,
+           "bare_step_ms_in_turns": bare,
+           "paged_rates_decode_tokens_per_s": early_tps,
+           "host_ms_per_step": host_ms, "step_gap_ms": gap_ms,
+           "step_enqueue_ms": enqueue_ms, "step_read_wait_ms": wait_ms,
+           "step_decode_step_ms": model_ms,
+           "ttft_ms_p50_p95": q["ttft_s"],
+           "itl_ms_p50_p95": q["itl_s"],
+           "accepted_per_slot_step": acc, "spec_stats": st,
+           "runs": {"decode": res, "spec": spec}}
+    say("throughput", f"deepseek-7b bf16 engine decode tokens/s at B=4 "
+        f"after 512 tokens {engine_tps:.2f} (median of {len(gaps)} step "
+        f"gaps over two runs, host clock) against the bare paged loop's "
+        f"{bare_tps:.2f} (timed in turns: bare, engine, engine, bare; "
+        f"{bare[0]:.2f} / {bare[1]:.2f} ms a step) and paged_rates' "
+        f"{early_tps:.2f} (before its profiler sessions): the engine's host "
+        f"cost {host_ms:.2f} ms a step (a step gap of {gap_ms:.2f} ms: "
+        f"{enqueue_ms:.2f} ms enqueuing its launches, {model_ms:.2f} ms of "
+        f"them in lm.decode_step, {wait_ms:.2f} ms waiting on its read, "
+        f"the rest the host's bookkeeping); TTFT p50 / p95 "
+        f"{q['ttft_s'][0]:.1f} / {q['ttft_s'][1]:.1f} ms, inter-token "
+        f"{q['itl_s'][0]:.1f} / {q['itl_s'][1]:.1f} ms (4 requests of 512 "
+        f"submitted at once, chunked at 256); the repeated-span request "
+        f"with speculation k=3: {acc:.3f} accepted tokens a slot-step "
+        f"({st['spec_accepted']} of {st['spec_drafted']} drafted in "
+        f"{st['spec_steps']} verify steps) | {smi}")
+    return out
+
+
+def engine_phase_gemma(phase, model, reqs, oracles, want):
+    """gemma3-27b's engine run (phase 10): the 1500-token prompt chunked
+    at 512 across the 1024 window and the 300-token one, 17 tokens each,
+    on 2 slots; ``prefix_cache=True`` must leave no prefix cache (a
+    windowed arch opts out)."""
+    for o in oracles:
+        o.pop("cache", None)
+    res = serve_engine(phase, model, reqs, oracles, want=want, max_new=17,
+                       n_slots=2, max_len=2048, page_size=16,
+                       prefill_chunk=512, prefix_cache=True, speculate_k=3)
+    if res["prefix_cache"]:
+        raise AssertionError(f"{phase}: a windowed arch kept the prefix "
+                             "cache")
+    return res
+
+
+def engine_phase_rwkv(model, gen, tol):
+    """RWKV6-3B's engine run in fp32 (phase 8): 4 requests of 97, 333, 64
+    and 200 tokens on 4 slots at exact lengths, 16 tokens each, every
+    call 321 / 0 / 97 / 32 launches: the engine's path through WKV."""
+    import torch
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             device="cuda") for n in (97, 333, 64, 200)]
+    oracles = [dense_oracle(model, p, 16, tol) for p in prompts]
+    for o in oracles:
+        o.pop("cache")
+    oracle_s = time.perf_counter() - t0
+    every = dict(zip(REPLACES, LAUNCHES["rwkv6-3b call"]))
+    res = serve_engine("rwkv-engine", model, prompts, oracles,
+                       want=dict.fromkeys(ENGINE_CALLS.values(), every),
+                       max_new=16, path=("rowwise_matmul", "layernorm",
+                                         "wkv"),
+                       n_slots=4, max_len=512, page_size=16)
+    res["oracle_s"] = oracle_s
+    return res
+
+
 # ------------------------------ deepseek-7b -----------------------------
 
 
@@ -2519,14 +2989,25 @@ def dense_phase(smi):
     # then the bf16 readings
     reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
             for n in (97, 333, 512, 700, 64, 900)]
-    out["paged_fp32"] = PagedServing(
+    paged = PagedServing(
         "dense-paged", model, reqs, chunked={3, 5}, slots=4, page_size=16,
         max_len=1024, chunk=256, n_new=32, tol=LOGIT_TOL,
         want=paged_launches("deepseek-7b", cfg, torch.float32),
-        accept=(3, 2, 1, 0), cow=True).run()
+        accept=(3, 2, 1, 0), cow=True)
+    out["paged_fp32"] = paged.run()
+    # the serving engine on the same requests and more, the paged
+    # replay's dense streams reused
+    ereqs = engine_requests(reqs, gen, cfg.vocab)
+    oracles = paged.oracle
+    del paged
+    out["engine_fp32"] = engine_phase_dense(model, ereqs, oracles,
+                                            LOGIT_TOL)
+    del oracles
     out["paged_bf16"] = paged_rates("bf16", model16, prompts, reqs[5],
                                     chunk=256, max_len=1024, page_size=16,
                                     smi=smi)
+    out["engine_bf16"] = engine_readings(model16, prompts, ereqs[7],
+                                         out["paged_bf16"], smi)
     out.update(rates=rates, peak_memory_gib=peak_gb,
                seconds=time.perf_counter() - t_phase)
     say("throughput", "deepseek-7b prefill tokens/s at B=4 x 512: "
@@ -2680,10 +3161,16 @@ def gemma_phase(smi):
             for n in (1500, 300)]
     paged = dict(chunked={0}, slots=2, page_size=16, max_len=2048, chunk=512,
                  n_new=17, accept=(3, 1))
-    out["paged_fp32_8_layers"] = PagedServing(
+    served = PagedServing(
         "gemma-paged-fp32", model, reqs, tol=LOGIT_TOL,
-        want=paged_launches("gemma3-27b/8", cfg, f32), **paged).run()
-    del model
+        want=paged_launches("gemma3-27b/8", cfg, f32), **paged)
+    out["paged_fp32_8_layers"] = served.run()
+    oracles = served.oracle
+    del served
+    out["engine_fp32_8_layers"] = engine_phase_gemma(
+        "gemma-engine-fp32", model, reqs, oracles,
+        paged_launches("gemma3-27b/8", cfg, f32))
+    del model, oracles
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2719,9 +3206,16 @@ def gemma_phase(smi):
         rates["plain_bf16"] = lm_rates(model16, prompts)
     out["skinny_norm_ab"] = skinny_norm_ab(
         "gemma3-27b", {"bf16, 62 layers": model16}, prompts, smi)
-    out["paged_bf16"] = PagedServing(
+    served = PagedServing(
         "gemma-paged-bf16", model16, reqs, tol=BF16_TOL,
-        want=paged_launches("gemma3-27b", full, bf), **paged).run()
+        want=paged_launches("gemma3-27b", full, bf), **paged)
+    out["paged_bf16"] = served.run()
+    oracles = served.oracle
+    del served
+    out["engine_bf16"] = engine_phase_gemma(
+        "gemma-engine-bf16", model16, reqs, oracles,
+        paged_launches("gemma3-27b", full, bf))
+    del oracles
     out["paged_rates_bf16"] = paged_rates(
         "bf16, 62 layers", model16, prompts[:, :1024], reqs[0], chunk=512,
         max_len=2048, page_size=16, smi=smi)

@@ -12,11 +12,16 @@ The **pipeline-fusion** switch: when on (default), the models fuse the
 pre-norm prologue, multi-head projections and residual/gating
 epilogues into single row-wise kernel launches; when off they compose
 the per-op kernels (separate norms, dense window scores).
+
+And the device rules of the entry points: :func:`resolve_device` (the
+card unless the caller asks for the CPU) and :func:`to_device` (host
+values onto the card without waiting for it).
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 _IMPL = "auto"
@@ -75,3 +80,17 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return device
+
+
+def to_device(value, device) -> torch.Tensor:
+    """``value`` as a tensor on ``device``. A tensor moves as ``.to``
+    moves it; a host value (an int, a sequence, a numpy array) is
+    copied once into pinned memory and sent with a non-blocking copy on
+    a CUDA device, so the call never waits for the card (a plain
+    ``torch.as_tensor(value, device="cuda")`` synchronises)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    host = torch.from_numpy(np.array(value))
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host

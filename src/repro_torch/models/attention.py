@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import quant, runtime
@@ -462,7 +463,8 @@ def _merge_partials(out_a, lse_a, out_b, lse_b):
     return out.reshape(b, hq, sq, hd).to(out_a.dtype)
 
 
-def chunk_targets(offset, chunk_len, pages, sc: int, windows, page_size):
+def chunk_targets(offset, chunk_len, pages, sc: int, windows, page_size,
+                  device=None):
     """Where a panel of ``sc`` rows per table row lands in the pool, for
     each window of ``windows``: ``{window: (bi, si, pid, off)}``, the
     panel rows ``(bi, si)`` that are written and their physical page and
@@ -476,9 +478,18 @@ def chunk_targets(offset, chunk_len, pages, sc: int, windows, page_size):
     scatter drops them; a torch scatter has no such mode, so the rows to
     keep are listed instead. The mask depends only on the offsets,
     lengths and windows, the same for every layer: a caller builds the
-    targets once and hands each layer its window's, for one host read
-    of the mask a call. ``offset`` and ``chunk_len``: int or (B,)."""
-    pages = pages.long()
+    targets once and hands each layer its window's. ``offset`` and
+    ``chunk_len``: int or (B,); ``pages``: (B, n_logical).
+
+    Host operands (ints and numpy arrays, as the serving engine holds
+    them) build the mask in numpy and send the index tensors to
+    ``device`` with non-blocking copies: no device read. If any operand
+    is a tensor, the mask is built on its device and read back once."""
+    if not any(isinstance(a, torch.Tensor)
+               for a in (offset, chunk_len, pages)):
+        return _host_chunk_targets(offset, chunk_len, pages, sc, windows,
+                                   page_size, device)
+    pages = torch.as_tensor(pages).long()
     b, n_log = pages.shape
     dev = pages.device
     offset = torch.as_tensor(offset, device=dev).long().expand(b)
@@ -496,6 +507,28 @@ def chunk_targets(offset, chunk_len, pages, sc: int, windows, page_size):
         r = pos[bi, si] % w if w else pos[bi, si]
         lp = torch.clamp(r // page_size, 0, n_log - 1)
         out[w] = (bi, si, pages[bi, lp], r % page_size)
+    return out
+
+
+def _host_chunk_targets(offset, chunk_len, pages, sc, windows, page_size,
+                        device):
+    """:func:`chunk_targets` of host operands, in numpy: the same rows in
+    the same order, sent to ``device``."""
+    pages = np.asarray(pages, np.int64)
+    b, n_log = pages.shape
+    offset = np.broadcast_to(np.asarray(offset, np.int64), (b,))
+    clen = np.broadcast_to(np.asarray(chunk_len, np.int64), (b,))
+    i = np.arange(sc)
+    pos = offset[:, None] + i[None]
+    real = i[None] < clen[:, None]
+    out = {}
+    for w in windows:
+        mask = real & (pos >= (offset + clen)[:, None] - w) if w else real
+        bi, si = np.nonzero(mask)
+        r = pos[bi, si] % w if w else pos[bi, si]
+        lp = np.clip(r // page_size, 0, n_log - 1)
+        out[w] = tuple(runtime.to_device(a, device or "cpu") for a in
+                       (bi, si, pages[bi, lp], r % page_size))
     return out
 
 
@@ -518,7 +551,8 @@ def write_chunk_pages(pool: PagedKVCache, k_new, v_new, offset, chunk_len,
     a shared prefix page is remapped by :func:`copy_page` first."""
     if targets is None:
         targets = chunk_targets(offset, chunk_len, pages, k_new.shape[1],
-                                (window,), pool.k.shape[1])[window]
+                                (window,), pool.k.shape[1],
+                                device=pool.k.device)[window]
     bi, si, pid, off = targets
     pool.k[pid, off] = k_new[bi, si].to(pool.k.dtype)
     pool.v[pid, off] = v_new[bi, si].to(pool.v.dtype)

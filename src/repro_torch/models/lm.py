@@ -416,7 +416,7 @@ def prefill_states(params, tokens, cfg: ModelConfig, *,
     if last_pos is None:
         xl = x[:, -1:]
     else:
-        idx = torch.as_tensor(last_pos, device=x.device).long().expand(b) - 1
+        idx = runtime.to_device(last_pos, x.device).long().expand(b) - 1
         xl = x[torch.arange(b, device=x.device), idx][:, None]
     logits = unembed(params, xl, cfg)
     return logits[:, 0], states
@@ -502,12 +502,16 @@ def insert_prefill(cfg: ModelConfig, cache, states, *, slot, pages, plen,
 
     One-shot prefill scatters the *whole* prompt, so every granted page
     must be slot-private (refcount 1): a prefix-cache hit takes the
-    chunked path, which starts past the shared pages."""
+    chunked path, which starts past the shared pages. A host ``pages``
+    (numpy) and ``plen`` (int) cost no device read
+    (``attention.chunk_targets``)."""
     pools = _pools(cache)
-    if pools:
-        pages = torch.as_tensor(pages, device=pools[0].k.device)
+    dev = pools[0].k.device if pools else None
+    if isinstance(pages, torch.Tensor) and pools:
+        pages = pages.to(dev)
     return _insert(cfg, cache, states, lambda s: attention.chunk_targets(
-        0, plen, pages[None], s, _windows(cfg), page_size), slot)
+        0, plen, pages[None], s, _windows(cfg), page_size, device=dev),
+        slot)
 
 
 def _panel_positions(x, offset, cfg: ModelConfig):
@@ -534,15 +538,19 @@ def prefill_chunk(params, cache, tokens, cfg: ModelConfig, *, offset,
     ``pages``: (1, max_pages) block table. Returns (next-token logits
     (1, V) at chunk position chunk_len - 1, cache). Only
     causal-attention archs may chunk (``paging.supports_bucketing``);
-    the final chunk's logits are the prompt's first-token logits."""
+    the final chunk's logits are the prompt's first-token logits.
+    Host ``offset`` / ``chunk_len`` (ints) and ``pages`` (numpy), as the
+    engine passes them, cost no device read
+    (``attention.chunk_targets``)."""
     b, s = tokens.shape
     dev = tokens.device
-    pages = pages.long()
-    offset = torch.as_tensor(offset, device=dev).long().expand(b)
-    clen = torch.as_tensor(chunk_len, device=dev).long().expand(b)
-    targets = attention.chunk_targets(offset, clen, pages, s,
+    targets = attention.chunk_targets(offset, chunk_len, pages, s,
                                       _windows(cfg),
-                                      _pools(cache)[0].k.shape[2])
+                                      _pools(cache)[0].k.shape[2],
+                                      device=dev)
+    pages = runtime.to_device(pages, dev).long()
+    offset = runtime.to_device(offset, dev).long().expand(b)
+    clen = runtime.to_device(chunk_len, dev).long().expand(b)
     x = _panel_positions(embed(params, tokens, cfg), offset, cfg)
     x, _, new_cache = _run_stages(params["stages"], cfg.stages(), x,
                                   cfg=cfg, mode="chunk", lengths=offset,
@@ -566,12 +574,13 @@ def verify_states(params, cache, tokens, cfg: ModelConfig, *, offset,
     accepted rows with :func:`insert_verify`."""
     b, _ = tokens.shape
     dev = tokens.device
-    offset = torch.as_tensor(offset, device=dev).expand(b)
-    clen = torch.as_tensor(chunk_len, device=dev).expand(b)
+    offset = runtime.to_device(offset, dev).expand(b)
+    clen = runtime.to_device(chunk_len, dev).expand(b)
     x = _panel_positions(embed(params, tokens, cfg), offset, cfg)
     x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
                                mode="verify", lengths=offset, cache=cache,
-                               pages=pages.long(), chunk_len=clen)
+                               pages=runtime.to_device(pages, dev).long(),
+                               chunk_len=clen)
     return unembed(params, x, cfg), states
 
 
@@ -582,10 +591,14 @@ def insert_verify(cfg: ModelConfig, cache, states, *, pages, offset,
     ``< n_keep[b]`` (per row: the re-scored committed token plus the
     accepted drafts; ``n_keep == 0`` writes nothing — inactive or fully
     rolled-back slots), through the chunked-prefill scatter's targets
-    (including the windowed ring routing), built once for the call."""
-    page_size = _pools(cache)[0].k.shape[2]
+    (including the windowed ring routing), built once for the call. Host
+    ``pages`` / ``offset`` / ``n_keep`` (numpy), as the engine passes
+    them after its one read of the accepted counts, cost no device read
+    (``attention.chunk_targets``)."""
+    pool = _pools(cache)[0].k
     return _insert(cfg, cache, states, lambda s: attention.chunk_targets(
-        offset, n_keep, pages, s, _windows(cfg), page_size))
+        offset, n_keep, pages, s, _windows(cfg), pool.shape[2],
+        device=pool.device))
 
 
 def cow_copy(cache, src, dst):

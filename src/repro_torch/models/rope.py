@@ -31,9 +31,13 @@ def sinusoidal_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
     sinusoidal table, (..., d) fp32: the same formula as the whole table,
     for the rows a caller needs."""
     half = d // 2
-    log_base = torch.log(torch.tensor(10_000.0, dtype=torch.float32))
-    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32)
-                      / (half - 1)).to(positions.device)
+    dev = positions.device
+    # built on the positions' device: a table made on the host and
+    # copied over would make every decode step wait for the card
+    log_base = torch.full((), 10_000.0, dtype=torch.float32,
+                          device=dev).log()
+    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                               device=dev) / (half - 1))
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 

@@ -878,3 +878,57 @@ def test_paged_serving_on_kernels(dev, arch):
                    "step": [4 * L + 1, 0, norms(2)]}
     for kind, c in counts:
         assert c == want_counts[kind], (kind, c)
+
+
+def _engine_run(tree, cfg, device, prompts):
+    """The reduced engine of :func:`test_engine_on_kernels` on
+    ``device``: its completions and its device reads a call."""
+    from repro_torch.core.types import PagingConfig
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.paging import supports_bucketing
+    bucketing = supports_bucketing(cfg)
+    eng = Engine(tree, cfg, n_slots=2, max_len=64, eos_id=-1, device=device,
+                 paging=PagingConfig(page_size=8,
+                                     prefill_chunk=16 if bucketing else 0,
+                                     prefix_cache=bucketing,
+                                     speculate_k=3 if bucketing else 0))
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=8))
+    done = sorted(eng.run(), key=lambda c: c.rid)
+    eng.pool.check_conservation()
+    assert not eng.errors, eng.errors
+    return done, eng
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma3-27b", "rwkv6-3b"])
+def test_engine_on_kernels(dev, arch):
+    """The serving engine at a reduced size on the card (the kernels)
+    against the same engine on the CPU (the plain path), on the same
+    weights and requests (chunked, a prefix hit, speculation; rwkv6 at
+    exact lengths): every status ok on both, every greedy stream equal up
+    to the first near-tie (a top-2 gap of the CPU's dense logits within
+    1e-3 x max(1, max|logit|) at the first differing token)."""
+    cfg = get_reduced(arch)
+    tree = lm.init_lm(cfg, torch.Generator().manual_seed(3), device="cpu",
+                      dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    base = torch.randint(0, cfg.vocab, (40,), generator=g)
+    prompts = [base, torch.randint(0, cfg.vocab, (9,), generator=g),
+               torch.randint(0, cfg.vocab, (3,), generator=g).repeat(11),
+               base.clone()]
+    want, _ = _engine_run(tree, cfg, "cpu", prompts)
+    on_card = lm._tree_map(lambda t: t.to(dev), tree)
+    got, eng = _engine_run(on_card, cfg, dev, prompts)
+    assert eng.device_reads > 0
+    for c, w, p in zip(got, want, prompts):
+        assert c.status == w.status == "ok"
+        if c.tokens == w.tokens:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(c.tokens, w.tokens))
+                 if a != b)
+        with torch.no_grad():
+            stream = torch.cat([p, torch.tensor(w.tokens[:j])])[None]
+            logits = lm.forward(tree, stream, cfg)[0][0, -1, :cfg.vocab]
+        top2 = logits.topk(2).values
+        assert top2[0] - top2[1] <= 1e-3 * max(1.0, logits.abs().max()), (
+            c.rid, j)

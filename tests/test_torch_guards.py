@@ -19,7 +19,9 @@ from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.kernels.wkv import wkv_p
+from repro_torch.launch import serve
 from repro_torch.models import lm, vision
+from repro_torch.serve.engine import Engine, Request
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -41,7 +43,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.models.rope, repro_torch.configs.deepseek_7b, "
         "repro_torch.configs.granite_20b, "
         "repro_torch.configs.internlm2_20b, repro_torch.launch.profile, "
-        "repro_torch.serve.paging, repro_torch.serve.sampling\n"
+        "repro_torch.serve.paging, repro_torch.serve.sampling, "
+        "repro_torch.serve.engine, repro_torch.serve.faults, "
+        "repro_torch.serve.spec, repro_torch.serve.prefix_cache, "
+        "repro_torch.core.block_traffic, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -119,6 +124,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     model = lm.LanguageModel(dense, device="cpu")
     assert model.greedy(torch.zeros(1, 3, dtype=torch.long), 2).shape == (
         1, 2)
+    params = lm.init_lm(dense, torch.Generator().manual_seed(0),
+                        device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(params, dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--requests", "1"])
+    eng = Engine(params, dense, n_slots=1, max_len=16, device="cpu")
+    eng.submit(Request(rid=0, prompt=torch.zeros(3, dtype=torch.long),
+                       max_new=2))
+    assert [c.status for c in eng.run()] == ["ok"]
 
 
 def test_impl_switch_is_auto_or_ref():

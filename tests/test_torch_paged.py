@@ -336,6 +336,36 @@ def test_pool_writes_match_jax(case):
     assert (got.k.numpy() != pk).any()
 
 
+@pytest.mark.parametrize("case", [
+    # (offset, chunk_len, rows, sc, windows): insert_prefill's
+    (0, 11, 1, 16, (0, 16)),
+    # a chunk past the window; per-row verify panels, one writing nothing
+    (33, 16, 1, 16, (0, 16)),
+    ([5, 0, 20], [4, 0, 3], 3, 4, (0, 16)),
+    ([14, 40], [2, 4], 2, 4, (16,)),
+], ids=["prefill", "chunk", "verify", "ring"])
+def test_chunk_targets_host_operands_equal_tensor_operands(case):
+    """``attention.chunk_targets`` of host operands (ints and numpy, as
+    the serving engine passes them: the mask built in numpy, no device
+    read) equals the targets of the same operands as tensors, row for
+    row and in the same order, for every window."""
+    offset, clen, b, sc, windows = case
+    tbl = _table(7, b, MAX_PAGES, b * MAX_PAGES + b)
+    host = attention.chunk_targets(
+        np.asarray(offset) if isinstance(offset, list) else offset,
+        np.asarray(clen) if isinstance(clen, list) else clen, tbl, sc,
+        windows, PS, device="cpu")
+    tens = attention.chunk_targets(torch.as_tensor(offset),
+                                   torch.as_tensor(clen),
+                                   torch.from_numpy(tbl), sc, windows, PS)
+    assert sorted(host) == sorted(tens) == sorted(windows)
+    for w in windows:
+        for h, t in zip(host[w], tens[w]):
+            assert h.device.type == "cpu"
+            np.testing.assert_array_equal(h.numpy(), t.numpy())
+    assert any(len(host[w][0]) for w in windows)
+
+
 # --------------------------- paged attention ----------------------------
 
 
