@@ -138,10 +138,35 @@ Phases, each printing its lines:
    then 8, fp32 teacher-forced (logits, picks,
    self and cross caches), the unfused prefill, bf16 layer by layer
    (encoder and decoder) and as readings; tokens/s;
-11. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+11. zamba2-1.2b at full width and depth (38 layers: 32 Mamba2 and 6
+   repeats of one shared attention block; Mamba2 vectors spread over
+   Mamba2's own init ranges): 4 prompts of 512 tokens then 32 greedy
+   steps and 1 of 333 then 8, fp32 teacher-forced (logits, picks, the
+   Mamba2 conv and SSM states and the shared block's KV per repeat),
+   89 / 6 / 77 / 0 launches a prefill and 89 / 0 / 77 / 0 a step; bf16
+   layer by layer against fp32 beside the float8 control and at full
+   depth as readings; the engine at exact lengths (4 slots: 97, 333, 64
+   and 200 tokens, 16 new each; its cache holds the shared block's page
+   pools and the Mamba2 layers' per-slot state) held as RWKV6-3B's; the
+   weight-only int8 tree (the tied embedding and head, the shared
+   block's projections) in fp32, its first-token logits through
+   ``lm.forward`` and the engine against the plain path; tokens/s;
+   then qwen2-moe-a2.7b at full depth (24 layers, 60 experts padded to
+   64, top-4, 4 shared) and phi3.5-moe-42b-a6.6b cut to 8 layers (16
+   experts top-2, LayerNorm with beta, GQA 32 over 8): 4 prompts of 256
+   then 16 steps and 1 of 97 then 8 in fp32 (49 / 24 / 49 / 0 and
+   49 / 0 / 49 / 0; 17 / 8 / 17 / 0 and 17 / 0 / 17 / 0), each layer's
+   routing against fp32 (:func:`moe_layers`: no flip in fp32, bf16
+   flips only below ``MOE_FLIP_MARGIN``), the fp32 model freed and the
+   bf16 one built (readings at full depth, layers held), qwen2-moe's
+   engine in bf16 (4 requests at exact lengths, 8 tokens); tokens/s;
+12. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
-   and its device time by matmul design (profiler);
-12. the matmul, attention and WKV per design and dtype, summed over a
+   and its device time by matmul design (profiler); the profiles of a
+   zamba2-1.2b (fp32, bf16) and a qwen2-moe-a2.7b (bf16) prefill and
+   decode step, each in a process of its own (``launch/profile.py``:
+   wall, busy, idle share, device ms by kernel);
+13. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
@@ -161,7 +186,9 @@ Phases, each printing its lines:
    Swin-T forward (rows) and over an RWKV6-3B decode step (cta), and
    attention a second time over a deepseek-7b prefill (causal), and
    once per new mode: gemma3-27b's windowed layers, whisper-base's
-   encoder (S = 1500) and its cross-attention.
+   encoder (S = 1500) and its cross-attention; and each of matmul,
+   attention and layernorm over an fp32 prefill of zamba2-1.2b and of
+   qwen2-moe-a2.7b.
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -172,7 +199,11 @@ with ``F.scaled_dot_product_attention(is_causal=True)`` as the
 yardstick, the final RMSNorm) against its plain version, and sums them
 per prefill and per decode step of each model (``rwkv-table`` and
 ``dense-table`` lines); a windowed or cross attention case's yardstick
-is SDPA with a boolean mask.
+is SDPA with a boolean mask. So too every kernel call of a zamba2-1.2b
+prefill (B=4 x 512) and step (B=4: in_proj at N = 8384 on every
+matmul design, the gated RMS norm at D = 4096, the shared block's
+attention at hd 64) and of the MoE archs' (B=4 x 256, B=4), in
+``zamba2-table`` and ``moe-table`` lines.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -181,6 +212,7 @@ non-zero with no result line. It exits non-zero at once where
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -377,10 +409,18 @@ def err_ok(out, want, tol):
 # deepseek-7b prefill at B=4 x 512 (fused, unfused) and fused decode step
 # at B=4, per gemma3-27b prefill at B=2 x 2048 and decode step at B=2
 # (8 layers in fp32, 62 in bf16), and per whisper-base prefill at B=4 x
-# 64 (its encoder over 1500 frames included) and decode step at B=4
+# 64 (its encoder over 1500 frames included) and decode step at B=4, per
+# zamba2-1.2b prefill at B=4 x 512 and decode step at B=4, per
+# qwen2-moe-a2.7b prefill at B=4 x 256 and decode step at B=4, and per
+# phi3.5-moe prefill (8 layers) at B=4 x 256 and decode step at B=4
 COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
           "dprefill", "ddecode", "dunfused", "gprefill", "gdecode",
-          "wprefill", "wdecode")
+          "wprefill", "wdecode", "zprefill", "zdecode", "qprefill",
+          "qdecode", "pprefill", "pdecode")
+# the count keys of the LM paths whose cases also read device ms
+DEVICE_MS_KEYS = ("vit", "gprefill", "gdecode", "wprefill", "wdecode",
+                  "zprefill", "zdecode", "qprefill", "qdecode", "pprefill",
+                  "pdecode")
 # the exact launches (rowwise_matmul, flash_attention, layernorm, wkv) of
 # each fused run the model phases check, restated by hand as PERF.md §2
 # lists them; :func:`want_launches` also holds each against the count
@@ -410,8 +450,22 @@ LAUNCHES = {
     "gemma3-27b/8 verify": (33, 0, 17, 0),
     "gemma3-27b chunk": (249, 0, 125, 0),
     "gemma3-27b verify": (249, 0, 125, 0),
-    # the engine's RWKV6-3B calls: an exact-length prefill and a step
-    "rwkv6-3b call": (321, 0, 97, 32),
+    # RWKV6-3B: a prefill (4 x 512, 1 x 333, the engine's exact lengths)
+    # and a step (B=4, B=1): 10 matmuls, 3 norms and the recurrence a
+    # layer, the head and the final norm
+    "rwkv6-3b prefill": (321, 0, 97, 32),
+    "rwkv6-3b step": (321, 0, 97, 32),
+    # zamba2-1.2b: a Mamba2 layer 2 / 0 / 2 (in_proj, out_proj; norm1,
+    # the gated RMS norm), a shared-block repeat 4 / 1 / 2 (its qkv and
+    # mlp1 norms split at K = 2048 on every design), the head 1 / 0 / 1
+    "zamba2-1.2b prefill": (89, 6, 77, 0),      # 4 x 512, 1 x 333, engine
+    "zamba2-1.2b step": (89, 0, 77, 0),         # B=4, B=2 and B=1
+    # MoE: a layer 2 / 1 / 2 (qkv with its norm split, wo; norm2 before
+    # the experts, which launch no kernel), the head 1 / 0 / 1
+    "qwen2-moe-a2.7b prefill": (49, 24, 49, 0),     # 24 layers
+    "qwen2-moe-a2.7b step": (49, 0, 49, 0),
+    "phi3.5-moe/8 prefill": (17, 8, 17, 0),         # 8 layers
+    "phi3.5-moe/8 step": (17, 0, 17, 0),
 }
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 
@@ -1055,6 +1109,101 @@ def whisper_cases(cfg, dtype, gen, device):
     return cases
 
 
+def zamba2_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of a zamba2-1.2b prefill at B=4 x 512
+    (M=2048) and of a decode step at B=4 (M=4), with its launches per
+    prefill and per step. A Mamba2 layer (32): norm1 (RMS, D = 2048),
+    in_proj (N = 8384 = 2 d_inner + 2 d_state + heads: an odd multiple
+    of 64, on the skinny design at decode and on ffma / wgmma at
+    prefill), the gated RMS norm over y * silu(z) (D = d_inner = 4096),
+    out_proj. The shared block (6 repeats of one weight copy): the qkv
+    and GELU mlp1 panels with the RMS norm (split or not:
+    :func:`norm_matmul_cases`), wo and mlp2 with the residual, causal
+    attention at prefill (32 heads of 64). The tied head (N = 32000, fp32
+    out) and the final norm on the last position."""
+    from repro_torch.models import lm, mamba2
+    s, d_in, heads, _ = mamba2._dims(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    n_mamba = sum(st.repeat for st in cfg.stages() for b in st.body
+                  if b.mixer == "mamba2")
+    n_attn = sum(st.repeat for st in cfg.stages() for b in st.body
+                 if b.mixer == "attn")
+    proj = 2 * d_in + 2 * s.d_state + heads
+    cases = []
+    for m, key in ((4 * 512, "zprefill"), (4, "zdecode")):
+        tag = f"zamba2.{'prefill' if m > 4 else 'decode'}"
+        cases += [
+            layernorm_case(f"{tag} norm1", m, d, dtype, gen, device,
+                           kind="rms", **{key: n_mamba}),
+            matmul_case(f"{tag} in_proj", m, d, proj, dtype, gen, device,
+                        bias=False, **{key: n_mamba}),
+            layernorm_case(f"{tag} gated norm", m, d_in, dtype, gen,
+                           device, kind="rms", **{key: n_mamba}),
+            matmul_case(f"{tag} out_proj", m, d_in, d, dtype, gen, device,
+                        bias=False, **{key: n_mamba}),
+            matmul_case(f"{tag} shared wo+res", m, d, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: n_attn}),
+            matmul_case(f"{tag} shared mlp2+res", m, f, d, dtype, gen,
+                        device, bias=False, residual=True, **{key: n_attn}),
+        ]
+        cases += norm_matmul_cases(f"{tag} shared qkv", m, d, 3 * d, dtype,
+                                   gen, device, norm="rms", bias=False,
+                                   **{key: n_attn})
+        cases += norm_matmul_cases(f"{tag} shared mlp1+gelu", m, d, f,
+                                   dtype, gen, device, norm="rms",
+                                   bias=False, act="gelu", **{key: n_attn})
+    cases += [
+        attention_case("zamba2.prefill causal", (4, 512, cfg.head_dim),
+                       cfg.n_heads, cfg.n_kv_heads, dtype, gen, device,
+                       causal=True, zprefill=n_attn),
+        matmul_case("zamba2 tied head fp32-out", 4, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True,
+                    zprefill=1, zdecode=1),
+        layernorm_case("zamba2 final_norm", 4, d, dtype, gen, device,
+                       kind="rms", zprefill=1, zdecode=1),
+    ]
+    return cases
+
+
+def moe_cases(cfg, dtype, gen, device, keys):
+    """Every distinct kernel call of an MoE LM's prefill at B=4 x 256
+    (M=1024) and decode step at B=4 (M=4), with its launches per prefill
+    and per step under ``keys`` (prefill, decode): per layer the qkv
+    panel with the pre-norm (split or not: :func:`norm_matmul_cases`;
+    qwen2-moe RMS, phi3.5-moe LayerNorm with beta), wo with the
+    residual, the standalone norm2 before the experts (whose router,
+    dispatch and einsums are torch ops, as in JAX), causal attention at
+    prefill (qwen2-moe 16 heads of 128; phi3.5-moe GQA 32 over 8); the
+    head (fp32 out) and the final norm on the last position."""
+    from repro_torch.models import attention, lm
+    d, layers = cfg.d_model, cfg.n_layers
+    qkv, ho = sum(attention.proj_splits(cfg)), cfg.n_heads * cfg.head_dim
+    name = cfg.name.split("-")[0]
+    cases = []
+    for m, key in ((4 * 256, keys[0]), (4, keys[1])):
+        tag = f"{name}.{'prefill' if m > 4 else 'decode'}"
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen,
+                                   device, norm=cfg.norm, bias=False,
+                                   **{key: layers})
+        cases += [
+            matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
+                        bias=False, residual=True, **{key: layers}),
+            layernorm_case(f"{tag} norm2", m, d, dtype, gen, device,
+                           kind=cfg.norm, **{key: layers}),
+        ]
+    cases += [
+        attention_case(f"{name}.prefill causal", (4, 256, cfg.head_dim),
+                       cfg.n_heads, cfg.n_kv_heads, dtype, gen, device,
+                       causal=True, **{keys[0]: layers}),
+        matmul_case(f"{name} lm_head fp32-out", 4, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True,
+                    **{keys[0]: 1, keys[1]: 1}),
+        layernorm_case(f"{name} final_norm", 4, d, dtype, gen, device,
+                       kind=cfg.norm, **{keys[0]: 1, keys[1]: 1}),
+    ]
+    return cases
+
+
 def int8_cases(cfg, rwkv_cfg, batch, gen, device):
     """The int8 W8A8 leg at every distinct Swin-T matmul shape (B=8, with
     its launches per fused forward, which the int8 path replays) and at
@@ -1429,11 +1578,9 @@ def run_cases(cases, dtype_name, tol, timed=True):
                        / 1e3,
                        library_device_ms=kernel_us(case.library, None)
                        / 1e3)
-        elif timed and any(case.counts[k] for k in ("vit", "gprefill",
-                                                     "gdecode", "wprefill",
-                                                     "wdecode")):
+        elif timed and any(case.counts[k] for k in DEVICE_MS_KEYS):
             # the device ms of the ViT-B/16 attention and of every kernel
-            # call of the gemma3-27b and whisper-base paths
+            # call of the gemma3-27b, whisper-base, zamba2 and MoE paths
             row["device_ms"] = kernel_us(
                 case.run, "attention_kernel" if case.kernel ==
                 "flash_attention" else "rowwise_matmul_kernel",
@@ -1551,15 +1698,19 @@ def jitter_rwkv(tree, gen):
         t.add_(_rand(gen, t.shape, t.dtype, t.device, 0.1))
 
 
+# the leaves the JAX package keeps fp32 in a bf16 model: RWKV6's ``u``
+# and ``w0``, Mamba2's ``A_log``, ``dt_bias`` and ``D``
+FP32_LEAVES = ("u", "w0", "A_log", "dt_bias", "D")
+
+
 def to_bf16(tree, key=None):
-    """The tree in bf16 but for the fp32 leaves of the JAX package's bf16
-    RWKV6 model (``u``, ``w0``)."""
+    """The tree in bf16 but for the :data:`FP32_LEAVES`."""
     import torch
     if isinstance(tree, dict):
         return {k: to_bf16(v, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_bf16(v) for v in tree]
-    return tree if key in ("u", "w0") else tree.to(torch.bfloat16)
+    return tree if key in FP32_LEAVES else tree.to(torch.bfloat16)
 
 
 def rwkv_state(cache):
@@ -1570,6 +1721,61 @@ def rwkv_state(cache):
 def kv_state(cache):
     """The K and V leaves of a dense cache, every layer."""
     return list(cache[0]["0"]["kv"])
+
+
+class RouteReplay:
+    """Teacher-forced routing for :func:`check_serving` on an MoE model,
+    as its tokens are teacher-forced: :meth:`record` wraps
+    ``moe._route`` to keep each call's picks and probabilities (the
+    plain path's); :meth:`replay` gives each call of the kernel path the
+    recorded picks, its gate values taken from its own probabilities,
+    and notes each token it would have routed otherwise (a flip) with
+    the recorded top-k margin (the logit gap between the k-th and
+    (k+1)-th expert). Without it, one flip at a near-tie moves that
+    token's whole row in every later layer's KV."""
+
+    def __init__(self, cfg):
+        self.k, self.calls, self.seen = cfg.moe.top_k, [], []
+
+    @contextlib.contextmanager
+    def _wrapped(self, fn):
+        from repro_torch.models import moe
+        orig = moe._route
+        moe._route = lambda *args: fn(orig, *args)
+        try:
+            yield
+        finally:
+            moe._route = orig
+
+    def record(self):
+        def route(orig, *args):
+            out = orig(*args)
+            self.calls.append(out[1:])
+            return out
+        return self._wrapped(route)
+
+    def replay(self):
+        import torch
+        from repro_torch.models import moe
+        turn = iter(self.calls)
+
+        def route(orig, *args):
+            _, idx, probs = orig(*args)
+            ridx, rprobs = next(turn)
+            e = probs.shape[-1]
+            flip = (moe._one_hot(idx, e, torch.bool).any(1)
+                    != moe._one_hot(ridx, e, torch.bool).any(1)).any(-1)
+            top = rprobs.sort(-1, descending=True).values
+            self.seen.append((flip, top[:, self.k - 1].log()
+                              - top[:, self.k].log()))
+            gate = probs.gather(-1, ridx)
+            return (gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                       min=1e-9), ridx, probs)
+        return self._wrapped(route)
+
+    def flips(self):
+        """The margins of the tokens the kernel path routed otherwise."""
+        return [g for flip, gap in self.seen for g in gap[flip].tolist()]
 
 
 def check_serving(phase, model, prompts, n_steps, tol, want_counts,
@@ -1586,13 +1792,18 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
     must give the plain path's stream up to each row's first near-tie.
     With ``tol=None`` the logits, picks, states and stream are
     readings, held only to be finite. ``extra``: the encoder's frames of
-    an encoder-decoder model, given to each prefill."""
+    an encoder-decoder model, given to each prefill. An MoE model's
+    teacher-forced kernel path takes the plain path's routing too
+    (:class:`RouteReplay`): a token it would have routed otherwise must
+    be a routing near-tie, its margin within ``tol`` (logit units)."""
     import torch
     from repro_torch.core import runtime
     b, s = prompts.shape
     want_decode = want_decode or want_counts
+    routes = RouteReplay(model.cfg) if model.cfg.moe is not None else None
     with torch.no_grad():
-        with runtime.use_impl("ref"):
+        with runtime.use_impl("ref"), (
+                routes.record() if routes else contextlib.nullcontext()):
             lg, cache = model.prefill(prompts, alloc=s + n_steps,
                                       extra=extra)
             want, toks = [lg], [lg.argmax(-1)]
@@ -1604,17 +1815,18 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
                 want.append(lg)
                 toks.append(lg.argmax(-1))
         want_states = state(cache)
-        got_lg, counts = counted(lambda: model.prefill(
-            prompts, alloc=s + n_steps, extra=extra))
-        modes = attention_modes()
-        got, cache = [got_lg[0]], got_lg[1]
-        all_counts = [counts]
-        for i in range(n_steps):
-            (lg, cache), counts = counted(
-                lambda i=i: model.decode_step(cache, toks[i][:, None],
-                                              lengths + i))
-            got.append(lg)
-            all_counts.append(counts)
+        with routes.replay() if routes else contextlib.nullcontext():
+            got_lg, counts = counted(lambda: model.prefill(
+                prompts, alloc=s + n_steps, extra=extra))
+            modes = attention_modes()
+            got, cache = [got_lg[0]], got_lg[1]
+            all_counts = [counts]
+            for i in range(n_steps):
+                (lg, cache), counts = counted(
+                    lambda i=i: model.decode_step(cache, toks[i][:, None],
+                                                  lengths + i))
+                got.append(lg)
+                all_counts.append(counts)
         # the stream as a user asks for it: ``greedy`` on the kernels
         stream, greedy_counts = counted(
             lambda: model.greedy(prompts, n_steps + 1, extra=extra))
@@ -1659,8 +1871,13 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
         stream[row, :first_tie[row]] != plain_stream[row, :first_tie[row]])]
     same = (stream == plain_stream).float().mean().item()
     worst = max(step_errs)
+    flips = routes.flips() if routes else []
     held = ("readings only; greedy picks differ at " if tol is None else
             f"tol={tol}*max(1,max|logit|); greedy picks equal but for ")
+    routed = (f"; routing teacher-forced: {len(flips)} token-calls the "
+              f"kernel path routed otherwise, margins "
+              f"{sorted(round(g, 7) for g in flips)[-4:]} largest"
+              if routes else "")
     say(phase, f"B={b} S={s} + {n_steps} steps: logits max|logit|="
                f"{scale:.4g} max_abs_err={worst:.4g} (prefill "
                f"{step_errs[0]:.4g}, last step {step_errs[-1]:.4g}) "
@@ -1669,7 +1886,10 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
                f"{all_counts[0]} (attention by mode {modes}), per step "
                f"{all_counts[-1]}; greedy "
                f"stream on the kernels: {same:.3f} of its tokens equal "
-               f"the plain path's, launches {greedy_counts}")
+               f"the plain path's, launches {greedy_counts}{routed}")
+    if tol is not None and any(g > tol for g in flips):
+        raise AssertionError(f"{phase}: the kernel path routes tokens "
+                             f"otherwise at margins {sorted(flips)}")
     if not s_ok:
         raise AssertionError(f"{phase}: final {state.__name__} off by "
                              f"{s_err}")
@@ -1687,6 +1907,7 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
             "greedy_same": same,
             "max_logit": scale, "near_ties": ties,
             "state_err": s_err, "counts": all_counts[0],
+            "routing_flips": flips,
             "prefill_modes": modes, "decode_counts": all_counts[-1],
             "tokens": torch.stack(toks, 1).tolist()}
 
@@ -1884,16 +2105,21 @@ def rwkv_phase(smi):
                             device="cuda")
     prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
                             device="cuda")
-    counts = {"rowwise_matmul": 321, "flash_attention": 0, "layernorm": 97,
-              "wkv": 32}
+    f32 = torch.float32
+    counts = want_launches("rwkv6-3b prefill", lm_counts(
+        cfg, 4 * 512, f32, attention=True))
+    step = want_launches("rwkv6-3b step", lm_counts(cfg, 4, f32,
+                                                    attention=False))
     out = {"params": n_params,
            "fp32_b4": check_serving("rwkv-fp32", model, prompts, 32,
-                                    LOGIT_TOL, counts),
+                                    LOGIT_TOL, counts, want_decode=step),
            "fp32_b1": check_serving("rwkv-fp32", model, prompt1, 8,
-                                    LOGIT_TOL, counts)}
-    if counts != dict(zip(REPLACES, LAUNCHES["rwkv6-3b call"])):
-        raise AssertionError(f"rwkv: launches {counts} restated")
-    out["engine_fp32"] = engine_phase_rwkv(model, gen, LOGIT_TOL)
+                                    LOGIT_TOL, counts, want_decode=step)}
+    # the engine at exact lengths on 4 slots: its path through WKV
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (97, 333, 64, 200)]
+    out["engine_fp32"] = exact_engine("rwkv-engine", model, reqs, LOGIT_TOL,
+                                      f32, max_new=16)
     model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
                                device="cuda")
     # at full depth bf16's rounding, carried through 32 layers, reads
@@ -2844,29 +3070,6 @@ def engine_phase_gemma(phase, model, reqs, oracles, want):
     return res
 
 
-def engine_phase_rwkv(model, gen, tol):
-    """RWKV6-3B's engine run in fp32 (phase 8): 4 requests of 97, 333, 64
-    and 200 tokens on 4 slots at exact lengths, 16 tokens each, every
-    call 321 / 0 / 97 / 32 launches: the engine's path through WKV."""
-    import torch
-    cfg = model.cfg
-    t0 = time.perf_counter()
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
-                             device="cuda") for n in (97, 333, 64, 200)]
-    oracles = [dense_oracle(model, p, 16, tol) for p in prompts]
-    for o in oracles:
-        o.pop("cache")
-    oracle_s = time.perf_counter() - t0
-    every = dict(zip(REPLACES, LAUNCHES["rwkv6-3b call"]))
-    res = serve_engine("rwkv-engine", model, prompts, oracles,
-                       want=dict.fromkeys(ENGINE_CALLS.values(), every),
-                       max_new=16, path=("rowwise_matmul", "layernorm",
-                                         "wkv"),
-                       n_slots=4, max_len=512, page_size=16)
-    res["oracle_s"] = oracle_s
-    return res
-
-
 # ------------------------------ deepseek-7b -----------------------------
 
 
@@ -3029,18 +3232,41 @@ def gemma_state(cache):
     return [*cache[0]["0"]["kv"], *cache[0]["5"]["kv"], *cache[1]["0"]["kv"]]
 
 
-def lm_counts(cfg, rows, dtype, *, attention, matmuls_per_layer=4,
-              extra_norms=0):
-    """Launches of a fused dense prefill (``attention`` True) or decode
-    step of ``rows`` rows: 4 matmuls a layer and the head, one attention
-    a layer at prefill, the final norm and the norms of the qkv and
-    gate|up panels where their prologue splits."""
-    layers = cfg.n_layers
-    return {"rowwise_matmul": matmuls_per_layer * layers + 1,
-            "flash_attention": layers if attention else 0,
-            "layernorm": 1 + extra_norms + prologue_splits(
-                rows, cfg.d_model, dtype, 2 * layers),
-            "wkv": 0}
+def lm_counts(cfg, rows, dtype, *, attention):
+    """Launches of a fused prefill (``attention`` True) or decode step of
+    ``rows`` rows, block by block over the config's stages (a shared
+    block once a repeat): an attention mixer's qkv and wo and one
+    attention at prefill, an MLP's two matmuls, the norms of the qkv and
+    MLP panels where their prologue splits; a Mamba2 mixer's in_proj and
+    out_proj and its two standalone norms (norm1, the gated RMS norm);
+    an MoE FFN's standalone norm2 (its router and experts launch no
+    kernel); an RWKV6 time-mix's seven matmuls (wr, wk, wv, wg, the
+    decay LoRA's two, wo), its two standalone norms (norm1, its ln) and
+    the recurrence, and the channel-mix's three matmuls and norm2; then
+    the head and the final norm."""
+    mm = attn = norms = wkv = 0
+    for stage in cfg.stages():
+        for blk in stage.body:
+            r = stage.repeat
+            if blk.mixer == "attn":
+                mm += 2 * r
+                attn += r if attention else 0
+                norms += prologue_splits(rows, cfg.d_model, dtype, r)
+            elif blk.mixer == "mamba2":
+                mm += 2 * r
+                norms += 2 * r
+            elif blk.mixer == "rwkv6":
+                mm += 7 * r
+                norms += 2 * r
+                wkv += r
+            if blk.ffn == "mlp":
+                mm += 2 * r
+                norms += prologue_splits(rows, cfg.d_model, dtype, r)
+            elif blk.ffn in ("moe", "rwkv6_cmix"):
+                mm += 3 * r if blk.ffn == "rwkv6_cmix" else 0
+                norms += r
+    return {"rowwise_matmul": mm + 1, "flash_attention": attn,
+            "layernorm": norms + 1, "wkv": wkv}
 
 
 def paged_launches(key, cfg, dtype):
@@ -3384,6 +3610,466 @@ def whisper_phase(smi):
     return out
 
 
+# ------------------------------ zamba2-1.2b -----------------------------
+
+
+def jitter_hybrid(tree, gen):
+    """Spread the constant leaves of a hybrid tree: every norm gain by
+    0.1; each Mamba2 mixer's ``A_log`` uniform over [0, log 16] and
+    ``dt_bias`` at softplus^-1 of a dt log-uniform over [1e-3, 0.1]
+    (Mamba2's own init ranges), its ``D``, conv bias and gated-norm gain
+    by 0.1."""
+    import math
+
+    import torch
+
+    def rand(t):
+        return torch.rand(t.shape, generator=gen, device=gen.device).to(t)
+
+    def spread(t):
+        t.add_(_rand(gen, t.shape, t.dtype, t.device, 0.1))
+
+    for stage in tree["stages"]:
+        for blk in [*stage["stacked"].values(), *stage["shared"].values()]:
+            for norm in ("norm1", "norm2"):
+                for t in blk.get(norm, {}).values():
+                    spread(t)
+            m = blk.get("mamba")
+            if m is None:
+                continue
+            m["A_log"].copy_(rand(m["A_log"]) * math.log(16))
+            dt = torch.exp(math.log(1e-3) + rand(m["dt_bias"])
+                           * math.log(100))
+            m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+            for k in ("D", "conv_b", "norm_g"):
+                spread(m[k])
+    for t in tree["final_norm"].values():
+        spread(t)
+
+
+def hybrid_state(cache):
+    """The state of a zamba2 cache: the first Mamba2 layer's conv and
+    SSM state, the shared block's K and V (every repeat) and the tail
+    stage's first Mamba2 layer's."""
+    kv = next(c["kv"] for c in cache[0].values() if "kv" in c)
+    return [*cache[0]["0"]["mamba"], *kv, *cache[-1]["0"]["mamba"]]
+
+
+def exact_engine(phase, model, prompts, tol, dtype, *, max_new,
+                 n_slots=4, max_len=512):
+    """An engine run at exact lengths (an arch with recurrent or MoE
+    state: no buckets, chunks, prefix cache or speculation) on
+    ``n_slots`` slots, every stream held to its dense stream
+    (``dense_oracle`` with ``tol``, the near-tie rule), every admission
+    and step launching as the model's prefill and step
+    (``LAUNCHES["<arch> prefill" / "<arch> step"]``, the model running
+    in ``dtype``), each kernel of that path launched in the run."""
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    oracles = [dense_oracle(model, p, max_new, tol) for p in prompts]
+    for o in oracles:
+        o.pop("cache")
+    oracle_s = time.perf_counter() - t0
+    key = LAUNCH_KEYS.get(cfg.name, cfg.name)
+    path = tuple(k for k, v in lm_counts(cfg, 1, dtype,
+                                         attention=True).items() if v)
+    res = serve_engine(phase, model, prompts, oracles,
+                       want=paged_launches(key, cfg, dtype),
+                       max_new=max_new, path=path, n_slots=n_slots,
+                       max_len=max_len, page_size=16)
+    res["oracle_s"] = oracle_s
+    return res
+
+
+# the LAUNCHES key of each cut config's name
+LAUNCH_KEYS = {"phi3.5-moe-42b-a6.6b": "phi3.5-moe/8"}
+
+
+def int8_tree_check(model, prompts):
+    """The weight-only int8 tree of ``model`` (``quant.quantize_tree``
+    with ``lm_weight_predicate``: zamba2's tied embedding and head and
+    its shared block's projections) under the config with its dtype set
+    to fp32, so the int8 leaves dequantize to fp32 and the model runs in
+    fp32: each prompt's first-token logits through ``lm.forward`` on the
+    kernels and through the engine (captured at admission), against
+    ``lm.forward`` on the plain path, within LOGIT_TOL x max(1,
+    max|logit|); the engine's streams held to the int8 tree's dense
+    streams."""
+    import torch
+    from repro_torch.core import quant, runtime
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    qtree = quant.quantize_tree(model.params.tree(),
+                                quant.lm_weight_predicate)
+    n_int8 = sum(t.numel() for t in torch.utils._pytree.tree_leaves(qtree)
+                 if t.dtype == torch.int8)
+    qmodel = lm.LanguageModel(cfg, qtree, device="cuda")
+    vocab, want, forward_errs = cfg.vocab, [], []
+    with torch.no_grad():
+        for p in prompts:
+            got = lm.forward(qtree, p[None], cfg)[0][0, -1, :vocab]
+            with runtime.use_impl("ref"):
+                want.append(lm.forward(qtree, p[None], cfg)[0][0, -1,
+                                                               :vocab])
+            err, ok = err_ok(got, want[-1], LOGIT_TOL)
+            forward_errs.append(err)
+            if not ok:
+                raise AssertionError(f"zamba2-int8: lm.forward's first-token "
+                                     f"logits off by {err}")
+    captured, orig = [], lm.prefill_states
+
+    def capture(*args, **kw):
+        logits, states = orig(*args, **kw)
+        captured.append(logits[0, :vocab].clone())
+        return logits, states
+    lm.prefill_states = capture
+    try:
+        res = exact_engine("zamba2-int8-engine", qmodel, prompts, LOGIT_TOL,
+                           torch.float32, max_new=8, n_slots=2)
+    finally:
+        lm.prefill_states = orig
+    # the dense oracles' prefills come first, then the engine's admissions
+    engine = captured[len(prompts):]
+    engine_errs = [err_ok(c, w, LOGIT_TOL) for c, w in zip(engine, want)]
+    say("zamba2-int8", f"weight-only int8 tree ({n_int8 / 1e6:.1f} M int8 "
+        f"weights, the rest fp32), fp32 first-token logits against the "
+        f"plain path: lm.forward max_abs_err "
+        f"{[round(e, 7) for e in forward_errs]}, the engine's "
+        f"{[round(e, 7) for e, _ in engine_errs]}; tol {LOGIT_TOL}*max(1,"
+        "max|logit|)")
+    if len(engine) != len(prompts) or not all(ok for _, ok in engine_errs):
+        raise AssertionError(f"zamba2-int8: the engine's first-token logits "
+                             f"{engine_errs}")
+    return {"int8_weights": n_int8, "forward_errs": forward_errs,
+            "engine_errs": [e for e, _ in engine_errs], "engine": res}
+
+
+def lm_profile(arch, batch, seq, dtypes, layers=0):
+    """``launch/profile.py``'s LM profile (a prefill and a decode step per
+    dtype: wall, device busy time, idle share, device ms by kernel), for
+    :func:`readings_apart`."""
+    import argparse
+
+    import torch
+    from repro_torch.launch import profile
+    args = argparse.Namespace(model=arch, layers=layers, seq=seq,
+                              dtype=list(dtypes), batch=[batch],
+                              impl=["auto"], unfused=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return profile.profile_lm(args, "cuda", torch.cuda.get_device_name(0))
+
+
+def zamba2_phase(smi):
+    """zamba2-1.2b at full width and depth (38 layers: 32 Mamba2 and 6
+    repeats of the shared block): serving checks in fp32 and bf16, the
+    engine at exact lengths, the weight-only int8 tree, rates."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("zamba2-1.2b")
+    f32, bf = torch.float32, torch.bfloat16
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=f32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_hybrid(model.params.tree(),
+                      torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("zamba2", f"{cfg.name}: {cfg.n_layers} layers "
+                  f"({[(st.repeat, len(st.body)) for st in cfg.stages()]} "
+                  f"repeats x body), d {cfg.d_model}, SSD {cfg.ssm}, shared "
+                  f"block {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+                  f"{cfg.d_ff} (GELU), vocab {cfg.vocab} (tied): "
+                  f"{n_params / 1e9:.3f} B parameters (param_counts says "
+                  f"{cfg.param_counts()['total'] / 1e9:.3f} B), fp32, built "
+                  f"in {time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                            device="cuda")
+    prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
+                            device="cuda")
+
+    def held(dtype, b, s):
+        return dict(want_counts=want_launches("zamba2-1.2b prefill", lm_counts(
+            cfg, b * s, dtype, attention=True)),
+            want_decode=want_launches("zamba2-1.2b step", lm_counts(
+                cfg, b, dtype, attention=False)), state=hybrid_state)
+    out = {"params": n_params}
+    for key, p, steps in (("fp32_b4", prompts, 32), ("fp32_b1", prompt1, 8)):
+        out[key] = check_serving("zamba2-fp32", model, p, steps, LOGIT_TOL,
+                                 **held(f32, *p.shape))
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (97, 333, 64, 200)]
+    out["engine_fp32"] = exact_engine("zamba2-engine", model, reqs,
+                                      LOGIT_TOL, f32, max_new=16)
+    out["int8"] = int8_tree_check(model, reqs[:2])
+    model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
+                               device="cuda")
+    out["bf16_b4"] = check_serving("zamba2-bf16", model16, prompts, 8, None,
+                                   **held(bf, 4, 512))
+    out["bf16_layers"] = bf16_layers("zamba2-bf16", model16, prompts)
+    with torch.no_grad(), runtime.use_impl("ref"):
+        out["bf16_rounding"] = err_ok(model16.prefill(prompts)[0],
+                                      model.prefill(prompts)[0], BF16_TOL)[0]
+    say("zamba2-bf16", "plain bf16 against plain fp32 (same weights "
+                       f"rounded), prefill logits: max_abs_err="
+                       f"{out['bf16_rounding']:.4g}")
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32": lm_rates(model, prompts),
+             "bf16": lm_rates(model16, prompts)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with runtime.use_impl("ref"):
+        rates["plain_fp32"] = lm_rates(model, prompts)
+    out.update(rates=rates, peak_memory_gib=peak_gb,
+               seconds=time.perf_counter() - t_phase)
+    say("throughput", "zamba2-1.2b prefill tokens/s at B=4 x 512: "
+        + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items())
+        + "; decode tokens/s at B=4: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
+        f"resident) | {smi}")
+    say("zamba2", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------ MoE -------------------------------------
+
+
+# the largest top-k margin a bf16 routing flip may have: the fp32
+# router's logit gap between a token's k-th and (k+1)-th expert, for a
+# token the kernel path routes to other experts than the fp32 layer
+# (PERF.md §6, written before the first run that held it)
+MOE_FLIP_MARGIN = 0.1
+# phi3.5-moe's depth here: 41.9 B parameters at 32 layers do not fit the
+# card in bf16 (84 GB), 8 layers (10.7 B) do in fp32
+PHI_LAYERS = 8
+
+
+def moe_layers(phase, model, prompts):
+    """Each layer of an MoE model at prefill, run on the plain path's
+    input to it (as :func:`bf16_layers`), against the same layer in fp32
+    on the same weights and input, token by token. The routing of the
+    kernel path (its top-k experts, and which of them kept the token
+    within capacity) is recorded beside the fp32 layer's: a token routed
+    to other experts is a flip, allowed in a bf16 model only where its
+    margin (the fp32 router's logit gap between its k-th and (k+1)-th
+    expert) is below MOE_FLIP_MARGIN, and never in an fp32 model; a
+    token routed alike but kept by other experts (a flip before it took
+    their capacity) is a capacity move. rms(err) / rms(out) of each
+    layer over the other tokens is held to BF16_LAYER_TOL (bf16) or
+    FP32_TOL (fp32), beside the plain path's reading and, in bf16, the
+    float8 control's."""
+    import torch
+    from repro_torch.core import runtime
+    from repro_torch.models import blocks, lm, moe
+    cfg, tree = model.cfg, model.params.tree()
+    bf16 = tree["embed"].dtype == torch.bfloat16
+    limit = BF16_LAYER_TOL if bf16 else FP32_TOL
+    k = cfg.moe.top_k
+    rec = []
+    route, dispatch = moe._route, moe._dispatch_indices
+
+    def rroute(*args):
+        out = route(*args)
+        rec.append({"idx": out[1], "probs": out[2]})
+        return out
+
+    def rdispatch(gate_idx, *args):
+        out = dispatch(gate_idx, *args)
+        rec[-1]["keep"] = out[1].reshape(gate_idx.shape)
+        return out
+
+    def kept(r):
+        """(T, E) experts that took each token, and (T, E) routed."""
+        e = r["probs"].shape[-1]
+        hot = moe._one_hot(r["idx"], e, torch.bool)
+        return (hot & r["keep"][..., None]).any(1), hot.any(1)
+
+    reads = {"kernels": [], "plain": [], "control": []}
+    flips, moves, plain_flips = [], 0, 0
+    moe._route, moe._dispatch_indices = rroute, rdispatch
+    try:
+        with torch.no_grad():
+            x = lm.embed(tree, prompts, cfg)
+            positions = lm._positions(prompts)
+            stage, sp = cfg.stages()[0], tree["stages"][0]
+            blk = stage.body[0]
+            for rep in range(stage.repeat):
+                bp = lm._tree_map(lambda a, r=rep: a[r], sp["stacked"]["0"])
+
+                def run(params, inp):
+                    return blocks.apply_block(blk, params, inp, cfg=cfg,
+                                              mode="prefill",
+                                              positions=positions)[0]
+                rec.clear()
+                got = run(bp, x)
+                with runtime.use_impl("ref"):
+                    plain = run(bp, x)
+                    want = run(lm._tree_map(lambda a: a.float(), bp),
+                               x.float())
+                r_got, r_plain, r_want = rec
+                want_kept, want_routed = kept(r_want)
+
+                def moved(r):
+                    """Tokens routed (flip) or kept (move) otherwise than
+                    by the fp32 layer."""
+                    got_kept, got_routed = kept(r)
+                    flip = (got_routed != want_routed).any(-1)
+                    return flip, (got_kept != want_kept).any(-1) & ~flip
+                flip, move = moved(r_got)
+                plain_flip, plain_move = moved(r_plain)
+                plain_flips += int(plain_flip.sum())
+                top = r_want["probs"].sort(-1, descending=True).values
+                gap = (top[:, k - 1].log() - top[:, k].log())[flip]
+                flips += [(rep, g) for g in gap.tolist()]
+                moves += int(move.sum())
+                # each way over the tokens it routed and kept as fp32 did
+                ways = {"kernels": (got, flip | move),
+                        "plain": (plain, plain_flip | plain_move)}
+                if bf16:
+                    ways["control"] = (plain.to(torch.float8_e5m2),
+                                       plain_flip | plain_move)
+                for way, (o, off) in ways.items():
+                    rows = ~off.reshape(x.shape[:2])
+                    d = (o.float() - want)[rows]
+                    if not torch.isfinite(d).all():
+                        raise AssertionError(f"{phase} layer {rep}: {way} "
+                                             "output not finite")
+                    reads[way].append((d.square().mean().sqrt()
+                                       / want[rows].square().mean().sqrt())
+                                      .item())
+                x = plain
+    finally:
+        moe._route, moe._dispatch_indices = route, dispatch
+    tokens = prompts.numel() * stage.repeat
+    worst = max((g for _, g in flips), default=0.0)
+    out = {"kernels_max": max(reads["kernels"]),
+           "plain_max": max(reads["plain"]),
+           "control_min": min(reads["control"], default=None),
+           "flips": flips, "capacity_moves": moves,
+           "plain_flips": plain_flips, "tokens": tokens,
+           "per_layer": reads}
+    say(phase, f"each layer on the plain input, against the same layer in "
+        f"fp32: {len(flips)} of {tokens} token-layers routed to other "
+        f"experts on the kernel path (margins "
+        f"{sorted(round(g, 5) for _, g in flips)[-8:]} largest; limit "
+        f"{MOE_FLIP_MARGIN if bf16 else 0}), the plain path {plain_flips}; "
+        f"{moves} capacity moves; rms(err)/rms(out) over the rest: kernels "
+        f"max {out['kernels_max']:.4g}, plain max {out['plain_max']:.4g}"
+        + (f", control (float8_e5m2) min {out['control_min']:.4g}"
+           if bf16 else "") + f"; tol {limit}")
+    if flips and (not bf16 or worst >= MOE_FLIP_MARGIN):
+        raise AssertionError(f"{phase}: routing flips {flips}")
+    if out["kernels_max"] > limit:
+        raise AssertionError(f"{phase} layers: kernel path reads "
+                             f"{out['kernels_max']}")
+    if bf16 and out["control_min"] <= limit:
+        raise AssertionError(f"{phase} layers: the control passes the "
+                             "limit")
+    return out
+
+
+def moe_phase(smi, arch, n_layers=0):
+    """An MoE LM at full width (``n_layers``: its depth cut, else full):
+    fp32 serving checks and the layers' routing, the fp32 model freed,
+    then the same weights in bf16 built anew (the two trees together
+    would not fit the card): serving readings at full depth, the layers
+    held one by one (:func:`moe_layers`), the engine at exact lengths
+    (qwen2-moe), rates."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm, moe
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    key = LAUNCH_KEYS.get(arch, arch)
+    tag = arch.split("-")[0]
+    f32, bf = torch.float32, torch.bfloat16
+
+    def build(dtype):
+        model = lm.LanguageModel(
+            cfg, device="cuda", dtype=dtype,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        with torch.no_grad():
+            jitter_norms(model.params.tree(),
+                         torch.Generator(device="cuda").manual_seed(1))
+        return model
+
+    def held(dtype, b, s):
+        return dict(want_counts=want_launches(f"{key} prefill", lm_counts(
+            cfg, b * s, dtype, attention=True)),
+            want_decode=want_launches(f"{key} step", lm_counts(
+                cfg, b, dtype, attention=False)), state=kv_state)
+    model = build(f32)
+    n_params = sum(p.numel() for p in model.parameters())
+    mo = cfg.moe
+    say(tag, f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers, d "
+             f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
+             f"({cfg.n_kv_heads} kv), {mo.n_experts} experts (padded to "
+             f"{moe.padded_experts(cfg)}) top-{mo.top_k} of d_ff {mo.d_ff}, "
+             f"{mo.n_shared} shared, {cfg.norm} norm, vocab {cfg.vocab}: "
+             f"{n_params / 1e9:.3f} B parameters, fp32, built in "
+             f"{time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab, (4, 256), generator=gen,
+                            device="cuda")
+    prompt1 = torch.randint(0, cfg.vocab, (1, 97), generator=gen,
+                            device="cuda")
+    out = {"params": n_params, "layers": cfg.n_layers}
+    for k, p, steps in (("fp32_b4", prompts, 16), ("fp32_b1", prompt1, 8)):
+        out[k] = check_serving(f"{tag}-fp32", model, p, steps, LOGIT_TOL,
+                               **held(f32, *p.shape))
+    out["fp32_layers"] = moe_layers(f"{tag}-fp32", model, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32": lm_rates(model, prompts)}
+    peak = {"fp32": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model16 = build(bf)
+    out["bf16_b4"] = check_serving(f"{tag}-bf16", model16, prompts, 8, None,
+                                   **held(bf, 4, 256))
+    out["bf16_layers"] = moe_layers(f"{tag}-bf16", model16, prompts)
+    if arch == "qwen2-moe-a2.7b":
+        reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                              device="cuda") for n in (97, 256, 64, 200)]
+        out["engine_bf16"] = exact_engine(f"{tag}-engine", model16, reqs,
+                                          BF16_TOL, bf, max_new=8)
+    torch.cuda.reset_peak_memory_stats()
+    rates["bf16"] = lm_rates(model16, prompts)
+    peak["bf16"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with runtime.use_impl("ref"):
+        rates["plain_bf16"] = lm_rates(model16, prompts)
+    del model16
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(rates=rates, peak_memory_gib=peak,
+               seconds=time.perf_counter() - t_phase)
+    say("throughput", f"{cfg.name} ({cfg.n_layers} layers) prefill tokens/s "
+        "at B=4 x 256: " + ", ".join(f"{k} {v[0]:.1f}"
+                                     for k, v in rates.items())
+        + "; decode tokens/s at B=4: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + "; peak memory " + ", ".join(f"{k} {v:.2f} GiB"
+                                       for k, v in peak.items())
+        + f" (one model resident) | {smi}")
+    say(tag, f"phase took {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, name, key, launches, path, dtype="fp32",
                 label=None, source=None):
     """One kernel's entry of the kernels JSON line: its ``dtype`` cases
@@ -3444,18 +4130,17 @@ def check_modes(rows, key, dtype, run, cases):
 
 def design_tables(rows):
     """Each kernel per design, per dtype, summed over one run of each
-    path (``fused``: a Swin-T forward at B=8, ``fused64``: its attention
-    at B=64, ``vit``: a ViT-B/16 forward at B=8, ``prefill`` /
-    ``decode``: an RWKV6-3B prefill at B=4 x 512 / decode step at B=4,
-    ``dprefill`` / ``ddecode``: the same of deepseek-7b, ``dunfused``:
-    its unfused prefill; the int8 cases
-    over their Swin-T shapes, as the int8 path runs them):
+    path of :data:`COUNTS` (``fused`` / ``unfused``: a Swin-T forward at
+    B=8, ``fused64``: its attention at B=64, ``vit``: a ViT-B/16 forward
+    at B=8, ``prefill`` / ``decode``: an RWKV6-3B prefill at B=4 x 512 /
+    decode step at B=4, ``dprefill`` / ``ddecode`` / ``dunfused``: the
+    same of deepseek-7b and its unfused prefill, and the gemma3-27b,
+    whisper-base, zamba2-1.2b and MoE paths; the int8 cases over their
+    Swin-T shapes, as the int8 path runs them):
     launches and event / plain / library ms and the bound, each case
     times its launches."""
     out = {}
-    for key in ("fused", "fused64", "vit", "prefill", "decode", "dprefill",
-                "ddecode", "dunfused", "gprefill", "gdecode", "wprefill",
-                "wdecode"):
+    for key in COUNTS:
         for dt in ("fp32", "bf16", "int8"):
             for kernel in REPLACES:
                 mine = [r for r in rows if r["kernel"] == kernel and r[key]
@@ -3597,11 +4282,20 @@ def main() -> int:
                       "bf16", BF16_TOL)
     gemma_cfg, whisper_cfg = get_config("gemma3-27b"), get_config(
         "whisper-base")
+    zamba2_cfg, qwen_cfg = get_config("zamba2-1.2b"), get_config(
+        "qwen2-moe-a2.7b")
+    phi_cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                                  n_layers=PHI_LAYERS)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
                           (torch.bfloat16, "bf16", BF16_TOL)):
         rows += run_cases(gemma_cases(gemma_cfg, dt, gen, dev), name, tol)
         rows += run_cases(whisper_cases(whisper_cfg, dt, gen, dev), name,
                           tol)
+        rows += run_cases(zamba2_cases(zamba2_cfg, dt, gen, dev), name, tol)
+        rows += run_cases(moe_cases(qwen_cfg, dt, gen, dev,
+                                    ("qprefill", "qdecode")), name, tol)
+        rows += run_cases(moe_cases(phi_cfg, dt, gen, dev,
+                                    ("pprefill", "pdecode")), name, tol)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -3714,6 +4408,14 @@ def main() -> int:
     whisper_tables = lm_tables(rows, ("wprefill", "wdecode"),
                                "whisper-table")
 
+    # 11. zamba2-1.2b, qwen2-moe-a2.7b and phi3.5-moe (8 layers)
+    zamba2 = zamba2_phase(smi)
+    zamba2_tables = lm_tables(rows, ("zprefill", "zdecode"), "zamba2-table")
+    qwen = moe_phase(smi, "qwen2-moe-a2.7b")
+    phi = moe_phase(smi, "phi3.5-moe-42b-a6.6b", PHI_LAYERS)
+    moe_tables = lm_tables(rows, ("qprefill", "qdecode", "pprefill",
+                                  "pdecode"), "moe-table")
+
     def both(run, batch, key="counts"):
         """A phase's launches per run of its largest batch, by dtype."""
         return {dt: run[f"{dt}_{batch}"][key] for dt in ("fp32", "bf16")}
@@ -3729,7 +4431,13 @@ def main() -> int:
             (gemma_tables, "gdecode", both(gemma, "b2", "decode_counts")),
             (whisper_tables, "wprefill", both(whisper, "b4")),
             (whisper_tables, "wdecode", both(whisper, "b4",
-                                             "decode_counts"))):
+                                             "decode_counts")),
+            (zamba2_tables, "zprefill", both(zamba2, "b4")),
+            (zamba2_tables, "zdecode", both(zamba2, "b4", "decode_counts")),
+            (moe_tables, "qprefill", both(qwen, "b4")),
+            (moe_tables, "qdecode", both(qwen, "b4", "decode_counts")),
+            (moe_tables, "pprefill", both(phi, "b4")),
+            (moe_tables, "pdecode", both(phi, "b4", "decode_counts"))):
         check_listed(tabs, key, counts)
     # the Swin-T cases against the fused forward's launches
     listed = {name: sum(r["fused"] for r in rows if r["kernel"] == name
@@ -3738,8 +4446,18 @@ def main() -> int:
         raise AssertionError(f"the Swin-T cases list {listed} launches, "
                              f"the forward ran {main_counts}")
 
-    # 11. the int8 path
+    # 12. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles = {
+        "zamba2": readings_apart(
+            "zamba2_profile", "lm_profile('zamba2-1.2b', 4, 512, "
+            "('fp32', 'bf16'))"),
+        "qwen2-moe": readings_apart(
+            "qwen2_moe_profile", "lm_profile('qwen2-moe-a2.7b', 4, 256, "
+            "('bf16',))")}
     threshold = readings_apart("skinny_threshold",
                                "threshold_readings('cuda')")
     threshold_prologue = readings_apart(
@@ -3751,7 +4469,7 @@ def main() -> int:
                                   "layernorm_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    # 12. the kernels line and the result
+    # 13. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -3795,6 +4513,11 @@ def main() -> int:
             cases["causal"] = ["whisper.prefill causal"]
             cases["encoder causal"] = ["whisper.encoder causal"]
         check_modes(rows, "wprefill", dt, run, cases)
+        for key, run, name in (("zprefill", zamba2, "zamba2"),
+                               ("qprefill", qwen, "qwen2"),
+                               ("pprefill", phi, "phi3.5")):
+            check_modes(rows, key, dt, run[f"{dt}_b4"]["prefill_modes"],
+                        {"causal": [f"{name}.prefill causal"]})
     for key, case, launches_, label, path in (
             ("gprefill", "gemma.prefill causal+window",
              gemma["fp32_b2"]["prefill_modes"].get("causal+window", 0),
@@ -3814,6 +4537,16 @@ def main() -> int:
                 and r["case"].startswith(case + " q=")]
         kernels.append(kernel_line(mine, "flash_attention", key, launches_,
                                    path, label=label))
+    # this slice's paths: every kernel over one fp32 prefill of zamba2-1.2b
+    # and of qwen2-moe-a2.7b
+    for key, run, path in (
+            ("zprefill", zamba2, "one zamba2-1.2b prefill, B=4 x 512, fp32"),
+            ("qprefill", qwen, "one qwen2-moe-a2.7b prefill, B=4 x 256, "
+                               "fp32")):
+        for name in ("rowwise_matmul", "flash_attention", "layernorm"):
+            kernels.append(kernel_line(
+                rows, name, key, run["fp32_b4"]["counts"][name], path,
+                label=f"{name} {path.split(' ')[1]}"))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -3831,6 +4564,11 @@ def main() -> int:
                                "gemma": gemma, "gemma_tables": gemma_tables,
                                "whisper": whisper,
                                "whisper_tables": whisper_tables,
+                               "zamba2": zamba2,
+                               "zamba2_tables": zamba2_tables,
+                               "qwen2_moe": qwen, "phi35_moe": phi,
+                               "moe_tables": moe_tables,
+                               "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
                                "int8_path_device_ms": i8_device_ms,
@@ -3848,7 +4586,8 @@ def main() -> int:
                 "flash_attention causal row: over one deepseek-7b prefill "
                 "at B=4 x 512, fp32; the gemma3-27b and whisper-base "
                 "attention rows: over the calls of one prefill that take "
-                "that mode)")
+                "that mode; the zamba2-1.2b and qwen2-moe-a2.7b rows: over "
+                "one fp32 prefill)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

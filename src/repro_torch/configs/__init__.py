@@ -7,7 +7,8 @@ queue of ``ROADMAP.md`` that owes them.
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_20b,
-                                 internlm2_20b, rwkv6_3b, whisper_base)
+                                 internlm2_20b, phi35_moe, qwen2_moe,
+                                 rwkv6_3b, whisper_base, zamba2)
 from repro_torch.core.types import ModelConfig
 
 _MODULES = {
@@ -15,17 +16,17 @@ _MODULES = {
     "gemma3-27b": gemma3_27b,
     "granite-20b": granite_20b,
     "internlm2-20b": internlm2_20b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "qwen2-moe-a2.7b": qwen2_moe,
     "rwkv6-3b": rwkv6_3b,
     "whisper-base": whisper_base,
+    "zamba2-1.2b": zamba2,
 }
 
 # every other architecture of the JAX package, with the ROADMAP item
 # that ports it
 PENDING = {
-    "qwen2-vl-2b": "queue 1 item 8 (mrope, vision frontend)",
-    "phi3.5-moe-42b-a6.6b": "queue 1 item 8 (MoE)",
-    "qwen2-moe-a2.7b": "queue 1 item 8 (MoE)",
-    "zamba2-1.2b": "queue 1 item 8 (mamba2 hybrid)",
+    "qwen2-vl-2b": "queue 1 item 7 (mrope, vision frontend)",
 }
 
 

@@ -24,6 +24,12 @@ mma / ffma, WKV's chunk / step, layernorm's cta / rows).
         --batch 2 --seq 2048 --dtype fp32 --layers 8
     PYTHONPATH=src python -m repro_torch.launch.profile --model whisper-base \
         --batch 4 --seq 64 --dtype fp32 bf16
+    PYTHONPATH=src python -m repro_torch.launch.profile --model zamba2-1.2b \
+        --batch 4 --dtype fp32 bf16
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --model qwen2-moe-a2.7b --batch 4 --dtype bf16    # all 24 layers
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --model phi3.5-moe-42b-a6.6b --batch 4 --dtype bf16 --layers 8
     PYTHONPATH=src python -m repro_torch.launch.profile --model layernorm \
         --dtype fp32 bf16
 
@@ -309,7 +315,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="swin-t",
                     choices=["swin-t", "rwkv6-3b", "deepseek-7b",
-                             "gemma3-27b", "whisper-base", "layernorm"])
+                             "gemma3-27b", "whisper-base", "zamba2-1.2b",
+                             "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
+                             "layernorm"])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--dtype", nargs="+", default=["fp32"],
                     choices=sorted(DTYPES))

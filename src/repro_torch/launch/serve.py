@@ -11,7 +11,7 @@ seeded with ``--seed``, the synthetic prompts from
 ``np.random.default_rng(seed)`` at the reference's lengths
 (``prompt_len + i % 8``). The engine runs on one device: a
 ``--mesh-shape`` other than '' or '1' raises (tensor-parallel serving
-is not ported yet, ROADMAP.md queue 1 item 7).
+is not ported yet, ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def single_device(spec: str) -> str:
         raise ValueError(
             f"--mesh-shape {spec!r}: the port's engine runs on one "
             "device; tensor-parallel serving is not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
+            "(ROADMAP.md queue 1 item 8)")
     return "single-device"
 
 

@@ -27,7 +27,7 @@ online-softmax scan (:func:`_paged_fwd`), in torch ops as JAX runs them
 in jnp; the pool is written in place (:func:`write_pages`,
 :func:`write_chunk_pages`, :func:`copy_page`).
 
-Not ported yet: the sequence-sharded decode (ROADMAP.md queue 1 item 7)
+Not ported yet: the sequence-sharded decode (ROADMAP.md queue 1 item 8)
 and the flash backward (item 9).
 """
 from __future__ import annotations
@@ -110,7 +110,7 @@ def _apply_rope(q, k, cfg: ModelConfig, positions):
         return q, k
     if cfg.rope == "mrope":
         raise NotImplementedError(
-            "not ported yet: M-RoPE, ROADMAP.md queue 1 item 8")
+            "not ported yet: M-RoPE, ROADMAP.md queue 1 item 7")
     return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
             rope_lib.apply_rope(k, positions, cfg.rope_theta))
 

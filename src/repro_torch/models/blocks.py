@@ -3,13 +3,12 @@
 A block = pre-norm mixer (+ residual), then, in a decoder block of an
 encoder-decoder arch, pre-norm cross-attention to the encoder's output
 (+ residual), then pre-norm FFN (+ residual), with the kinds taken from
-the config's stage compilation. The port runs the ``attn`` mixer
-(global or sliding-window) with the ``mlp`` FFN, with or without
-cross-attention, and the RWKV6 pair (the ``rwkv6`` time-mix mixer and
-the ``rwkv6_cmix`` channel-mix FFN), in modes ``train``, ``prefill`` and
+the config's stage compilation: the ``attn`` mixer (global or
+sliding-window, with or without cross-attention), the ``mamba2`` mixer
+(zamba2) and the ``rwkv6`` time-mix, and the ``mlp``, ``moe`` and
+``rwkv6_cmix`` FFNs (or none), in modes ``train``, ``prefill`` and
 ``decode`` (dense or paged), and the paged serving modes ``chunk`` and
-``verify`` of the attention-only archs. The other kinds raise, naming
-the ROADMAP.md item that ports them. All dense ops route through the
+``verify`` of the attention-only archs. All dense ops route through the
 row-wise primitive.
 """
 from __future__ import annotations
@@ -21,23 +20,14 @@ import torch
 from repro_torch.core import runtime
 from repro_torch.core.types import BlockDef, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, mlp, rwkv6
+from repro_torch.models import attention, mamba2, mlp, moe, rwkv6
 
 MODES = ("train", "prefill", "decode", "chunk", "verify")
-
-# block kinds of the JAX package the port does not run yet
-_PENDING = {
-    "mamba2": "mamba2 mixer: ROADMAP.md queue 1 item 8",
-    "moe": "MoE FFN: ROADMAP.md queue 1 item 8",
-}
 
 
 def _check(blk: BlockDef, mode: str = "train"):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
-    for kind in (blk.mixer, blk.ffn):
-        if kind in _PENDING:
-            raise NotImplementedError(f"not ported yet: {_PENDING[kind]}")
     if mode in ("chunk", "verify") and (blk.mixer != "attn"
                                         or blk.cross_attn):
         raise ValueError(
@@ -69,6 +59,8 @@ def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,
     params = {"norm1": _norm_init(cfg, stack, dtype, device)}
     if blk.mixer == "attn":
         params["attn"] = attention.init(gen, cfg, stack, dtype, device)
+    elif blk.mixer == "mamba2":
+        params["mamba"] = mamba2.init(gen, cfg, stack, dtype, device)
     elif blk.mixer == "rwkv6":
         params["tmix"] = rwkv6.init(gen, cfg, stack, dtype, device)
     if blk.cross_attn:
@@ -79,6 +71,8 @@ def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,
         params["norm2"] = _norm_init(cfg, stack, dtype, device)
     if blk.ffn == "mlp":
         params["ffn"] = mlp.init(gen, cfg, stack, dtype, device)
+    elif blk.ffn == "moe":
+        params["ffn"] = moe.init(gen, cfg, stack, dtype, device)
     elif blk.ffn == "rwkv6_cmix":
         params["ffn"] = mlp.init_cmix(gen, cfg, stack, dtype, device)
     return params
@@ -86,7 +80,7 @@ def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,
 
 class BlockIO(NamedTuple):
     """Everything a block may consume/produce besides the hidden state."""
-    aux: float = 0.0                      # aux loss (MoE only)
+    aux: Any = 0.0                        # aux loss (a tensor: MoE)
     new_cache: Any = None                 # decode: updated cache slice
     prefill_state: Any = None             # prefill / verify: mixer state
 
@@ -116,6 +110,7 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
     as ``prefill_state``. Only causal-attention blocks without
     cross-attention take these two modes. Returns (x, BlockIO)."""
     _check(blk, mode)
+    aux = 0.0
     new_cache = {}
     prefill_state = {}
     window = blk.window if window_override is None else window_override
@@ -160,6 +155,15 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
             if mode == "prefill":
                 prefill_state["kv"] = (k, v)
         x = out if fuse else x + out
+    elif blk.mixer == "mamba2":
+        h = _norm_apply(params["norm1"], x, cfg)
+        state = cache["mamba"] if mode == "decode" else None
+        out, s_new = mamba2.apply(params["mamba"], h, cfg=cfg, state=state)
+        if mode == "decode":
+            new_cache["mamba"] = s_new
+        elif mode == "prefill":
+            prefill_state["mamba"] = s_new
+        x = x + out
     elif blk.mixer == "rwkv6":
         h = _norm_apply(params["norm1"], x, cfg)
         state = cache["rwkv_t"] if mode == "decode" else None
@@ -202,6 +206,11 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
         else:
             h = _norm_apply(params["norm2"], x, cfg)
             x = x + mlp.apply(params["ffn"], h, cfg=cfg)
+    elif blk.ffn == "moe":
+        h = _norm_apply(params["norm2"], x, cfg)
+        out, aux_l = moe.apply(params["ffn"], h, cfg=cfg)
+        x = x + out
+        aux = aux + aux_l
     elif blk.ffn == "rwkv6_cmix":
         h = _norm_apply(params["norm2"], x, cfg)
         x_last_c = (cache["rwkv_c"]["x_prev_c"] if mode == "decode"
@@ -213,5 +222,5 @@ def apply_block(blk: BlockDef, params, x, *, cfg: ModelConfig, mode: str,
         elif mode == "prefill":
             prefill_state["rwkv_c"] = {"x_prev_c": h[:, -1]}
         x = x + out
-    return x, BlockIO(new_cache=new_cache or None,
+    return x, BlockIO(aux=aux, new_cache=new_cache or None,
                       prefill_state=prefill_state or None)

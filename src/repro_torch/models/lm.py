@@ -21,9 +21,15 @@ pool is written in place. The port runs the dense decoder archs
 (attention + MLP: a global layer's KV cache leaves ``(R, B, alloc, Hkv,
 hd)``, a windowed layer's a ring of ``window`` slots, both written in
 place at decode), the encoder-decoder arch (:func:`encode` over
-``extra={"frames": ...}``, the cross K/V cached at prefill) and RWKV6
-(recurrent state); the hybrid path and tied TP heads come with later
-slices (ROADMAP.md queue 1).
+``extra={"frames": ...}``, the cross K/V cached at prefill), the MoE
+archs (their aux loss summed through :func:`forward`), RWKV6 (recurrent
+state) and the Mamba2 hybrid: zamba2's stage repeats one shared
+attention block (one weight copy) whose KV cache is per repeat, beside
+the per-slot recurrent state of its Mamba layers, so a paged zamba2
+cache holds page pools and per-slot state at once. A weight-only int8
+tree (``quant.quantize_tree``) runs too: the embedding gathers int8 rows
+and dequantizes them, the projections dequantize their leaves. M-RoPE
+and tied TP heads come with later slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -33,11 +39,11 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from repro_torch.core import runtime
+from repro_torch.core import quant, runtime
 from repro_torch.core.params import ParamTree
 from repro_torch.core.types import ModelConfig, Stage
 from repro_torch.kernels import ops
-from repro_torch.models import attention, blocks, rope
+from repro_torch.models import attention, blocks, mamba2, rope
 from repro_torch.models.attention import KVCache, PagedKVCache
 
 NEG_INF = -1e30
@@ -180,7 +186,12 @@ def _run_stages(stage_params, stages, x, *, cache=None, **kw):
 
 
 def embed(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens]
+    w = params["embed"]
+    if quant.is_quantized(w):
+        # weight-only int8 tree: gather the int8 rows, then dequantize
+        # only the gathered (B, S, d) block by the per-column scales
+        return (w["q"][tokens].float() * w["s"]).to(DTYPES[cfg.dtype])
+    return w[tokens]
 
 
 def unembed(params, x, cfg: ModelConfig):
@@ -189,7 +200,7 @@ def unembed(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         # the kernel reads weights with unit column stride: the tied
         # head multiplies by a transposed copy of the table
-        w = params["embed"].t().contiguous()
+        w = quant.resolve_weight(params["embed"], x.dtype).t().contiguous()
     else:
         w = params["lm_head"]
     logits = ops.matmul(x, w, out_dtype=torch.float32)
@@ -246,7 +257,9 @@ def forward(params, tokens, cfg: ModelConfig, *,
     x, aux, _ = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
                             mode="train", positions=_positions(tokens),
                             enc_out=enc_out)
-    return unembed(params, x, cfg), torch.tensor(aux, dtype=torch.float32)
+    aux = (aux.float() if isinstance(aux, torch.Tensor)
+           else torch.tensor(aux, dtype=torch.float32))
+    return unembed(params, x, cfg), aux
 
 
 # ----------------------------------------------------------------------
@@ -272,6 +285,11 @@ def _slot_cache_init(blk, cfg: ModelConfig, repeat, batch, alloc, dtype,
         c["kv"] = KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device))
+    elif blk.mixer == "mamba2":
+        st = mamba2.init_state(cfg, batch, dtype, device)
+        c["mamba"] = mamba2.MambaState(*(
+            torch.zeros((repeat,) + a.shape, dtype=a.dtype, device=device)
+            for a in st))
     elif blk.mixer == "rwkv6":
         r = cfg.rwkv
         h = cfg.d_model // r.head_dim
@@ -361,8 +379,8 @@ def states_to_cache(cfg: ModelConfig, all_states, alloc: int):
     """Prefill states -> decode cache: a global layer's KV padded with
     zeros to ``alloc`` positions, a windowed layer's as its ring of
     ``window`` slots (whatever ``alloc``, as in JAX, where ``init_cache``
-    makes min(alloc, window)); the cross K/V and the recurrent state pass
-    through."""
+    makes min(alloc, window)); the cross K/V and the recurrent state
+    (RWKV6's, Mamba2's) pass through."""
     out = []
     for stage, states in zip(cfg.stages(), all_states):
         sc = {}
@@ -481,7 +499,7 @@ def _insert(cfg: ModelConfig, cache, states, targets_of, slot=None):
                     targets = targets_of(k.shape[2])
                 c["kv"] = _insert_pages(
                     cur["kv"], k, v, targets[stage.body[int(key)].window])
-            for name in ("rwkv_t", "rwkv_c", "cross_kv"):
+            for name in ("mamba", "rwkv_t", "rwkv_c", "cross_kv"):
                 if name in st:
                     c[name] = _tree_map(lambda d, s_: _insert_slot(d, s_,
                                                                    slot),

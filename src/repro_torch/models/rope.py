@@ -1,7 +1,7 @@
 """Position encodings: standard (neox-style, half-split) RoPE, which the
 dense archs apply to q and k inside attention, and the sinusoidal
 absolute embedding the recurrent and encoder-decoder archs add to x.
-M-RoPE (qwen2-vl) comes with ROADMAP.md queue 1 item 8."""
+M-RoPE (qwen2-vl) comes with ROADMAP.md queue 1 item 7."""
 from __future__ import annotations
 
 import torch

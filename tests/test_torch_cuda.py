@@ -177,6 +177,44 @@ def test_matmul_designs(dev, dtype, shape, mode):
     _close(got, want, TOLS[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 16, 333, 2048])
+def test_matmul_mamba_in_proj(dev, dtype, m):
+    """zamba2-1.2b's in-projection: K = 2048, N = 8384 (an odd multiple
+    of 64: the last tile of the wide designs is masked) on every design
+    (skinny at M <= 16 fp32 / 4 bf16, then ffma or wgmma), and the
+    z | x | B,C | dt column views of its output read as the mixer reads
+    them; then out_proj, K = 4096 into N = 2048."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    for k, n in ((2048, 8384), (4096, 2048)):
+        x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+        w = (torch.randn(k, n, device=dev, generator=g)
+             * k ** -0.5).to(dtype)
+        got = rowwise_matmul_p(x, w)
+        want = ref.pipeline_ref(x.float(), w.float(),
+                                out_dtype=torch.float32)
+        _close(got, want, TOLS[dtype])
+        if n == 8384:
+            for a, b in zip(torch.split(got, [4096, 4096, 128, 64], -1),
+                            torch.split(want, [4096, 4096, 128, 64], -1)):
+                _close(a, b, TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 333, 2048])
+def test_layernorm_mamba_gated_rms(dev, dtype, m):
+    """The Mamba2 mixer's gated RMS norm: D = 4096 rows of y * silu(z),
+    cast to the block's dtype, as ``mamba2.apply`` hands them to the
+    kernel."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    y, z = (torch.randn(m, 4096, device=dev, generator=g) for _ in range(2))
+    x = (y * torch.nn.functional.silu(z)).to(dtype)
+    gamma = (1 + 0.1 * torch.randn(4096, device=dev, generator=g)).to(dtype)
+    _ln_check(x, gamma, None, "rms")
+
+
 @pytest.mark.parametrize("skinny_upto", [0, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8], ids=str)
@@ -323,6 +361,14 @@ ATTN_CASES = {
                           hd=64),
     "whisper-cross-17": dict(b=1, hq=8, hkv=8, sq=17, skv=1500,
                              causal=False, hd=64),
+    # zamba2-1.2b's shared block: 32 heads of 64, causal, S 512 and 333;
+    # phi3.5-moe's GQA 32 over 8 at head dim 128
+    "zamba2-512": dict(b=4, hq=32, hkv=32, sq=512, skv=512, causal=True,
+                       hd=64),
+    "zamba2-333": dict(b=1, hq=32, hkv=32, sq=333, skv=333, causal=True,
+                       hd=64),
+    "phi35-gqa": dict(b=4, hq=32, hkv=8, sq=512, skv=512, causal=True,
+                      hd=128),
 }
 
 
@@ -708,6 +754,72 @@ def test_dense_prefill_and_decode_on_kernels(dev, arch):
             _close(a, b, 1e-3)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-moe-a2.7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_hybrid_and_moe_on_kernels(dev, arch):
+    """The reduced Mamba2 hybrid and MoE LMs (jittered norms and Mamba
+    vectors) on the kernels against the plain path on the card: a
+    ragged prefill into a cache of 24 and three decode steps,
+    teacher-forced, each path with its own cache; the final caches
+    (every Mamba ``conv`` and ``ssm``, the KV) agree. Launches a call:
+    zamba2 2 matmuls and 2 norms a Mamba layer, 4, 1 attention at
+    prefill and 2 norms (split or kept: ``norm_prologue_fits``) a
+    shared-block repeat; MoE 2 matmuls, 2 norms (1 where the qkv norm
+    stays in the prologue) and 1 attention at prefill a layer; the head
+    and the final norm."""
+    cfg = get_reduced(arch)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
+                             generator=g)
+    with torch.no_grad():
+        tree = model.params.tree()
+        for stage in tree["stages"]:
+            for blk in [*stage["stacked"].values(), *stage["shared"].values()]:
+                vecs = [t for n in ("norm1", "norm2") if n in blk
+                        for t in blk[n].values()]
+                if "mamba" in blk:
+                    vecs += [blk["mamba"][k] for k in ("A_log", "dt_bias",
+                                                       "D", "conv_b",
+                                                       "norm_g")]
+                for t in vecs:
+                    t.add_(0.3 * torch.randn(t.shape, generator=g).to(dev))
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
+    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    d, L = cfg.d_model, cfg.n_layers
+
+    def want(rows, prefill):
+        split = 0 if rm.norm_prologue_fits(rows, d, torch.float32) else 1
+        if cfg.moe is not None:
+            return [2 * L + 1, L if prefill else 0, L * (1 + split) + 1]
+        attn = sum(st.repeat for st in cfg.stages()
+                   for b in st.body if b.mixer == "attn")
+        mamba = L - attn
+        return [2 * mamba + 4 * attn + 1, attn if prefill else 0,
+                2 * mamba + 2 * split * attn + 1]
+    with torch.no_grad():
+        before = [k.launches for k in counts]
+        got, cache = model.prefill(toks[:, :21], alloc=24)
+        assert [k.launches - b for k, b in zip(counts, before)] == want(
+            42, True)
+        with runtime.use_impl("ref"):
+            want_lg, want_cache = model.prefill(toks[:, :21], alloc=24)
+        _close(got, want_lg, 1e-3)
+        lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
+        for t in range(21, 24):
+            before = [k.launches for k in counts]
+            got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
+            assert [k.launches - b for k, b in zip(counts, before)] == want(
+                2, False)
+            with runtime.use_impl("ref"):
+                want_lg, want_cache = model.decode_step(
+                    want_cache, toks[:, t:t + 1], lengths)
+            _close(got, want_lg, 1e-3)
+            lengths = lengths + 1
+        leaves = torch.utils._pytree.tree_leaves
+        for a, b in zip(leaves(cache), leaves(want_cache)):
+            _close(a, b, 1e-3)
+
+
 @pytest.mark.parametrize("arch", ["gemma3-27b", "whisper-base"])
 def test_window_and_encdec_on_kernels(dev, arch):
     """gemma3-smoke (16-token window, prompts past it, decode across the
@@ -900,7 +1012,8 @@ def _engine_run(tree, cfg, device, prompts):
     return done, eng
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma3-27b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma3-27b", "rwkv6-3b",
+                                  "zamba2-1.2b", "qwen2-moe-a2.7b"])
 def test_engine_on_kernels(dev, arch):
     """The serving engine at a reduced size on the card (the kernels)
     against the same engine on the CPU (the plain path), on the same

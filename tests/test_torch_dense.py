@@ -453,20 +453,28 @@ def test_configs_match_jax():
 
 def test_unported_attention_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP.md item:
-    M-RoPE, and the MoE and mamba2 architectures of the registry."""
+    M-RoPE and the qwen2-vl-2b architecture of the registry. The mamba2
+    mixer and the MoE FFN, pending before, build and run a prefill."""
     cfg = get_reduced("deepseek-7b")
     mrope = dataclasses.replace(cfg, rope="mrope")
     q = torch.zeros(1, 3, 4, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         attention._apply_rope(q, q, mrope, torch.zeros(1, 3))
-    for arch in ("qwen2-vl-2b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
-                 "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
-    for kind in ("moe", "mamba2"):
-        blk = dataclasses.replace(cfg.stages()[0].body[0],
-                                  **({"ffn": kind} if kind == "moe"
-                                     else {"mixer": kind}))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            blocks.init_block(torch.Generator(), blk, cfg, None,
-                              torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        get_config("qwen2-vl-2b")
+    for arch, kind in (("zamba2-1.2b", "mamba2"), ("qwen2-moe-a2.7b", "moe")):
+        acfg = get_reduced(arch)
+        blk = next(b for st in acfg.stages() for b in st.body
+                   if kind in (b.mixer, b.ffn))
+        params = blocks.init_block(torch.Generator().manual_seed(0), blk,
+                                   acfg, None, torch.float32, "cpu")
+        x = torch.randn(2, 5, acfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        out, io = blocks.apply_block(
+            blk, params, x, cfg=acfg, mode="prefill",
+            positions=torch.arange(5)[None].expand(2, 5))
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        if kind == "mamba2":
+            assert set(io.prefill_state) == {"mamba"}
+        else:
+            assert torch.is_tensor(io.aux) and float(io.aux) > 0

@@ -9,7 +9,9 @@ engine runs: the same requests on the same weights (the JAX
 initializer's, converted by ``from_jax_params``) through the JAX engine
 (``use_impl("ref")``) and the port's (``device="cpu"``), at the reduced
 sizes of deepseek-7b, gemma3-27b (gemma3-smoke: a 16-token window, so
-ring pages wrap) and rwkv6-3b. For every scenario each completion's
+ring pages wrap), rwkv6-3b, zamba2-1.2b (page pools and Mamba2 state in
+one cache) and qwen2-moe-a2.7b, and on a weight-only int8 deepseek-7b
+tree. For every scenario each completion's
 ``(rid, tokens, status, prompt_len)``, the ``stats`` dict and the
 shape counts (``compile_counts``, against JAX's jit cache sizes) must
 be equal, and the greedy streams of some scenarios equal
@@ -32,7 +34,8 @@ import torch
 from conftest import manual_greedy
 from scipy import stats
 
-from repro.configs import deepseek_7b, gemma3_27b, rwkv6_3b
+from repro.configs import deepseek_7b, gemma3_27b, qwen2_moe, rwkv6_3b, zamba2
+from repro.core import quant as jquant
 from repro.core import runtime as jruntime
 from repro.core.types import PagingConfig as JPagingConfig
 from repro.models import lm as jlm
@@ -48,7 +51,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.serve import engine, faults, paging, prefix_cache, spec
 
 ARCHS = {"deepseek-7b": deepseek_7b, "gemma3-27b": gemma3_27b,
-         "rwkv6-3b": rwkv6_3b}
+         "rwkv6-3b": rwkv6_3b, "zamba2-1.2b": zamba2,
+         "qwen2-moe-a2.7b": qwen2_moe}
 JAX_SIDE = types.SimpleNamespace(
     Engine=jengine.Engine, Request=jengine.Request, Fault=jfaults.Fault,
     FaultPlan=jfaults.FaultPlan, Paging=JPagingConfig, kw={})
@@ -70,11 +74,18 @@ _MODELS = {}
 
 def _model(arch):
     """(jcfg, tcfg, jparams, tparams) of one reduced arch, built once
-    per module."""
+    per module. ``<arch>-int8``: the weight-only int8 tree JAX's
+    ``quantize_tree`` makes with ``lm_weight_predicate`` (key 4, as
+    ``tests/test_fused_layout.py::test_quantized_tree_engine_smoke``
+    builds it), converted leaf for leaf."""
     if arch not in _MODELS:
-        jcfg, tcfg = ARCHS[arch].reduced(), get_reduced(arch)
-        params, _ = jlm.init_lm(jax.random.PRNGKey(0), jcfg,
+        base = arch.removesuffix("-int8")
+        jcfg, tcfg = ARCHS[base].reduced(), get_reduced(base)
+        int8 = base != arch
+        params, _ = jlm.init_lm(jax.random.PRNGKey(4 if int8 else 0), jcfg,
                                 dtype=jnp.float32)
+        if int8:
+            params = jquant.quantize_tree(params, jquant.lm_weight_predicate)
         tree = jax.tree_util.tree_map(np.asarray, params)
         _MODELS[arch] = (jcfg, tcfg, params,
                          from_jax_params(tree, tcfg, device="cpu"))
@@ -417,6 +428,19 @@ SCENARIOS = {
         and e.stats["spec_accepted"] > 0),
     "rwkv-exact": ("rwkv6-3b", _simple([5, 9, 3], 0, 6, max_len=32), True,
                    lambda e: e.buckets is None),
+    # the shared block's page pools and the Mamba layers' per-slot state
+    # in one cache; slots refill
+    "zamba2-exact": ("zamba2-1.2b", _simple([5, 9, 3, 12], 0, 6,
+                                            max_len=32), True,
+                     lambda e: e.buckets is None
+                     and e.prefix_cache is None),
+    # idle slots' rows compete for the decode step's expert capacity
+    "qwen2-moe-exact": ("qwen2-moe-a2.7b", _simple([5, 9, 3, 12], 1, 6,
+                                                   max_len=32), True,
+                        lambda e: e.buckets is None),
+    # a weight-only int8 tree: the cache in the config's bf16
+    "int8-tree": ("deepseek-7b-int8", _simple([4, 5, 6], 4, 3, max_len=32),
+                  True, lambda e: e.cache_dtype == torch.bfloat16),
     "preempt-patience": ("deepseek-7b", _simple(
         [9, 10, 11], 3, 8, max_len=32, n_pages=6, preempt_patience=2),
         False, lambda e: e.stats["preemptions"]),
@@ -515,6 +539,9 @@ def test_engine_reads_the_device_once_a_call(monkeypatch):
     ("deepseek-7b", dict(prefix=True)),
     ("rwkv6-3b", dict(k=2)),
     ("deepseek-7b", dict(k=2, twb=True)),
+    ("zamba2-1.2b", dict(buckets=[16, 32])),
+    ("zamba2-1.2b", dict(chunk=16)),
+    ("qwen2-moe-a2.7b", dict(k=2)),
 ], ids=lambda c: f"{c[0]}-{'-'.join(c[1])}")
 def test_engine_config_rejections_match_jax(case):
     """Every config the JAX engine refuses at construction, the port's
@@ -646,6 +673,23 @@ def test_cli_serves_on_the_cpu(capsys):
     assert ("KV traffic: n/a (no attention layers); compiles: prefill=4 "
             "chunk=0 step=1 spec=0 buckets=None prefill_chunk=0") in out
     for mesh in ("4", "model=2", "data=1"):
-        with pytest.raises(ValueError, match="queue 1 item 7"):
+        with pytest.raises(ValueError, match="queue 1 item 8"):
             tserve.main(["--smoke", "--device", "cpu", "--mesh-shape",
                          mesh])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-moe-a2.7b"])
+def test_cli_serves_the_hybrid_and_moe_archs(capsys, arch):
+    """``launch/serve.py`` on the CPU for the Mamba2 hybrid and an MoE
+    arch: exact-length prefill (no buckets), every request ok; a chunk
+    size is refused as the JAX engine refuses it."""
+    done, out = _cli(capsys, "--arch", arch, "--requests", "4", "--slots",
+                     "2", "--max-len", "32", "--page-size", "8",
+                     "--max-new", "5")
+    assert "statuses: {'ok': 4}" in out
+    assert ("compiles: prefill=4 chunk=0 step=1 spec=0 buckets=None "
+            "prefill_chunk=0") in out
+    assert len(done) == 4 and all(len(c.tokens) == 5 for c in done)
+    with pytest.raises(ValueError, match="recurrent/MoE prefill state"):
+        tserve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                     "--prefill-chunk", "16"])

@@ -46,7 +46,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.serve.paging, repro_torch.serve.sampling, "
         "repro_torch.serve.engine, repro_torch.serve.faults, "
         "repro_torch.serve.spec, repro_torch.serve.prefix_cache, "
-        "repro_torch.core.block_traffic, repro_torch.launch.serve\n"
+        "repro_torch.core.block_traffic, repro_torch.launch.serve, "
+        "repro_torch.models.mamba2, repro_torch.models.moe, "
+        "repro_torch.configs.zamba2, repro_torch.configs.qwen2_moe, "
+        "repro_torch.configs.phi35_moe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")

@@ -235,3 +235,65 @@ def test_int8_out_dtype_and_residual_dtype():
     np.testing.assert_allclose(np.asarray(port.float()),
                                np.asarray(want, np.float32), rtol=1e-2,
                                atol=1e-2)
+
+
+# ------------------- weight-only int8 LM trees ---------------------------
+
+
+BF16_TOL = 3e-2
+
+
+def _lm_trees(arch):
+    """A reduced arch's fp32 JAX tree quantized by JAX's ``quantize_tree``
+    with ``lm_weight_predicate``, and the same through the port's
+    converter, whose int8 leaves cross as they are."""
+    from repro.configs import REDUCED
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import from_jax_params
+    jcfg, tcfg = REDUCED[arch](), get_reduced(arch)
+    params, _ = jlm.init_lm(jax.random.PRNGKey(4), jcfg, dtype=jnp.float32)
+    jq = jquant.quantize_tree(params, jquant.lm_weight_predicate)
+    tq = from_jax_params(jax.tree_util.tree_map(np.asarray, jq), tcfg,
+                         device="cpu")
+    return jcfg, tcfg, jq, tq
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-20b"])
+def test_int8_lm_tree_forward_and_greedy_match_jax(arch):
+    """A weight-only int8 tree (deepseek-7b reduced: untied head;
+    granite-20b reduced: the head tied to the int8 embedding) runs
+    through ``lm.forward`` and ``lm.greedy``: the embedding gathers int8
+    rows and dequantizes only them (bitwise JAX's ``embed``), the tied
+    head resolves the table before its transpose. Logits within the
+    bf16 tolerance (the tree dequantizes to the config's bf16), greedy
+    streams equal to ``manual_greedy`` on JAX's tree."""
+    from conftest import manual_greedy
+
+    from repro.core import runtime as jruntime
+    from repro.models import lm as jlm
+    from repro_torch.models import lm
+    jcfg, tcfg, jq, tq = _lm_trees(arch)
+    assert quant.is_quantized(tq["embed"])
+    assert tcfg.tie_embeddings == (arch == "granite-20b")
+    toks = np.random.default_rng(3).integers(0, 256, (2, 21)).astype(
+        np.int32)
+    emb = lm.embed(tq, torch.from_numpy(toks).long(), tcfg)
+    jemb = jlm.embed(jq, jnp.asarray(toks), jcfg)
+    assert emb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(emb.float().numpy(),
+                                  np.asarray(jemb, np.float32))
+    with jruntime.use_impl("ref"):
+        want, _ = jlm.forward(jq, jnp.asarray(toks), jcfg, remat=False)
+    got, aux = lm.forward(tq, torch.from_numpy(toks).long(), tcfg)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= BF16_TOL * max(1.0, np.abs(want).max()), err
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
+    for seed, s in ((5, 5), (9, 9)):
+        prompt = np.random.default_rng(seed).integers(0, 256, (s,)).astype(
+            np.int32)
+        with jruntime.use_impl("ref"):
+            stream = manual_greedy(jq, jcfg, jnp.asarray(prompt), 6, s + 6)
+        got = lm.greedy(tq, torch.from_numpy(prompt).long()[None], tcfg, 6)
+        assert got[0].tolist() == stream
