@@ -160,13 +160,39 @@ Phases, each printing its lines:
    flips only below ``MOE_FLIP_MARGIN``), the fp32 model freed and the
    bf16 one built (readings at full depth, layers held), qwen2-moe's
    engine in bf16 (4 requests at exact lengths, 8 tokens); tokens/s;
-12. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+12. qwen2-vl-2b at full width and depth (28 layers, 1.544 B parameters,
+   M-RoPE, 12 query heads over 2 KV heads): 4 prompts of 512 tokens
+   whose first 128 rows are patch embeddings on an 8 x 16 (t=0, h, w)
+   grid, then 32 greedy steps, and 1 text prompt of 333 then 8, fp32
+   teacher-forced (logits, picks, the KV cache), 113 / 28 / 57 / 0
+   launches a prefill and 113 / 0 / 57 / 0 a step; bf16 layer by layer
+   and as readings; the engine at exact lengths (97 / 333 / 64 / 200,
+   16 tokens, text only); rates;
+13. the gradients of the four ops through ``ops`` (``ops.KernelOp``:
+   the kernels forward, the plain versions' gradient backward), fp32
+   and bf16, against the plain path's at qwen2-vl-2b's shapes (the
+   matmul with bias, residual, silu and gelu gated panels and split
+   norms; group-6 attention, causal and windowed; RMS and LayerNorm
+   with beta) and RWKV6-3B's WKV, within the kernel limits, the forward
+   launching once and the backward never;
+14. qwen2-vl-2b trained at full width and depth in fp32 (B=4 x 512,
+   ``SyntheticLM``): step 0's ``lm.loss_fn`` and gradients on a batch
+   with patch embeddings against the plain path (``TRAIN_LOSS_TOL``,
+   ``TRAIN_GRAD_TOL``; the gradient reaching ``vis_embeds``), 20 steps
+   of ``make_train_step`` (225 / 56 / 113 / 0 launches each with remat,
+   no synchronising call, the loss falling by ``TRAIN_MARGIN``),
+   tokens/s, forward and backward time, peak memory, idle share; then
+   at ``RESUME_LAYERS`` = 4 layers: 10 steps straight against 6, a
+   checkpoint, a restore and 4 more (within 1e-6), and
+   ``launch/train.py`` stopped by SIGTERM in its fifth step and resumed
+   from the checkpoint its hook wrote;
+15. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler); the profiles of a
    zamba2-1.2b (fp32, bf16) and a qwen2-moe-a2.7b (bf16) prefill and
    decode step, each in a process of its own (``launch/profile.py``:
    wall, busy, idle share, device ms by kernel);
-13. the matmul, attention and WKV per design and dtype, summed over a
+16. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
@@ -187,8 +213,9 @@ Phases, each printing its lines:
    attention a second time over a deepseek-7b prefill (causal), and
    once per new mode: gemma3-27b's windowed layers, whisper-base's
    encoder (S = 1500) and its cross-attention; and each of matmul,
-   attention and layernorm over an fp32 prefill of zamba2-1.2b and of
-   qwen2-moe-a2.7b.
+   attention and layernorm over an fp32 prefill of zamba2-1.2b, of
+   qwen2-moe-a2.7b and of qwen2-vl-2b, and over a qwen2-vl-2b train
+   step.
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -203,7 +230,10 @@ is SDPA with a boolean mask. So too every kernel call of a zamba2-1.2b
 prefill (B=4 x 512) and step (B=4: in_proj at N = 8384 on every
 matmul design, the gated RMS norm at D = 4096, the shared block's
 attention at hd 64) and of the MoE archs' (B=4 x 256, B=4), in
-``zamba2-table`` and ``moe-table`` lines.
+``zamba2-table`` and ``moe-table`` lines; and of a qwen2-vl-2b prefill
+(B=4 x 512: its group-6 attention), step (B=4) and fp32 train step
+(each layer's calls twice, the head over 2048 rows), in ``vl-table``
+lines.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -215,6 +245,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -416,11 +447,11 @@ def err_ok(out, want, tol):
 COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
           "dprefill", "ddecode", "dunfused", "gprefill", "gdecode",
           "wprefill", "wdecode", "zprefill", "zdecode", "qprefill",
-          "qdecode", "pprefill", "pdecode")
+          "qdecode", "pprefill", "pdecode", "vprefill", "vdecode", "vtrain")
 # the count keys of the LM paths whose cases also read device ms
 DEVICE_MS_KEYS = ("vit", "gprefill", "gdecode", "wprefill", "wdecode",
                   "zprefill", "zdecode", "qprefill", "qdecode", "pprefill",
-                  "pdecode")
+                  "pdecode", "vprefill", "vdecode", "vtrain")
 # the exact launches (rowwise_matmul, flash_attention, layernorm, wkv) of
 # each fused run the model phases check, restated by hand as PERF.md §2
 # lists them; :func:`want_launches` also holds each against the count
@@ -466,6 +497,14 @@ LAUNCHES = {
     "qwen2-moe-a2.7b step": (49, 0, 49, 0),
     "phi3.5-moe/8 prefill": (17, 8, 17, 0),         # 8 layers
     "phi3.5-moe/8 step": (17, 0, 17, 0),
+    # qwen2-vl-2b: a layer 4 / 1 / 2 (its qkv and gate|up norms split at
+    # K = 1536 on every design), the head 1 / 0 / 1; a train step at B=4
+    # x 512 with remat: the forward's, then each layer's once more as
+    # the backward recomputes it (the head and final norm are not
+    # recomputed); the backward itself launches no kernel
+    "qwen2-vl-2b prefill": (113, 28, 57, 0),    # 4 x 512, 1 x 333, engine
+    "qwen2-vl-2b step": (113, 0, 57, 0),
+    "qwen2-vl-2b train step": (225, 56, 113, 0),
 }
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 
@@ -1204,6 +1243,61 @@ def moe_cases(cfg, dtype, gen, device, keys):
     return cases
 
 
+def vl_cases(cfg, dtype, gen, device):
+    """Every distinct kernel call of a qwen2-vl-2b prefill at B=4 x 512
+    (M=2048) and decode step at B=4 (M=4), with its launches per prefill
+    and per step (``vprefill`` / ``vdecode``), and in fp32 per train step
+    at B=4 x 512 (``vtrain``: each layer's calls twice, the forward's and
+    the recomputation's, the head and final norm at M=2048 once): per
+    layer the qkv panel (q 1536, k and v 256 each) and the gate|up panel
+    with the RMS norm (split at K = 1536), wo and down with the
+    residual, causal attention of 12 query heads over 2 KV heads (a
+    group of 6) at head dim 128; the tied head (N = 152064 padded to
+    152064) with fp32 out."""
+    import torch
+    from repro_torch.models import attention, lm
+    d, f, n_layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qkv, ho = sum(attention.proj_splits(cfg)), cfg.n_heads * cfg.head_dim
+    train = dtype == torch.float32
+    cases = []
+    for m, key in ((4 * 512, "vprefill"), (4, "vdecode")):
+        tag = f"vl.{'prefill' if m > 4 else 'decode'}"
+        counts = {key: n_layers}
+        if m > 4 and train:
+            counts["vtrain"] = 2 * n_layers
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen,
+                                   device, norm="rms", bias=False, **counts)
+        cases += norm_matmul_cases(f"{tag} gate|up+silu", m, d, f, dtype,
+                                   gen, device, norm="rms", bias=False,
+                                   act="silu", gated=True, panel=(2 * f, 0),
+                                   **counts)
+        cases += [
+            matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
+                        bias=False, residual=True, **counts),
+            matmul_case(f"{tag} down+res", m, f, d, dtype, gen, device,
+                        bias=False, residual=True, **counts),
+        ]
+    vp = lm.padded_vocab(cfg)
+    cases += [
+        attention_case("vl.prefill causal", (4, 512, cfg.head_dim),
+                       cfg.n_heads, cfg.n_kv_heads, dtype, gen, device,
+                       causal=True, vprefill=n_layers,
+                       **({"vtrain": 2 * n_layers} if train else {})),
+        matmul_case("vl lm_head fp32-out", 4, d, vp, dtype, gen, device,
+                    bias=False, out_f32=True, vprefill=1, vdecode=1),
+        layernorm_case("vl final_norm", 4, d, dtype, gen, device,
+                       kind="rms", vprefill=1, vdecode=1),
+    ]
+    if train:
+        cases += [
+            matmul_case("vl.train lm_head fp32-out", 4 * 512, d, vp, dtype,
+                        gen, device, bias=False, out_f32=True, vtrain=1),
+            layernorm_case("vl.train final_norm", 4 * 512, d, dtype, gen,
+                           device, kind="rms", vtrain=1),
+        ]
+    return cases
+
+
 def int8_cases(cfg, rwkv_cfg, batch, gen, device):
     """The int8 W8A8 leg at every distinct Swin-T matmul shape (B=8, with
     its launches per fused forward, which the int8 path replays) and at
@@ -1912,7 +2006,7 @@ def check_serving(phase, model, prompts, n_steps, tol, want_counts,
             "tokens": torch.stack(toks, 1).tolist()}
 
 
-def bf16_layers(phase, model16, prompts, frames=None):
+def bf16_layers(phase, model16, prompts, frames=None, extra=None):
     """Each layer of the bf16 model at prefill, run on the plain bf16
     path's input to it (so no error carries from layer to layer), against
     the same layer in fp32 on the same weights and input, as rms(err) /
@@ -1922,8 +2016,9 @@ def bf16_layers(phase, model16, prompts, frames=None):
     ``frames``: an encoder-decoder's, whose encoder layers run first
     (windowless, as ``lm.encode`` runs them) and whose plain bf16 output
     every decoder layer's cross-attention reads (the fp32 layer its fp32
-    copy). Returns the worst reading over layers of each path and the
-    control's least."""
+    copy). ``extra``: a vision arch's patch embeddings and (t, h, w)
+    positions. Returns the worst reading over layers of each path and
+    the control's least."""
     import torch
     from repro_torch.core import runtime
     from repro_torch.kernels import ops
@@ -1976,9 +2071,9 @@ def bf16_layers(phase, model16, prompts, frames=None):
             with runtime.use_impl("ref"):
                 enc_out = ops.layernorm(x, fn["g"], fn.get("b"),
                                         kind=cfg.norm)
-        x = lm._add_positions(lm.embed(tree, prompts, cfg), cfg)
-        layers(cfg.stages(), tree["stages"], x, lm._positions(prompts),
-               enc_out)
+        x = lm._add_positions(lm.embed(tree, prompts, cfg, extra), cfg)
+        layers(cfg.stages(), tree["stages"], x,
+               lm._positions(cfg, prompts, extra), enc_out)
     out = {"kernels_max": max(reads["kernels"]),
            "plain_max": max(reads["plain"]),
            "control_min": min(reads["control"]), "per_layer": reads}
@@ -3898,7 +3993,7 @@ def moe_layers(phase, model, prompts):
     try:
         with torch.no_grad():
             x = lm.embed(tree, prompts, cfg)
-            positions = lm._positions(prompts)
+            positions = lm._positions(cfg, prompts)
             stage, sp = cfg.stages()[0], tree["stages"][0]
             blk = stage.body[0]
             for rep in range(stage.repeat):
@@ -4067,6 +4162,623 @@ def moe_phase(smi, arch, n_layers=0):
                                        for k, v in peak.items())
         + f" (one model resident) | {smi}")
     say(tag, f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------ qwen2-vl-2b ------------------------------
+
+
+def vl_inputs(cfg, gen, b, s, n_patches):
+    """A vision batch of ``b`` rows of ``s`` tokens: ``n_patches`` patch
+    embeddings (the table's scale, 0.02) over the first rows, on a (t=0,
+    h, w) grid 8 wide, and every text row at t = h = w = its index."""
+    import torch
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    ve = _rand(gen, (b, n_patches, cfg.d_model), torch.float32, "cuda", 0.02)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    p3 = torch.stack([pos, pos, pos])[:, None].expand(3, b, s).clone()
+    patch = torch.arange(n_patches, dtype=torch.int32, device="cuda")
+    p3[0, :, :n_patches] = 0
+    p3[1, :, :n_patches] = patch // 16
+    p3[2, :, :n_patches] = patch % 16
+    return tokens, {"vis_embeds": ve, "positions3": p3}
+
+
+def vl_phase(smi):
+    """qwen2-vl-2b at full width and depth (28 layers, 1.544 B
+    parameters): 4 prompts of 512 tokens with 128 patch embeddings on an
+    8 x 16 (t=0, h, w) grid then 32 greedy steps, and 1 text prompt of
+    333 then 8, fp32 teacher-forced against the plain path (logits,
+    picks, the KV cache), 113 / 28 / 57 / 0 launches a prefill and
+    113 / 0 / 57 / 0 a step; bf16 layer by layer against fp32 beside the
+    float8 control and at full depth as readings; the engine at exact
+    lengths (text only, as JAX's engine serves a vision arch) in fp32;
+    prefill and decode rates."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.models import lm, rope
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-vl-2b")
+    f32, bf = torch.float32, torch.bfloat16
+    model = lm.LanguageModel(
+        cfg, device="cuda", dtype=f32,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        jitter_norms(model.params.tree(),
+                     torch.Generator(device="cuda").manual_seed(1))
+    n_params = sum(p.numel() for p in model.parameters())
+    say("qwen2-vl", f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+                    f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+                    f"heads of {cfg.head_dim} (M-RoPE sections "
+                    f"{rope.mrope_sections(cfg.head_dim)}), "
+                    f"d_ff {cfg.d_ff} (SwiGLU), vocab {cfg.vocab} padded "
+                    f"to {lm.padded_vocab(cfg)} (tied): {n_params / 1e9:.4f}"
+                    f" B parameters (param_counts says "
+                    f"{cfg.param_counts()['total']:,}), fp32, built in "
+                    f"{time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompts, extra = vl_inputs(cfg, gen, 4, 512, 128)
+    prompt1 = torch.randint(0, cfg.vocab, (1, 333), generator=gen,
+                            device="cuda")
+
+    def held(dtype, b, s):
+        return dict(want_counts=want_launches("qwen2-vl-2b prefill", lm_counts(
+            cfg, b * s, dtype, attention=True)),
+            want_decode=want_launches("qwen2-vl-2b step", lm_counts(
+                cfg, b, dtype, attention=False)), state=kv_state)
+    out = {"params": n_params}
+    out["fp32_b4"] = check_serving("qwen2-vl-fp32", model, prompts, 32,
+                                   LOGIT_TOL, extra=extra,
+                                   **held(f32, 4, 512))
+    out["fp32_b1"] = check_serving("qwen2-vl-fp32", model, prompt1, 8,
+                                   LOGIT_TOL, **held(f32, 1, 333))
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (97, 333, 64, 200)]
+    out["engine_fp32"] = exact_engine("qwen2-vl-engine", model, reqs,
+                                      LOGIT_TOL, f32, max_new=16)
+    model16 = lm.LanguageModel(cfg, to_bf16(model.params.tree()),
+                               device="cuda")
+    out["bf16_b4"] = check_serving("qwen2-vl-bf16", model16, prompts, 8,
+                                   None, extra=extra, **held(bf, 4, 512))
+    out["bf16_layers"] = bf16_layers("qwen2-vl-bf16", model16, prompts,
+                                     extra=extra)
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"fp32": lm_rates(model, prompts, extra=extra),
+             "bf16": lm_rates(model16, prompts, extra=extra)}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with runtime.use_impl("ref"):
+        rates["plain_fp32"] = lm_rates(model, prompts, extra=extra)
+    out.update(rates=rates, peak_memory_gib=peak_gb,
+               seconds=time.perf_counter() - t_phase)
+    say("throughput", "qwen2-vl-2b prefill tokens/s at B=4 x 512 (128 "
+        "patch rows a prompt): " + ", ".join(
+            f"{k} {v[0]:.1f}" for k, v in rates.items())
+        + "; decode tokens/s at B=4: " + ", ".join(
+            f"{k} {v[1]:.2f}" for k, v in rates.items())
+        + f"; peak memory {peak_gb:.2f} GiB (kernels, fp32 and bf16 models "
+        f"resident) | {smi}")
+    say("qwen2-vl", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------ gradients of the kernels -----------------------
+
+
+def grad_cases(dtype, gen):
+    """(name, the op, its inputs, the kernel launches one forward makes,
+    the plain path's op or None for the same) at qwen2-vl-2b's shapes
+    (M = 4 x 512 rows of K = 1536) and RWKV6-3B's WKV (B=4 x 512, 40
+    heads of 64; its plain version takes fp32, as the model gives it,
+    so the plain path runs on the inputs upcast)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+
+    cfg = get_config("qwen2-vl-2b")
+    m, d, f, hd = 4 * 512, cfg.d_model, cfg.d_ff, cfg.head_dim
+    qkv = sum(attention.proj_splits(cfg))
+
+    def leaf(*shape, scale=1.0):
+        return _rand(gen, shape, dtype, "cuda", scale).requires_grad_(True)
+    x, res = leaf(m, d), leaf(m, d)
+    w, b, g, be = leaf(d, qkv, scale=d ** -0.5), leaf(qkv, scale=0.1), \
+        (1 + _rand(gen, (d,), dtype, "cuda", 0.1)).requires_grad_(True), \
+        leaf(d, scale=0.1)
+    wgi, bgi = leaf(d, 2 * f, scale=d ** -0.5), leaf(2 * f, scale=0.1)
+    wo = leaf(d, d, scale=d ** -0.5)
+    rms, ln = ops.NormSpec("rms", g), ops.NormSpec("layer", g, be)
+    q = leaf(4, cfg.n_heads, 512, hd)
+    k, v = leaf(4, cfg.n_kv_heads, 512, hd), leaf(4, cfg.n_kv_heads, 512, hd)
+    r6 = get_config("rwkv6-3b")
+    h, p = r6.d_model // r6.rwkv.head_dim, r6.rwkv.head_dim
+    rr, kk, vv = (leaf(4, 512, h, p, scale=0.5) for _ in range(3))
+    lw = (-torch.rand(4, 512, h, p, generator=gen, device="cuda") * 2
+          - 0.05).to(dtype).requires_grad_(True)
+    u = leaf(h, p, scale=0.5)
+    mm = {"rowwise_matmul": 1}
+    split = {"rowwise_matmul": 1, "layernorm": 1}
+    return [
+        ("matmul qkv +bias, split RMS norm", lambda: ops.matmul(
+            x, w, bias=b, norm=rms), [x, w, b, g], split),
+        ("matmul wo +residual", lambda: ops.matmul(x, wo, residual=res),
+         [x, wo, res], mm),
+        ("matmul gate|up silu, split LayerNorm", lambda: ops.gate_up_proj(
+            x, wgi, activation="silu", bias=bgi, norm=ln),
+         [x, wgi, bgi, g, be], split),
+        ("matmul gate|up gelu", lambda: ops.gate_up_proj(
+            x, wgi, activation="gelu", bias=bgi), [x, wgi, bgi], mm),
+        ("attention causal, group 6", lambda: ops.attention(
+            q, k, v, causal=True), [q, k, v], {"flash_attention": 1}),
+        ("attention causal, window 128", lambda: ops.attention(
+            q, k, v, causal=True, window=128), [q, k, v],
+         {"flash_attention": 1}),
+        ("layernorm RMS", lambda: ops.layernorm(x, g, kind="rms"), [x, g],
+         {"layernorm": 1}),
+        ("layernorm with beta", lambda: ops.layernorm(x, g, be,
+                                                      kind="layer"),
+         [x, g, be], {"layernorm": 1}),
+        ("wkv RWKV6-3B", lambda: ops.wkv(rr, kk, vv, lw, u)[0],
+         [rr, kk, vv, lw, u], {"wkv": 1},
+         lambda: ops.wkv(*(t.float() for t in (rr, kk, vv, lw, u)))[0]),
+    ]
+
+
+def grads_phase():
+    """Each op through ``ops`` with every tensor operand wanting a
+    gradient, in fp32 and bf16: the kernel path's gradient of each
+    input against the plain path's (the same op under
+    ``use_impl("ref")``) within the kernel limits, the forward's launches
+    exact and the backward launching none."""
+    import torch
+    from repro_torch.core import runtime
+
+    t_phase = time.perf_counter()
+    out = []
+    for dtype, name, tol in ((torch.float32, "fp32", FP32_TOL),
+                             (torch.bfloat16, "bf16", BF16_TOL)):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        for case, call, ins, want, *plain_call in grad_cases(dtype, gen):
+            rgen = torch.Generator(device="cuda").manual_seed(12)
+
+            def grads(impl):
+                with runtime.use_impl(impl):
+                    o = (plain_call[0] if plain_call and impl == "ref"
+                         else call)()
+                    r = torch.randn(o.shape, generator=rgen, device="cuda")
+                    return torch.autograd.grad((o.float() * r).sum(), ins)
+            rstate = rgen.get_state()
+            # the forward's launches and the backward's (none), together
+            got, counts = counted(lambda: grads("auto"))
+            rgen.set_state(rstate)
+            plain = grads("ref")
+            errs = [err_ok(a, w_, tol) for a, w_ in zip(got, plain)]
+            launched = {n: c for n, c in counts.items() if c}
+            say("grads", f"{case} {name}: max_abs_err per input "
+                         f"{[round(e, 7) for e, _ in errs]}, max|plain| "
+                         f"{[round(w_.abs().max().item(), 4) for w_ in plain]}"
+                         f" (tol {tol}*max(1,max|plain|)); launches "
+                         f"{launched}")
+            if not all(ok for _, ok in errs):
+                raise AssertionError(f"grads {case} {name}: {errs}")
+            if launched != want:
+                raise AssertionError(f"grads {case} {name}: launches "
+                                     f"{launched}, want {want}")
+            out.append({"case": case, "dtype": name,
+                        "errs": [e for e, _ in errs], "launches": launched})
+    say("grads", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ------------------------------ training ---------------------------------
+
+# step 0 of qwen2-vl-2b (fp32, B=4 x 512, 28 layers): the kernel path's
+# loss and gradients against the plain path's on the same parameters
+# and batch (PERF.md §2, written before the first run that held them):
+# |loss difference| <= TRAIN_LOSS_TOL x |loss|, and every leaf's
+# max|g_kernels - g_plain| <= TRAIN_GRAD_TOL x max|g_plain|
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+# 20 steps of lr 1e-3 on the synthetic Markov stream: the mean loss of
+# the last 5 steps at least this far (nats) below the first 5's
+TRAIN_MARGIN = 1.0
+# the depth of the preemption and resume runs (a full-depth checkpoint
+# is 24.7 GB of npz)
+RESUME_LAYERS = 4
+
+
+def train_counts(cfg, rows, dtype):
+    """Launches of a train step with remat: the forward's (as a prefill's
+    of ``rows`` rows, the head over every row), then each layer's kernels
+    once more as the backward recomputes it; the head and the final norm
+    run once, and the backward launches nothing."""
+    fwd = lm_counts(cfg, rows, dtype, attention=True)
+    return {k: 2 * v - {"rowwise_matmul": 1, "layernorm": 1}.get(k, 0)
+            for k, v in fwd.items()}
+
+
+def vl_batch(ds, step, extra=None):
+    """``SyntheticLM``'s batch ``step`` on the card (as the train CLI sends
+    it); with ``extra`` (a vision batch's) the patch rows' labels -1."""
+    from repro_torch.core import runtime
+    batch = {k: runtime.to_device(v, "cuda").long()
+             for k, v in ds.batch(step).items()}
+    if extra:
+        n = extra["vis_embeds"].shape[1]
+        labels = batch["labels"].clone()
+        labels[:, :n] = -1
+        batch = {**batch, "labels": labels, **extra}
+    return batch
+
+
+def no_syncs(phase, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: it must
+    make no synchronising call. Returns its result."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        n0 = len(caught)
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught[n0:]
+                 if "synchroniz" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"{phase}: {len(syncs)} synchronising calls, "
+                             f"first {syncs[0]}")
+    return result
+
+
+def train_phase(smi):
+    """qwen2-vl-2b trained at full width and depth in fp32 at B=4 x 512
+    on ``SyntheticLM``: step-0 parity of ``lm.loss_fn`` and its gradients
+    on the kernel path against the plain path, on a batch with patch
+    embeddings and (t, h, w) positions (the patch rows' labels -1, the
+    gradient reaching ``vis_embeds``); then 20 steps of
+    ``make_train_step`` (lr 1e-3, warmup 2 of 20), each counted
+    (225 / 56 / 113 / 0) and free of synchronising calls, the loss
+    falling by ``TRAIN_MARGIN``; readings: tokens/s, forward and
+    backward wall time, peak memory, and the device's idle share over a
+    step."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import runtime
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import profile
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tsl
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-vl-2b")
+    params = lm.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        jitter_norms(params, torch.Generator(device="cuda").manual_seed(1))
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                global_batch=4, seed=0))
+    b, s = 4, 512
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _, extra = vl_inputs(cfg, gen, b, s, 128)
+    ve = extra["vis_embeds"].requires_grad_(True)
+    vbatch = vl_batch(ds, 0, extra)
+    flat = tree_lib.leaves(params)
+    out = {}
+
+    # step 0: the kernel path against the plain path
+    def value_and_grads(impl):
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        with runtime.use_impl(impl):
+            loss, metrics = lm.loss_fn(tree_lib.unflatten(params, leaves),
+                                       vbatch, cfg)
+            grads = torch.autograd.grad(loss, leaves + [ve])
+        return loss.detach(), metrics, grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss_k, metrics_k, grads_k), counts0 = counted(
+        lambda: value_and_grads("auto"))
+    step0_s = time.perf_counter() - t0
+    loss_p, _, grads_p = value_and_grads("ref")
+    paths = [p for p, _ in tree_lib.leaves_with_paths(params)] + [
+        "vis_embeds"]
+    rel = {}
+    for path, a, w in zip(paths, grads_k, grads_p):
+        scale = w.abs().max()
+        rel[path] = ((a - w).abs().max() / scale.clamp(min=1e-30)).item()
+    dloss = abs(loss_k.item() - loss_p.item())
+    worst = max(rel, key=rel.get)
+    ve_norm = grads_k[-1].norm().item()
+    want = want_launches("qwen2-vl-2b train step",
+                         train_counts(cfg, b * s, torch.float32))
+    say("train", f"step 0 (B={b} x {s}, 128 patch rows a row, their labels "
+                 f"-1, ntokens {int(metrics_k['ntokens'])}): loss kernels "
+                 f"{loss_k.item():.7f} plain {loss_p.item():.7f} |diff| "
+                 f"{dloss:.3g} (tol {TRAIN_LOSS_TOL}*|loss|); gradient "
+                 f"relative error max|g-g_plain|/max|g_plain| over "
+                 f"{len(rel)} leaves: worst {rel[worst]:.3g} ({worst}), "
+                 f"median {sorted(rel.values())[len(rel) // 2]:.3g} (tol "
+                 f"{TRAIN_GRAD_TOL}); |grad vis_embeds| {ve_norm:.4g}; "
+                 f"launches {counts0} in {step0_s:.2f} s")
+    out["step0"] = {"loss_kernels": loss_k.item(), "loss_plain":
+                    loss_p.item(), "loss_diff": dloss, "grad_rel": rel,
+                    "vis_embeds_grad_norm": ve_norm, "launches": counts0,
+                    "seconds": step0_s}
+    if dloss > TRAIN_LOSS_TOL * abs(loss_p.item()):
+        raise AssertionError(f"train step 0: loss off by {dloss}")
+    if rel[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train step 0: gradient of {worst} off by "
+                             f"{rel[worst]}")
+    if not ve_norm > 0:
+        raise AssertionError("train step 0: no gradient reaches vis_embeds")
+    if counts0 != want:
+        raise AssertionError(f"train step 0: launches {counts0}, want "
+                             f"{want}")
+    del grads_k, grads_p, ve, vbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the forward and the backward apart (wall, after the warm-up above)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    tbatch = vl_batch(ds, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = lm.loss_fn(tree_lib.unflatten(params, leaves), tbatch, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    del loss, leaves
+
+    # 20 steps
+    tcfg = tsl.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3), warmup_steps=2,
+                           total_steps=20)
+    step = tsl.make_train_step(cfg, tcfg)
+    state = tsl.init_state(params, tcfg)
+    del params, flat
+    batches = [vl_batch(ds, i) for i in range(20)]
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s, step_counts = [], [], []
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), c = counted(lambda: no_syncs(
+            f"train step {i}", lambda: step(state, batches[i])))
+        step_s.append(time.perf_counter() - t0)
+        metrics.append(m)
+        step_counts.append(c)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"].item() for m in metrics]
+    skipped = [m["skipped"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    tok_s = b * s / (sum(step_s[1:]) / len(step_s[1:]))
+    prof = profile.profile_call(lambda: step(state, batches[0]), b * s,
+                                iters=1, attempts=3)
+    out.update(losses=losses, skipped=skipped, grad_norms=gnorms,
+               step_s=step_s, tokens_per_s=tok_s, forward_s=fwd_s,
+               backward_s=bwd_s, peak_memory_gib=peak_gb,
+               step_launches=step_counts[0],
+               profile={k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                             "idle_share", "own_kernels_ms",
+                                             "top")})
+    say("train", f"20 steps (lr 1e-3, warmup 2 of 20, remat): loss "
+                 f"{[round(x, 4) for x in losses]}; mean of the first 5 "
+                 f"{first:.4f}, of the last 5 {last:.4f} (margin "
+                 f"{TRAIN_MARGIN}); grad norms {gnorms[0]:.4g} .. "
+                 f"{gnorms[-1]:.4g}; skipped {sum(skipped):.0f}; launches a "
+                 f"step {step_counts[0]}; no synchronising call in a step")
+    say("throughput", f"qwen2-vl-2b train step, fp32, B={b} x {s}: "
+        f"{tok_s:.1f} tokens/s ({sum(step_s[1:]) / 19:.3f} s a step after "
+        f"the first); forward {fwd_s:.3f} s, backward {bwd_s:.3f} s (loss "
+        f"and gradients alone); peak memory {peak_gb:.2f} GiB; a profiled "
+        f"step: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}, our kernels {prof['own_kernels_ms']} | "
+        f"{smi}")
+    if any(c != want for c in step_counts):
+        raise AssertionError(f"train: launches a step {step_counts}, want "
+                             f"{want}")
+    if any(skipped) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: skipped {skipped}, losses {losses}")
+    if not last < first - TRAIN_MARGIN:
+        raise AssertionError(f"train: the loss fell from {first} to {last}")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say("train", f"phase took {out['seconds']:.1f} s")
+    return out
+
+
+def dir_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def resume_phase():
+    """Preemption and resume on the card, qwen2-vl-2b cut to
+    ``RESUME_LAYERS`` layers at full width (fp32, B=4 x 512): 10 steps
+    straight against 6 steps, ``save``, ``restore`` and 4 more (the
+    parameters within 1e-6, the limit of the JAX package's
+    ``tests/test_system.py``), the bytes and seconds of the save and the
+    restore; then ``launch/train.py`` in this process, stopped by
+    SIGTERM in its fifth step and run again to step 8: the resumed run
+    starts from the checkpoint the SIGTERM hook wrote and ends on the
+    parameters of a straight run. The checkpoints are deleted after."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import signal
+
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.train import step as tsl
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"),
+                              n_layers=RESUME_LAYERS)
+    tcfg = tsl.TrainConfig(warmup_steps=2, total_steps=20)
+    step = tsl.make_train_step(cfg, tcfg)
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                global_batch=4, seed=7))
+    batches = [vl_batch(ds, i) for i in range(10)]
+
+    def start():
+        return tsl.init_state(lm.init_lm(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda", dtype=torch.float32), tcfg)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    try:
+        state = start()
+        for i in range(10):
+            state, _ = step(state, batches[i])
+        ref = [t.clone() for t in tree_lib.leaves(state.params)]
+        del state
+        state = start()
+        for i in range(6):
+            state, _ = step(state, batches[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(str(root / "direct"), 6, state, extra={"data_step": 6})
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(root / "direct")
+        like = state
+        t0 = time.perf_counter()
+        restored, extra = ckpt.restore(str(root / "direct"), 6, like,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(restored), tree_lib.leaves(state)))
+        del state, like
+        for i in range(extra["data_step"], 10):
+            restored, _ = step(restored, batches[i])
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            ref, tree_lib.leaves(restored.params)))
+        del restored, ref
+        out["direct"] = {"max_param_diff": diff, "restore_bitwise": exact,
+                         "save_s": save_s, "restore_s": restore_s,
+                         "bytes": nbytes}
+        say("resume", f"{cfg.name} at {cfg.n_layers} layers, fp32: 10 steps "
+                      f"straight against 6 + save + restore + 4: max param "
+                      f"diff {diff:.3g} (limit 1e-6); the restore equal to "
+                      f"the saved state bit for bit: {exact}; a checkpoint "
+                      f"{nbytes / 1e9:.3f} GB, save {save_s:.2f} s, restore "
+                      f"(sha256 checked) {restore_s:.2f} s")
+        if not diff < 1e-6 or not exact:
+            raise AssertionError(f"resume: params differ by {diff}, "
+                                 f"restore bitwise {exact}")
+        shutil.rmtree(root / "direct")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI, stopped by SIGTERM in its fifth step, then resumed
+        argv = ["--arch", "qwen2-vl-2b", "--layers", str(RESUME_LAYERS),
+                "--steps", "8", "--batch", "4", "--seq", "512",
+                "--ckpt-every", "4", "--device", "cuda"]
+        logs = {}
+
+        def run(name, extra_argv, make_step=None):
+            orig = train_cli.tsl.make_train_step
+            if make_step:
+                train_cli.tsl.make_train_step = make_step
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    try:
+                        result = train_cli.main(argv + extra_argv)
+                    except SystemExit as e:
+                        result = ("exit", e.code)
+            finally:
+                train_cli.tsl.make_train_step = orig
+            logs[name] = {"stdout": buf.getvalue(),
+                          "seconds": time.perf_counter() - t0}
+            return result
+
+        make_step = tsl.make_train_step
+
+        def preempting(cfg_, tcfg_):
+            fn, calls = make_step(cfg_, tcfg_), [0]
+
+            def stepped(st, bt):
+                calls[0] += 1
+                if calls[0] == 5:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return fn(st, bt)
+            return stepped
+        straight = run("straight", [])
+        straight = [t.clone() for t in tree_lib.leaves(straight.params)]
+        cdir = str(root / "cli")
+        stopped = run("preempted", ["--ckpt-dir", cdir], preempting)
+        steps_after_stop = ckpt.all_steps(cdir)
+        resumed = run("resumed", ["--ckpt-dir", cdir])
+        same = all(torch.equal(a, b) for a, b in zip(
+            straight, tree_lib.leaves(resumed.params)))
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            straight, tree_lib.leaves(resumed.params)))
+        res_line = [ln for ln in logs["resumed"]["stdout"].splitlines()
+                    if ln.startswith("resumed from step")]
+        out["cli"] = {"stopped": list(stopped), "checkpoints_after_stop":
+                      steps_after_stop, "resumed_line": res_line,
+                      "equal_to_straight": same, "max_param_diff": diff,
+                      "logs": logs}
+        for name, log in logs.items():
+            for ln in log["stdout"].splitlines():
+                say(f"train-cli {name}", ln)
+            say(f"train-cli {name}", f"took {log['seconds']:.1f} s")
+        say("resume", f"launch/train.py: stopped {tuple(stopped)} with "
+                      f"checkpoints {steps_after_stop} (the async save of "
+                      f"step 4, the SIGTERM hook's of step 5); resumed: "
+                      f"{res_line}; its parameters against the straight "
+                      f"run's: max diff {diff:.3g}, bitwise {same}")
+        if tuple(stopped) != ("exit", 0) or steps_after_stop != [4, 5]:
+            raise AssertionError(f"train CLI: stopped {stopped}, "
+                                 f"checkpoints {steps_after_stop}")
+        if res_line != ["resumed from step 5"]:
+            raise AssertionError(f"train CLI: resumed {res_line}")
+        if not diff < 1e-6:
+            raise AssertionError(f"train CLI: resumed run off by {diff}")
+        if int(resumed.opt.step) != 8:
+            raise AssertionError(f"train CLI: step {int(resumed.opt.step)}")
+        del resumed, straight
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say("resume", f"phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -4286,6 +4998,7 @@ def main() -> int:
         "qwen2-moe-a2.7b")
     phi_cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
                                   n_layers=PHI_LAYERS)
+    vl_cfg = get_config("qwen2-vl-2b")
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
                           (torch.bfloat16, "bf16", BF16_TOL)):
         rows += run_cases(gemma_cases(gemma_cfg, dt, gen, dev), name, tol)
@@ -4296,6 +5009,7 @@ def main() -> int:
                                     ("qprefill", "qdecode")), name, tol)
         rows += run_cases(moe_cases(phi_cfg, dt, gen, dev,
                                     ("pprefill", "pdecode")), name, tol)
+        rows += run_cases(vl_cases(vl_cfg, dt, gen, dev), name, tol)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -4416,6 +5130,15 @@ def main() -> int:
     moe_tables = lm_tables(rows, ("qprefill", "qdecode", "pprefill",
                                   "pdecode"), "moe-table")
 
+    # 12. qwen2-vl-2b served; 13. the kernels' gradients; 14. qwen2-vl-2b
+    # trained at full depth, then preempted and resumed at 4 layers
+    vl = vl_phase(smi)
+    vl_tables = lm_tables(rows, ("vprefill", "vdecode", "vtrain"),
+                          "vl-table")
+    grads = grads_phase()
+    train = train_phase(smi)
+    resume = resume_phase()
+
     def both(run, batch, key="counts"):
         """A phase's launches per run of its largest batch, by dtype."""
         return {dt: run[f"{dt}_{batch}"][key] for dt in ("fp32", "bf16")}
@@ -4437,8 +5160,16 @@ def main() -> int:
             (moe_tables, "qprefill", both(qwen, "b4")),
             (moe_tables, "qdecode", both(qwen, "b4", "decode_counts")),
             (moe_tables, "pprefill", both(phi, "b4")),
-            (moe_tables, "pdecode", both(phi, "b4", "decode_counts"))):
+            (moe_tables, "pdecode", both(phi, "b4", "decode_counts")),
+            (vl_tables, "vprefill", both(vl, "b4")),
+            (vl_tables, "vdecode", both(vl, "b4", "decode_counts"))):
         check_listed(tabs, key, counts)
+    # the train step's cases (fp32 only) against the step's launches
+    listed = {name: vl_tables.get(f"vtrain fp32 {name}", {}).get(
+        "launches", 0) for name in REPLACES}
+    if listed != train["step_launches"]:
+        raise AssertionError(f"the vtrain cases list {listed} launches, a "
+                             f"train step ran {train['step_launches']}")
     # the Swin-T cases against the fused forward's launches
     listed = {name: sum(r["fused"] for r in rows if r["kernel"] == name
                         and r["dtype"] == "fp32") for name in REPLACES}
@@ -4446,7 +5177,7 @@ def main() -> int:
         raise AssertionError(f"the Swin-T cases list {listed} launches, "
                              f"the forward ran {main_counts}")
 
-    # 12. the int8 path, the readings in processes of their own
+    # 15. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
     import gc
     gc.collect()
@@ -4469,7 +5200,7 @@ def main() -> int:
                                   "layernorm_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    # 13. the kernels line and the result
+    # 16. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -4515,7 +5246,8 @@ def main() -> int:
         check_modes(rows, "wprefill", dt, run, cases)
         for key, run, name in (("zprefill", zamba2, "zamba2"),
                                ("qprefill", qwen, "qwen2"),
-                               ("pprefill", phi, "phi3.5")):
+                               ("pprefill", phi, "phi3.5"),
+                               ("vprefill", vl, "vl")):
             check_modes(rows, key, dt, run[f"{dt}_b4"]["prefill_modes"],
                         {"causal": [f"{name}.prefill causal"]})
     for key, case, launches_, label, path in (
@@ -4547,6 +5279,18 @@ def main() -> int:
             kernels.append(kernel_line(
                 rows, name, key, run["fp32_b4"]["counts"][name], path,
                 label=f"{name} {path.split(' ')[1]}"))
+    # qwen2-vl-2b: every kernel over one fp32 prefill and one fp32 train
+    # step (forward and remat recomputation)
+    for key, counts, path, tag in (
+            ("vprefill", vl["fp32_b4"]["counts"],
+             "one qwen2-vl-2b prefill, B=4 x 512, fp32", "qwen2-vl-2b"),
+            ("vtrain", train["step_launches"],
+             "one qwen2-vl-2b train step, B=4 x 512, fp32, remat (the "
+             "forward's and the recomputation's calls)",
+             "qwen2-vl-2b train")):
+        for name in ("rowwise_matmul", "flash_attention", "layernorm"):
+            kernels.append(kernel_line(rows, name, key, counts[name], path,
+                                       label=f"{name} {tag}"))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -4568,6 +5312,9 @@ def main() -> int:
                                "zamba2_tables": zamba2_tables,
                                "qwen2_moe": qwen, "phi35_moe": phi,
                                "moe_tables": moe_tables,
+                               "qwen2_vl": vl, "vl_tables": vl_tables,
+                               "grads": grads, "train": train,
+                               "resume": resume,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
@@ -4586,8 +5333,9 @@ def main() -> int:
                 "flash_attention causal row: over one deepseek-7b prefill "
                 "at B=4 x 512, fp32; the gemma3-27b and whisper-base "
                 "attention rows: over the calls of one prefill that take "
-                "that mode; the zamba2-1.2b and qwen2-moe-a2.7b rows: over "
-                "one fp32 prefill)")
+                "that mode; the zamba2-1.2b, qwen2-moe-a2.7b and qwen2-vl-2b "
+                "rows: over one fp32 prefill; the qwen2-vl-2b train rows: "
+                "over one fp32 train step)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """Architecture registry of the port: the language models it runs.
 
-The JAX package's registry names ten architectures; the port runs those
-whose slice has landed and raises on the others with a pointer to the
-queue of ``ROADMAP.md`` that owes them.
+The JAX package's registry names ten architectures; the port runs all
+ten. ``PENDING`` names any architecture a later item of ``ROADMAP.md``
+may add before its slice lands: asked for, it raises with a pointer to
+that item.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_20b,
                                  internlm2_20b, phi35_moe, qwen2_moe,
-                                 rwkv6_3b, whisper_base, zamba2)
+                                 qwen2_vl, rwkv6_3b, whisper_base, zamba2)
 from repro_torch.core.types import ModelConfig
 
 _MODULES = {
@@ -18,16 +19,14 @@ _MODULES = {
     "internlm2-20b": internlm2_20b,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "qwen2-moe-a2.7b": qwen2_moe,
+    "qwen2-vl-2b": qwen2_vl,
     "rwkv6-3b": rwkv6_3b,
     "whisper-base": whisper_base,
     "zamba2-1.2b": zamba2,
 }
 
-# every other architecture of the JAX package, with the ROADMAP item
-# that ports it
-PENDING = {
-    "qwen2-vl-2b": "queue 1 item 7 (mrope, vision frontend)",
-}
+# architectures not ported yet, with the ROADMAP item that ports each
+PENDING: dict = {}
 
 
 def _module(arch: str):

@@ -25,6 +25,18 @@ kernel before a prologue-free matmul: the counterpart of the JAX
 package's fallback for K beyond one VMEM panel. The plain path keeps
 the norm inside ``pipeline_ref``; both cast the normed rows to the
 streaming dtype before the dot.
+
+Gradients. The kernels have no backward, and their raw wrappers refuse
+a tensor that wants a gradient. On the kernel path (:func:`kernel_path`)
+an op whose tensor operands want a gradient runs through
+:class:`KernelOp`: its forward launches the kernels exactly as a
+serving call does, and its backward is the gradient of the op's plain
+version, recomputed in torch ops from the saved inputs (the function
+the JAX package differentiates, at the kernel path's inputs).
+Attention without a bias takes the flash backward instead
+(``attention.flash_backward``, the port of the JAX package's
+``_flash_bwd``). Calls without a gradient (every serving call) launch
+as before.
 """
 from __future__ import annotations
 
@@ -57,20 +69,98 @@ def _flatten_leading(x):
     return x2, lead
 
 
-def _pipeline(x2, w, impl, *, norm: Optional[NormSpec] = None, **kw):
+def kernel_path(x: torch.Tensor) -> bool:
+    """Whether an op on ``x`` takes the kernel branch: a tensor off the
+    CPU (a kernel wrapper runs a CPU tensor's plain version whole, and
+    that is differentiable as it is)."""
+    return x.device.type != "cpu"
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class KernelOp(torch.autograd.Function):
+    """One op of the kernel path, differentiable: ``kernel(*tensors)``
+    runs the kernels (grad mode is off inside ``forward``, so the raw
+    wrappers take the tensors); ``backward`` calls ``grad(tensors,
+    outputs, grad_outputs)``, by default the gradient of
+    ``plain(*tensors)`` recomputed under ``torch.enable_grad()`` on
+    detached copies of the saved inputs. Every tensor operand is in
+    ``tensors`` (None where absent): one closed over would get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, grad, *tensors):
+        ctx.plain, ctx.grad = plain, grad
+        ctx.save_for_backward(*tensors)
+        return kernel(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        inputs = [None if t is None else
+                  t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[3:])]
+        grads = (ctx.grad or _plain_grad)(ctx.plain, inputs, grad_outputs)
+        return (None, None, None, *grads)
+
+
+def _plain_grad(plain, inputs, grad_outputs):
+    """The gradient of ``plain(*inputs)`` with respect to every input
+    that requires one (None for the others)."""
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wrt = [t for t in inputs if t is not None and t.requires_grad]
+    pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+             if o.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                   wrt, [g for _, g in pairs],
+                                   allow_unused=True))
+    return [next(got) if t is not None and t.requires_grad else None
+            for t in inputs]
+
+
+def _dispatch(impl, kernel, plain, *tensors, grad=None):
+    """``plain(*tensors)`` under ``ref``; else ``kernel(*tensors)`` (the
+    kernel wrapper, which runs a CPU tensor's plain version), through
+    :class:`KernelOp` on the kernel path where an operand wants a
+    gradient."""
+    if impl == "ref":
+        return plain(*tensors)
+    if kernel_path(tensors[0]) and _wants_grad(*tensors):
+        return KernelOp.apply(kernel, plain, grad, *tensors)
+    return kernel(*tensors)
+
+
+def _pipeline(x2, w, impl, *, norm: Optional[NormSpec] = None, bias=None,
+              w_gate=None, bias_gate=None, residual=None, **kw):
     """The one matmul dispatch: the plain pipeline under ``ref``, else the
     kernel wrapper, with the norm moved to ``layernorm_p`` on the kernel
-    path (a tensor off the CPU) where the prologue does not fit."""
+    path where the prologue does not fit. ``kw``: the non-tensor
+    options (activation, out_dtype)."""
     kind, gamma, beta, eps = norm or (None, None, None, 1e-6)
-    if impl == "ref":
-        return ref.pipeline_ref(x2, w, norm_kind=kind, gamma=gamma,
-                                beta=beta, eps=eps, **kw)
-    if (norm is not None and x2.device.type != "cpu"
-            and not norm_prologue_fits(*x2.shape, x2.dtype)):
-        x2 = layernorm_p(x2, gamma, beta, eps=eps, kind=kind)
-        kind = gamma = beta = None
-    return rowwise_matmul_p(x2, w, prologue=kind, gamma=gamma, pbeta=beta,
-                            eps=eps, **kw)
+
+    def plain(x2, w, bias, w_gate, bias_gate, residual, gamma, beta):
+        return ref.pipeline_ref(x2, w, bias=bias, w_gate=w_gate,
+                                bias_gate=bias_gate, residual=residual,
+                                norm_kind=kind, gamma=gamma, beta=beta,
+                                eps=eps, **kw)
+
+    def kernel(x2, w, bias, w_gate, bias_gate, residual, gamma, beta):
+        prologue = kind
+        if (kind is not None and kernel_path(x2)
+                and not norm_prologue_fits(*x2.shape, x2.dtype)):
+            x2 = layernorm_p(x2, gamma, beta, eps=eps, kind=kind)
+            prologue = gamma = beta = None
+        return rowwise_matmul_p(x2, w, bias=bias, w_gate=w_gate,
+                                bias_gate=bias_gate, residual=residual,
+                                prologue=prologue, gamma=gamma, pbeta=beta,
+                                eps=eps, **kw)
+    return _dispatch(impl, kernel, plain, x2, w, bias, w_gate, bias_gate,
+                     residual, gamma, beta)
 
 
 def matmul(x: torch.Tensor, w, *,
@@ -172,17 +262,38 @@ def matmul_int8(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
 def attention(q, k, v, *, causal=True, window: int = 0, scale=None,
               q_offset: int = 0, bias=None, impl: Optional[str] = None):
     impl = impl or runtime.resolve_impl()
-    fn = ref.attention_ref if impl == "ref" else flash_attention_p
-    return fn(q, k, v, causal=causal, window=window, scale=scale,
-              q_offset=q_offset, bias=bias)
+    opts = dict(causal=causal, window=window, scale=scale,
+                q_offset=q_offset)
+
+    def kernel(q, k, v, bias):
+        return flash_attention_p(q, k, v, bias=bias, **opts)
+
+    def plain(q, k, v, bias):
+        return ref.attention_ref(q, k, v, bias=bias, **opts)
+
+    grad = None
+    if bias is None and (scale is None or scale == q.shape[-1] ** -0.5):
+        def grad(_plain, inputs, grad_outputs):
+            from repro_torch.models.attention import flash_backward
+            q, k, v, _ = inputs
+            return (*flash_backward(q, k, v, grad_outputs[0],
+                                    causal=causal, window=window,
+                                    q_offset=q_offset), None)
+    return _dispatch(impl, kernel, plain, q, k, v, bias, grad=grad)
 
 
 def layernorm(x, gamma, beta=None, *, eps=1e-6, kind="layer",
               impl: Optional[str] = None):
     impl = impl or runtime.resolve_impl()
     x2, lead = _flatten_leading(x)
-    fn = ref.layernorm_ref if impl == "ref" else layernorm_p
-    out = fn(x2, gamma, beta, eps=eps, kind=kind)
+
+    def plain(x2, gamma, beta):
+        return ref.layernorm_ref(x2, gamma, beta, eps=eps, kind=kind)
+
+    def kernel(x2, gamma, beta):
+        return layernorm_p(x2, gamma, beta, eps=eps, kind=kind)
+
+    out = _dispatch(impl, kernel, plain, x2, gamma, beta)
     return out.reshape(*lead, x.shape[-1])
 
 
@@ -192,12 +303,23 @@ def wkv(r, k, v, lw, u, *, s0=None, chunk: int = 16,
     or for CPU tensors the plain chunked scan ``rwkv6.wkv_chunked``; for
     CUDA tensors the kernel, with or without a starting state ``s0``
     (the JAX package takes its kernel only without ``s0``; here every
-    decode step runs on the kernel too)."""
+    decode step runs on the kernel too). Its gradient on the kernel
+    path is the scan's, recomputed in fp32 as the wrapper's plain
+    version runs it."""
+    from repro_torch.models.rwkv6 import wkv_chunked
     impl = impl or runtime.resolve_impl()
-    if impl == "ref" or r.device.type == "cpu":
-        from repro_torch.models.rwkv6 import wkv_chunked
+    if impl == "ref" or not kernel_path(r):
         return wkv_chunked(r, k, v, lw, u, chunk=chunk, s0=s0)
-    return wkv_p(r, k, v, lw, u, s0=s0, chunk=chunk)
+
+    def kernel(r, k, v, lw, u, s0):
+        return wkv_p(r, k, v, lw, u, s0=s0, chunk=chunk)
+
+    def plain(r, k, v, lw, u, s0):
+        f = [t.to(torch.float32) for t in (r, k, v, lw, u)]
+        y, s_fin = wkv_chunked(*f, chunk=chunk, s0=None if s0 is None
+                               else s0.to(torch.float32))
+        return y.to(r.dtype), s_fin
+    return _dispatch(impl, kernel, plain, r, k, v, lw, u, s0)
 
 
 def patch_embed(img, w, b=None, *, patch: int = 4,

@@ -29,6 +29,8 @@ mma / ffma, WKV's chunk / step, layernorm's cta / rows).
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --model qwen2-moe-a2.7b --batch 4 --dtype bf16    # all 24 layers
     PYTHONPATH=src python -m repro_torch.launch.profile \
+        --model qwen2-vl-2b --batch 4 --dtype fp32 bf16   # text only
+    PYTHONPATH=src python -m repro_torch.launch.profile \
         --model phi3.5-moe-42b-a6.6b --batch 4 --dtype bf16 --layers 8
     PYTHONPATH=src python -m repro_torch.launch.profile --model layernorm \
         --dtype fp32 bf16
@@ -317,7 +319,7 @@ def main(argv=None):
                     choices=["swin-t", "rwkv6-3b", "deepseek-7b",
                              "gemma3-27b", "whisper-base", "zamba2-1.2b",
                              "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                             "layernorm"])
+                             "qwen2-vl-2b", "layernorm"])
     ap.add_argument("--batch", type=int, nargs="+", default=[64])
     ap.add_argument("--dtype", nargs="+", default=["fp32"],
                     choices=sorted(DTYPES))

@@ -27,8 +27,11 @@ online-softmax scan (:func:`_paged_fwd`), in torch ops as JAX runs them
 in jnp; the pool is written in place (:func:`write_pages`,
 :func:`write_chunk_pages`, :func:`copy_page`).
 
-Not ported yet: the sequence-sharded decode (ROADMAP.md queue 1 item 8)
-and the flash backward (item 9).
+Training differentiates the chunked scan through the flash backward
+(:func:`_flash_bwd`, :class:`_ChunkedAttention`), which also serves as
+the backward of the attention kernel without a bias
+(:func:`flash_backward`). Not ported yet: the sequence-sharded decode
+(ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -109,8 +112,10 @@ def _apply_rope(q, k, cfg: ModelConfig, positions):
     if cfg.rope == "none":
         return q, k
     if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "not ported yet: M-RoPE, ROADMAP.md queue 1 item 7")
+        if positions.dim() == 2:           # text only: (B,S) -> (3,B,S)
+            positions = rope_lib.text_positions3(positions)
+        return (rope_lib.apply_mrope(q, positions, cfg.rope_theta),
+                rope_lib.apply_mrope(k, positions, cfg.rope_theta))
     return (rope_lib.apply_rope(q, positions, cfg.rope_theta),
             rope_lib.apply_rope(k, positions, cfg.rope_theta))
 
@@ -273,14 +278,94 @@ def _paged_fwd(q, k_pool, v_pool, pages, limit, *, chunk, q_offset=None,
     return _scan_end(m, l, acc, q)
 
 
+def _flash_bwd(q, k, v, out, lse, dout, *, causal, window, q_offset,
+               chunk):
+    """Flash-attention backward: p recomputed chunk by chunk from the
+    forward's ``lse`` (no stored probabilities), as the JAX package's
+    ``_flash_bwd`` does in jnp. Products of the stored dtypes accumulate
+    in fp32; ``d_term`` is fp32; p is rounded to v's dtype before dv and
+    ds to k's before dq and dk. Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    b, hq, sq, hd = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    chunk = min(chunk, skv)
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, sq, hd).to(f32)
+    do = dout.reshape(b, hkv, g, sq, hd).to(f32)
+    og = out.reshape(b, hkv, g, sq, hd).to(f32)
+    scale = hd ** -0.5
+    limit = torch.full((b,), skv, device=q.device)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    d_term = torch.einsum("bhgqd,bhgqd->bhgq", do, og)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for base in range(0, skv, chunk):
+        kb, vb = k[:, :, base:base + chunk], v[:, :, base:base + chunk]
+        mask = _chunk_mask(base, chunk, q_pos, limit, causal,
+                           window)[..., :kb.shape[2]]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb.to(f32)) * scale
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        pb = p.to(vb.dtype).to(f32)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", pb, do))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", do, vb.to(f32))
+        ds = p * (dp - d_term[..., None]) * scale
+        dsb = ds.to(kb.dtype).to(f32)
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", dsb, kb.to(f32))
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", dsb, qg))
+    return (dq.reshape(b, hq, sq, hd).to(q.dtype),
+            torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def flash_backward(q, k, v, dout, *, causal, window, q_offset,
+                   chunk: int = 1024):
+    """(dq, dk, dv) of full-sequence attention at a static ``q_offset``
+    (every key valid): the forward's output and ``lse`` recomputed by
+    the chunked scan from q, k and v, then :func:`_flash_bwd`. The
+    backward of the attention kernel without a bias
+    (``ops.attention``): the JAX package's recompute-from-statistics
+    backward, bounded in memory at any length."""
+    limit = torch.full((q.shape[0],), k.shape[2], device=q.device)
+    with torch.no_grad():
+        out, lse = _chunked_fwd(q, k, v, limit, causal=causal,
+                                window=window, q_offset=q_offset,
+                                chunk=chunk)
+    return _flash_bwd(q, k, v, out, lse, dout, causal=causal,
+                      window=window, q_offset=q_offset, chunk=chunk)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The chunked scan over every key at a static offset with the flash
+    backward: the JAX package's ``_chunked_attention_diff`` custom
+    VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, chunk):
+        limit = torch.full((q.shape[0],), k.shape[2], device=q.device)
+        out, lse = _chunked_fwd(q, k, v, limit, causal=causal,
+                                window=window, q_offset=q_offset,
+                                chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_flash_bwd(*ctx.saved_tensors, dout, **ctx.opts),
+                None, None, None, None)
+
+
 def chunked_attention(q, k, v, *, causal=True, window: int = 0,
                       q_offset=0, kv_len=None, chunk: int = 1024,
                       pages=None):
     """Online-softmax scan over KV chunks. q: (B,Hq,Sq,hd); k/v GQA.
 
     ``q_offset`` may be a tensor; ``kv_len`` (int or (B,)) masks the
-    padded cache. Forward only (the flash backward comes with training,
-    ROADMAP.md queue 1 item 9).
+    padded cache. The train path (a static ``q_offset``, no ``kv_len``)
+    differentiates through the flash backward (:class:`_ChunkedAttention`,
+    the JAX package's custom VJP).
 
     pages: optional (B, n_logical_pages) block table. When given, k/v
     are page *pools* (n_pages, page_size, Hkv, hd) and every chunk
@@ -291,6 +376,11 @@ def chunked_attention(q, k, v, *, causal=True, window: int = 0,
     if pages is not None:
         limit = torch.as_tensor(kv_len, device=q.device).expand(b)
         return _paged_fwd(q, k, v, pages, limit, chunk=chunk)[0]
+    if (isinstance(q_offset, int) and kv_len is None
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _ChunkedAttention.apply(q, k, v, causal, window, q_offset,
+                                       chunk)
     limit = k.shape[2] if kv_len is None else kv_len
     limit = torch.as_tensor(limit, device=q.device).expand(b)
     return _chunked_fwd(q, k, v, limit, causal=causal, window=window,

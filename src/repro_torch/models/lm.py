@@ -28,8 +28,15 @@ attention block (one weight copy) whose KV cache is per repeat, beside
 the per-slot recurrent state of its Mamba layers, so a paged zamba2
 cache holds page pools and per-slot state at once. A weight-only int8
 tree (``quant.quantize_tree``) runs too: the embedding gathers int8 rows
-and dequantizes them, the projections dequantize their leaves. M-RoPE
-and tied TP heads come with later slices (ROADMAP.md queue 1).
+and dequantizes them, the projections dequantize their leaves. The
+vision-language arch (qwen2-vl) takes precomputed patch embeddings
+spliced over the first rows (``extra["vis_embeds"]``) and their M-RoPE
+positions (``extra["positions3"]``). Training: :func:`loss_fn` over
+:func:`forward` in train mode, each repeat recomputed in the backward
+(``remat``, as the JAX package's ``jax.checkpoint``), on trees whose
+leaves require a gradient; :func:`fuse_params` / :func:`unfuse_params`
+migrate the seed's split projection layout. Tied TP heads come with a
+later slice (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import quant, runtime
@@ -120,6 +128,115 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 
 
 # ----------------------------------------------------------------------
+# Param-layout migration: fused (wqkv / wgi) <-> seed (wq/wk/wv, wg/wi)
+# ----------------------------------------------------------------------
+
+
+def _cat_leaves(leaves):
+    """Concatenate sibling projection leaves along the output axis.
+    Weight-only int8 leaves fuse exactly: their scales are per output
+    column, so the fused panel's scales are the parts' scales."""
+    if quant.is_quantized(leaves[0]):
+        return {k: torch.cat([t[k] for t in leaves], dim=-1)
+                for k in ("q", "s")}
+    return torch.cat(leaves, dim=-1)
+
+
+def _split_leaf(leaf, widths):
+    """Inverse of :func:`_cat_leaves`: copies, not views, so that each
+    part is a leaf of its own."""
+    widths = [int(w) for w in widths]
+    if quant.is_quantized(leaf):
+        qs = torch.split(leaf["q"], widths, dim=-1)
+        ss = torch.split(leaf["s"], widths, dim=-1)
+        return [{"q": q.clone(), "s": sc.clone()} for q, sc in zip(qs, ss)]
+    return [t.clone() for t in torch.split(leaf, widths, dim=-1)]
+
+
+def _migrate_blocks(cfg: ModelConfig, params, block_fn):
+    """Apply ``block_fn(blk, block_params) -> block_params`` to every
+    block's param dict (stacked and shared groups, decoder and encoder
+    stages); returns a new tree, every other leaf untouched."""
+    def stage_list(stages_cfg, stages_p):
+        new = []
+        for stage, sp in zip(stages_cfg, stages_p):
+            ns = {"stacked": dict(sp["stacked"]),
+                  "shared": dict(sp["shared"])}
+            for i, blk in enumerate(stage.body):
+                key = str(i)
+                group = "shared" if blk.shared else "stacked"
+                if key in ns[group]:
+                    ns[group][key] = block_fn(blk, ns[group][key])
+            new.append(ns)
+        return new
+
+    out = dict(params)
+    out["stages"] = stage_list(cfg.stages(), params["stages"])
+    if cfg.encdec and "enc" in params:
+        enc = dict(params["enc"])
+        enc["stages"] = stage_list(cfg.enc_stages(),
+                                   params["enc"]["stages"])
+        out["enc"] = enc
+    return out
+
+
+def fuse_params(cfg: ModelConfig, params):
+    """Migrate a seed-layout param tree (split wq/wk/wv, wg/wi leaves) to
+    the fused layout ``init_lm`` makes: one ``wqkv`` leaf per
+    self-attention layer, one ``wkv`` per cross-attention layer, one
+    ``wgi`` per gated MLP. Idempotent and exact (a concatenation, also
+    of weight-only int8 leaves and of per-leaf optimizer moments: see
+    ``train.step.fuse_state``)."""
+    def block_fn(blk, p):
+        p = dict(p)
+        if blk.mixer == "attn" and "attn" in p and "wq" in p["attn"]:
+            a = dict(p["attn"])
+            a["wqkv"] = _cat_leaves([a.pop("wq"), a.pop("wk"),
+                                     a.pop("wv")])
+            p["attn"] = a
+        if blk.cross_attn and "cross" in p and "wk" in p["cross"]:
+            c = dict(p["cross"])
+            c["wkv"] = _cat_leaves([c.pop("wk"), c.pop("wv")])
+            p["cross"] = c
+        if (blk.ffn == "mlp" and "ffn" in p and "wg" in p["ffn"]
+                and "wi" in p["ffn"]):
+            f = dict(p["ffn"])
+            f["wgi"] = _cat_leaves([f.pop("wg"), f.pop("wi")])
+            p["ffn"] = f
+        return p
+
+    return _migrate_blocks(cfg, params, block_fn)
+
+
+def unfuse_params(cfg: ModelConfig, params):
+    """Inverse of :func:`fuse_params`: the seed's split layout.
+    ``fuse_params(cfg, unfuse_params(cfg, p))`` equals ``p``."""
+    qo, kvo, _ = attention.proj_splits(cfg)
+
+    def block_fn(blk, p):
+        p = dict(p)
+        if blk.mixer == "attn" and "attn" in p and "wqkv" in p["attn"]:
+            a = dict(p["attn"])
+            a["wq"], a["wk"], a["wv"] = _split_leaf(a.pop("wqkv"),
+                                                    (qo, kvo, kvo))
+            p["attn"] = a
+        if blk.cross_attn and "cross" in p and "wkv" in p["cross"]:
+            c = dict(p["cross"])
+            c["wk"], c["wv"] = _split_leaf(c.pop("wkv"), (kvo, kvo))
+            p["cross"] = c
+        if blk.ffn == "mlp" and "ffn" in p and "wgi" in p["ffn"]:
+            f = dict(p["ffn"])
+            wgi = f.pop("wgi")
+            half = (wgi["q"] if quant.is_quantized(wgi)
+                    else wgi).shape[-1] // 2
+            f["wg"], f["wi"] = _split_leaf(wgi, (half, half))
+            p["ffn"] = f
+        return p
+
+    return _migrate_blocks(cfg, params, block_fn)
+
+
+# ----------------------------------------------------------------------
 # Stage execution
 # ----------------------------------------------------------------------
 
@@ -127,7 +244,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                positions=None, lengths=None, cache=None, enc_out=None,
                pages=None, chunk_len=None, targets=None,
-               causal: bool = True):
+               causal: bool = True, remat: bool = False):
     """Walk a stage's repeats. Returns (x, aux, states): the decode and
     chunk modes' new cache (its pools written in place) or the prefill
     and verify modes' per-layer states, stacked over the repeats as the
@@ -135,12 +252,16 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
     serving block table: every layer indexes its own pool through it),
     ``chunk_len`` and ``targets`` (``attention.chunk_targets`` of the
     call) go to every block; ``causal=False`` (the encoder) drops the
-    blocks' windows, as the JAX package's does."""
+    blocks' windows, as the JAX package's does. ``remat`` (train mode
+    only): each repeat's body runs under ``torch.utils.checkpoint``,
+    which keeps its input alone and runs it again in the backward, as
+    the JAX package's ``jax.checkpoint`` over the scan body."""
     stacked, shared = sp["stacked"], sp["shared"]
     aux = 0.0
     per_layer: List[dict] = []
-    for rep in range(stage.repeat):
-        out_states = {}
+
+    def body(x, rep):
+        out_states, aux = {}, 0.0
         for i, blk in enumerate(stage.body):
             key = str(i)
             bp = (_tree_map(lambda a, r=rep: a[r], stacked[key])
@@ -152,11 +273,22 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                 lengths=lengths, cache=csl, enc_out=enc_out, pages=pages,
                 chunk_len=chunk_len, targets=targets,
                 window_override=None if causal else 0)
-            aux += io.aux
+            aux = aux + io.aux
             state = (io.new_cache if mode in ("decode", "chunk")
                      else io.prefill_state)
             if state is not None:
                 out_states[key] = state
+        return x, aux, out_states
+
+    for rep in range(stage.repeat):
+        if remat and mode == "train" and torch.is_grad_enabled():
+            # no op of the train path draws random numbers: no RNG state
+            # to keep for the recomputation
+            x, aux_r, out_states = torch.utils.checkpoint.checkpoint(
+                body, x, rep, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux_r, out_states = body(x, rep)
+        aux = aux + aux_r
         per_layer.append(out_states)
     states = ({} if not per_layer[0] else
               _tree_map(lambda *ls: torch.stack(ls), *per_layer))
@@ -185,13 +317,22 @@ def _run_stages(stage_params, stages, x, *, cache=None, **kw):
 # ----------------------------------------------------------------------
 
 
-def embed(params, tokens, cfg: ModelConfig):
+def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
+    """The token rows of the table; a vision arch's ``extra["vis_embeds"]``
+    (B, n_patches, d) over the first ``n_patches`` rows, in the table's
+    dtype (the JAX package's ``dynamic_update_slice`` at (0, 0, 0)),
+    built out of place so that a gradient reaches both."""
     w = params["embed"]
     if quant.is_quantized(w):
         # weight-only int8 tree: gather the int8 rows, then dequantize
         # only the gathered (B, S, d) block by the per-column scales
-        return (w["q"][tokens].float() * w["s"]).to(DTYPES[cfg.dtype])
-    return w[tokens]
+        x = (w["q"][tokens].float() * w["s"]).to(DTYPES[cfg.dtype])
+    else:
+        x = w[tokens]
+    if cfg.frontend == "vision" and extra and "vis_embeds" in extra:
+        ve = extra["vis_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    return x
 
 
 def unembed(params, x, cfg: ModelConfig):
@@ -218,8 +359,11 @@ def _add_positions(x, cfg: ModelConfig):
     return x + pe.to(x.dtype)[None]
 
 
-def _positions(tokens):
-    """RoPE positions of a full sequence: 0..S-1 per row, (B, S)."""
+def _positions(cfg: ModelConfig, tokens, extra: Optional[dict] = None):
+    """RoPE positions of a full sequence: 0..S-1 per row, (B, S); an
+    M-RoPE arch's ``extra["positions3"]`` (3, B, S) where given."""
+    if cfg.rope == "mrope" and extra and "positions3" in extra:
+        return extra["positions3"]
     b, s = tokens.shape
     return torch.arange(s, dtype=torch.int32,
                         device=tokens.device)[None].expand(b, s)
@@ -232,7 +376,7 @@ def encode(params, frames, cfg: ModelConfig):
     x = frames + rope.sinusoidal_embedding(
         frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None]
     x, _, _ = _run_stages(params["enc"]["stages"], cfg.enc_stages(), x,
-                          cfg=cfg, mode="train", causal=False)
+                          cfg=cfg, mode="train", causal=False, remat=True)
     fn = params["enc"]["final_norm"]
     return ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
 
@@ -249,17 +393,46 @@ def _encoder_out(params, cfg: ModelConfig, extra):
 
 
 def forward(params, tokens, cfg: ModelConfig, *,
-            extra: Optional[dict] = None):
+            extra: Optional[dict] = None, remat: bool = True):
     """Full train-mode forward -> (logits, aux_loss). ``extra``: the
-    encoder's ``{"frames": (B, T, d)}`` of an encoder-decoder arch."""
+    encoder's ``{"frames": (B, T, d)}`` of an encoder-decoder arch, a
+    vision arch's ``{"vis_embeds": (B, P, d), "positions3": (3, B, S)}``.
+    ``remat``: recompute each repeat in the backward (where a gradient
+    is taken)."""
     enc_out = _encoder_out(params, cfg, extra)
-    x = _add_positions(embed(params, tokens, cfg), cfg)
+    x = _add_positions(embed(params, tokens, cfg, extra), cfg)
     x, aux, _ = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                            mode="train", positions=_positions(tokens),
-                            enc_out=enc_out)
+                            mode="train",
+                            positions=_positions(cfg, tokens, extra),
+                            enc_out=enc_out, remat=remat)
     aux = (aux.float() if isinstance(aux, torch.Tensor)
-           else torch.tensor(aux, dtype=torch.float32))
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     return unembed(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
+    """Cross-entropy next-token loss -> (loss + aux_loss, metrics).
+    ``batch``: ``tokens`` and ``labels`` (B, S), labels below 0 masked;
+    every other key goes to :func:`forward` as ``extra``. The
+    log-sum-exp runs in fp32 and the gold logit is gathered; the token
+    count is floored at 1."""
+    extra = {k: v for k, v in batch.items()
+             if k not in ("tokens", "labels")} or None
+    logits, aux = forward(params, batch["tokens"], cfg, extra=extra,
+                          remat=remat)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    ntok = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / ntok
+    acc = ((torch.argmax(logits, -1) == safe) * valid).sum() / ntok
+    metrics = {"loss": loss, "aux_loss": aux, "ntokens": ntok,
+               "accuracy": acc}
+    return loss + aux, metrics
 
 
 # ----------------------------------------------------------------------
@@ -415,8 +588,9 @@ def _pad_seq(t, alloc):
 def prefill_states(params, tokens, cfg: ModelConfig, *,
                    extra: Optional[dict] = None, last_pos=None):
     """Full-sequence prefill -> (logits, raw per-layer states).
-    ``extra``: the encoder's ``{"frames": (B, T, d)}`` of an
-    encoder-decoder arch.
+    ``extra``: as :func:`forward`'s (after a prefill with
+    ``positions3``, decode rotates by the sequence index, as in the JAX
+    package: ROADMAP.md, "Reference caveats").
 
     ``last_pos`` ((B,) or int) is *bucketed* prefill: the tokens are
     right-padded to a bucket length and the logits are taken at position
@@ -427,9 +601,10 @@ def prefill_states(params, tokens, cfg: ModelConfig, *,
     lengths (``last_pos=None``)."""
     b = tokens.shape[0]
     enc_out = _encoder_out(params, cfg, extra)
-    x = _add_positions(embed(params, tokens, cfg), cfg)
+    x = _add_positions(embed(params, tokens, cfg, extra), cfg)
     x, _, states = _run_stages(params["stages"], cfg.stages(), x, cfg=cfg,
-                               mode="prefill", positions=_positions(tokens),
+                               mode="prefill",
+                               positions=_positions(cfg, tokens, extra),
                                enc_out=enc_out)
     if last_pos is None:
         xl = x[:, -1:]

@@ -1045,3 +1045,107 @@ def test_engine_on_kernels(dev, arch):
         top2 = logits.topk(2).values
         assert top2[0] - top2[1] <= 1e-3 * max(1.0, logits.abs().max()), (
             c.rid, j)
+
+
+# ------------------- gradients through the kernel path ------------------
+
+
+def _grads(call, inputs, impl):
+    """The gradients of sum(call() * r) with respect to ``inputs`` under
+    ``impl`` (the kernel path "auto" or the plain path "ref")."""
+    with runtime.use_impl(impl):
+        out = call()
+        outs = out if isinstance(out, tuple) else (out,)
+        g = torch.Generator(device="cuda").manual_seed(99)
+        loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                            device="cuda")).sum()
+                   for o in outs)
+        return torch.autograd.grad(loss, inputs)
+
+
+def _leaves_on(dev, dtype, seed, *shapes, scale=0.3):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [(torch.randn(*s, generator=g) * scale).to(dev, dtype)
+            .requires_grad_(True) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k", [64, 1536])
+def test_matmul_grads_on_kernels(dev, dtype, k):
+    """``ops.matmul`` (bias, residual, a norm in the prologue at K = 64
+    on the skinny rows, split at K = 1536) and ``ops.gate_up_proj`` over
+    one ``wgi`` leaf: every input's gradient on the kernel path against
+    the plain path's, the kernels launched once each forward."""
+    tol = TOLS[dtype]
+    x, w, bias, res, gamma, wgi, bgi = _leaves_on(
+        dev, dtype, 0, (2, 3, k), (k, 96), (96,), (2, 3, 96), (k,),
+        (k, 192), (192,))
+    norm = ops.NormSpec("rms", gamma)
+    before = rowwise_matmul_p.launches
+    for call, ins in (
+            (lambda: ops.matmul(x, w, bias=bias, residual=res, norm=norm),
+             [x, w, bias, res, gamma]),
+            (lambda: ops.gate_up_proj(x, wgi, activation="silu", bias=bgi,
+                                      norm=norm), [x, wgi, bgi, gamma]),
+            (lambda: ops.gate_up_proj(x, wgi, activation="gelu", bias=bgi),
+             [x, wgi, bgi])):
+        got = _grads(call, ins, "auto")
+        want = _grads(call, ins, "ref")
+        for a, b in zip(got, want):
+            _close(a, b, tol)
+    assert rowwise_matmul_p.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [0, 100])
+def test_attention_group6_on_kernels(dev, dtype, window):
+    """Attention at qwen2-vl-2b's heads (12 over 2: a group of 6) and
+    head dim 128, causal, with and without a window: the kernel's output
+    against the plain version, and its gradients (the flash backward)
+    against the plain path's."""
+    tol = TOLS[dtype]
+    q, k, v = _leaves_on(dev, dtype, 1, (2, 12, 333, 128), (2, 2, 333, 128),
+                         (2, 2, 333, 128), scale=1.0)
+    before = flash_attention_p.launches
+    with torch.no_grad():
+        got = flash_attention_p(q, k, v, causal=True, window=window)
+        want = ref.attention_ref(q, k, v, causal=True, window=window)
+    assert flash_attention_p.launches == before + 1
+    _close(got, want, tol)
+
+    def call():
+        return ops.attention(q, k, v, causal=True, window=window)
+    for a, b in zip(_grads(call, [q, k, v], "auto"),
+                    _grads(call, [q, k, v], "ref")):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_layernorm_and_wkv_grads_on_kernels(dev, dtype):
+    """``ops.layernorm`` (RMS, and LayerNorm with beta, at D = 1536) and
+    ``ops.wkv`` (RWKV6-3B's heads of 64): gradients on the kernel path
+    against the plain path's."""
+    tol = TOLS[dtype]
+    x, gamma, beta = _leaves_on(dev, dtype, 2, (4, 9, 1536), (1536,),
+                                (1536,))
+    for kind, b in (("rms", None), ("layer", beta)):
+        ins = [x, gamma] + ([b] if b is not None else [])
+        call = (lambda b=b, kind=kind:
+                ops.layernorm(x, gamma, b, kind=kind))
+        for a, w in zip(_grads(call, ins, "auto"), _grads(call, ins, "ref")):
+            _close(a, w, tol)
+    r, k, v, u = _leaves_on(dev, dtype, 3, (2, 40, 4, 64), (2, 40, 4, 64),
+                            (2, 40, 4, 64), (4, 64))
+    lw = (-torch.rand(2, 40, 4, 64, device=dev) - 0.1).to(dtype) \
+        .requires_grad_(True)
+    before = wkv_p.launches
+    got = _grads(lambda: ops.wkv(r, k, v, lw, u), [r, k, v, lw, u], "auto")
+    assert wkv_p.launches == before + 1
+    want = _grads(lambda: ops.wkv(r.float(), k.float(), v.float(),
+                                  lw.float(), u.float()),
+                  [r, k, v, lw, u], "ref")
+    for a, w in zip(got, want):
+        _close(a, w, tol)

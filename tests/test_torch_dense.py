@@ -453,15 +453,27 @@ def test_configs_match_jax():
 
 def test_unported_attention_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP.md item:
-    M-RoPE and the qwen2-vl-2b architecture of the registry. The mamba2
-    mixer and the MoE FFN, pending before, build and run a prefill."""
+    cross-pod gradient compression and a mesh (``--mesh`` /
+    ``--mesh-shape`` past their defaults) wait for item 8. M-RoPE and
+    the qwen2-vl-2b architecture, pending before, rotate and build; the
+    mamba2 mixer and the MoE FFN build and run a prefill."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import step as tsl
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+        tsl.make_train_step(get_reduced("deepseek-7b"),
+                            tsl.TrainConfig(compress_pods=True))
+    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
+        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "host"])
+    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
+        serve_cli.single_device("model=2")
     cfg = get_reduced("deepseek-7b")
     mrope = dataclasses.replace(cfg, rope="mrope")
-    q = torch.zeros(1, 3, 4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attention._apply_rope(q, q, mrope, torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        get_config("qwen2-vl-2b")
+    q = torch.randn(1, 3, 4, 16, generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(3)[None]
+    got, _ = attention._apply_rope(q, q, mrope, pos)
+    torch.testing.assert_close(got, rope.apply_rope(q, pos), rtol=0, atol=0)
+    assert get_config("qwen2-vl-2b").rope == "mrope"
     for arch, kind in (("zamba2-1.2b", "mamba2"), ("qwen2-moe-a2.7b", "moe")):
         acfg = get_reduced(arch)
         blk = next(b for st in acfg.stages() for b in st.body

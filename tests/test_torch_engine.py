@@ -34,7 +34,8 @@ import torch
 from conftest import manual_greedy
 from scipy import stats
 
-from repro.configs import deepseek_7b, gemma3_27b, qwen2_moe, rwkv6_3b, zamba2
+from repro.configs import (deepseek_7b, gemma3_27b, qwen2_moe, qwen2_vl,
+                           rwkv6_3b, zamba2)
 from repro.core import quant as jquant
 from repro.core import runtime as jruntime
 from repro.core.types import PagingConfig as JPagingConfig
@@ -52,7 +53,7 @@ from repro_torch.serve import engine, faults, paging, prefix_cache, spec
 
 ARCHS = {"deepseek-7b": deepseek_7b, "gemma3-27b": gemma3_27b,
          "rwkv6-3b": rwkv6_3b, "zamba2-1.2b": zamba2,
-         "qwen2-moe-a2.7b": qwen2_moe}
+         "qwen2-moe-a2.7b": qwen2_moe, "qwen2-vl-2b": qwen2_vl}
 JAX_SIDE = types.SimpleNamespace(
     Engine=jengine.Engine, Request=jengine.Request, Fault=jfaults.Fault,
     FaultPlan=jfaults.FaultPlan, Paging=JPagingConfig, kw={})
@@ -438,6 +439,12 @@ SCENARIOS = {
     "qwen2-moe-exact": ("qwen2-moe-a2.7b", _simple([5, 9, 3, 12], 1, 6,
                                                    max_len=32), True,
                         lambda e: e.buckets is None),
+    # a vision frontend: text-only requests at exact lengths, decode
+    # rotating by text positions (t = h = w)
+    "qwen2-vl-exact": ("qwen2-vl-2b", _simple([5, 9, 3, 12], 2, 6,
+                                              max_len=32), True,
+                       lambda e: e.buckets is None
+                       and e.prefix_cache is None),
     # a weight-only int8 tree: the cache in the config's bf16
     "int8-tree": ("deepseek-7b-int8", _simple([4, 5, 6], 4, 3, max_len=32),
                   True, lambda e: e.cache_dtype == torch.bfloat16),
