@@ -115,9 +115,10 @@ Phases, each printing its lines:
    fifth step), teacher-forced on the plain path's tokens (logits, picks,
    the final ring and global caches), 33 / 8 / 17 / 0 launches a
    prefill and 33 / 0 / 17 / 0 a step, and unfused (57 / 8 / 17 / 0);
-   then, the fp32 model freed, all 62 layers in bf16 (50.3 GiB of
-   weights: the fp32 tree would not fit), 249 / 62 / 125 / 0 and
-   249 / 0 / 125 / 0, layer by layer against fp32 beside the float8
+   then, the fp32 model freed, 20 layers in bf16 (three groups and the
+   tail; ``GEMMA_BF16_LAYERS``, cut from 62 to keep the run's time),
+   81 / 20 / 41 / 0 and 81 / 0 / 41 / 0, layer by layer against fp32
+   beside the float8
    control, its logits as readings; prefill and decode tokens/s
    (fused, unfused, plain), peak memory, the tied head's per-call
    transpose; paged serving of a 1500-token prompt chunked at 512 (its
@@ -125,8 +126,8 @@ Phases, each printing its lines:
    300-token one-shot on 2 slots (max_len 2048), 17 tokens each with
    one verify step (3 / 1 drafts kept), held to the dense path as for
    deepseek-7b at 8 fp32 layers (33 / 8 / 17 / 0 a bucketed prefill,
-   33 / 0 / 17 / 0 a chunk, verify and step) and at 62 bf16 layers
-   (249 / 62 / 125 / 0, 249 / 0 / 125 / 0; logits and pool rows within
+   33 / 0 / 17 / 0 a chunk, verify and step) and at 20 bf16 layers
+   (81 / 20 / 41 / 0, 81 / 0 / 41 / 0; logits and pool rows within
    the bf16 tolerance 3e-2), and the bf16 readings at B=2 after 1024
    tokens and for the 1500-token prompt chunked at 512; the serving
    engine on the same two requests at both depths (2 slots, max_len
@@ -182,17 +183,36 @@ Phases, each printing its lines:
    of ``make_train_step`` (225 / 56 / 113 / 0 launches each with remat,
    no synchronising call, the loss falling by ``TRAIN_MARGIN``),
    tokens/s, forward and backward time, peak memory, idle share; then
-   at ``RESUME_LAYERS`` = 4 layers: 10 steps straight against 6, a
+   at ``RESUME_LAYERS`` = 2 layers: 10 steps straight against 6, a
    checkpoint, a restore and 4 more (within 1e-6), and
    ``launch/train.py`` stopped by SIGTERM in its fifth step and resumed
    from the checkpoint its hook wrote;
-15. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+15. tensor-parallel serving (``serve/placement.py``, :func:`tp_phase`):
+   deepseek-7b at full depth in fp32 and bf16, its weight-only int8
+   tree in fp32, and gemma3-27b cut to 12 layers (two global layers,
+   the window, the tied head) in bf16, each first on one device
+   (``SingleDevice``, the reference), deepseek-7b fp32 then as
+   ``TensorParallel(1)`` on a one-rank NCCL group, then every config at
+   t = 2 as two processes sharing the card over gloo (NCCL refuses two
+   ranks on one device; gloo stages each collective through host
+   memory, so its step time is no TP speed): a dense prefill of a probe
+   batch and a step (launches as one device's, fp32 first-token logits
+   within 1e-3 x max(1, max|logit|) of one device's), decode steps
+   timed, then the engine on 4 slots (six requests: two chunked at
+   256, one prefix hit, one with a deadline): every rank's completions
+   identical, equal to one device's exactly in fp32 and to the dense
+   stream up to a near-tie in bf16, each call's launches one device's
+   at the local shapes, 2 all-reduces a layer and one all-gather a
+   model call of the untied head; each rank's peak memory; then
+   ``launch/serve.py`` at ``--mesh-shape model=2`` (2 layers) against
+   the same CLI on one device;
+16. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler); the profiles of a
    zamba2-1.2b (fp32, bf16) and a qwen2-moe-a2.7b (bf16) prefill and
    decode step, each in a process of its own (``launch/profile.py``:
    wall, busy, idle share, device ms by kernel);
-16. the matmul, attention and WKV per design and dtype, summed over a
+17. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
@@ -206,7 +226,7 @@ Phases, each printing its lines:
    design's norm prologue against the standalone norm and a
    prologue-free matmul at K = 64 .. 8192, each design's boundary
    beside the rule's; and decode tokens/s end to end of deepseek-7b
-   (fp32, bf16) and gemma3-27b (bf16, 62 layers) with
+   (fp32, bf16) and gemma3-27b (bf16, 20 layers) with
    ``SKINNY_NORM_MAX_K`` on either side of their K, in ABBA order.
    The kernels line gives layernorm once per design: over the fused
    Swin-T forward (rows) and over an RWKV6-3B decode step (cta), and
@@ -215,7 +235,8 @@ Phases, each printing its lines:
    encoder (S = 1500) and its cross-attention; and each of matmul,
    attention and layernorm over an fp32 prefill of zamba2-1.2b, of
    qwen2-moe-a2.7b and of qwen2-vl-2b, and over a qwen2-vl-2b train
-   step.
+   step, and over one tensor-parallel rank's deepseek-7b prefill at
+   t = 2.
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -233,7 +254,11 @@ attention at hd 64) and of the MoE archs' (B=4 x 256, B=4), in
 ``zamba2-table`` and ``moe-table`` lines; and of a qwen2-vl-2b prefill
 (B=4 x 512: its group-6 attention), step (B=4) and fp32 train step
 (each layer's calls twice, the head over 2048 rows), in ``vl-table``
-lines.
+lines; and every kernel call of one tensor-parallel rank's prefill and
+step at its local shapes (deepseek-7b at t = 2 and t = 4, gemma3-27b at
+12 layers and t = 2: the column panels at N / t, the row panels at
+K / t with no residual, the vocab-sharded head at N / t, attention over
+the rank's heads), in ``tp-table`` lines.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``. Any
 mismatch, wrong count or failed phase raises, and the script exits
@@ -246,6 +271,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -439,15 +465,20 @@ def err_ok(out, want, tol):
 # B=8, per fused Swin-T forward at B=64 (attention only), per
 # deepseek-7b prefill at B=4 x 512 (fused, unfused) and fused decode step
 # at B=4, per gemma3-27b prefill at B=2 x 2048 and decode step at B=2
-# (8 layers in fp32, 62 in bf16), and per whisper-base prefill at B=4 x
+# (8 layers in fp32, 32 in bf16), and per whisper-base prefill at B=4 x
 # 64 (its encoder over 1500 frames included) and decode step at B=4, per
 # zamba2-1.2b prefill at B=4 x 512 and decode step at B=4, per
 # qwen2-moe-a2.7b prefill at B=4 x 256 and decode step at B=4, and per
-# phi3.5-moe prefill (8 layers) at B=4 x 256 and decode step at B=4
+# phi3.5-moe prefill (8 layers) at B=4 x 256 and decode step at B=4, and
+# per prefill and step of one tensor-parallel rank (deepseek-7b at t = 2
+# and t = 4, B=4 x 512 and B=4; gemma3-27b at 12 layers and t = 2, B=2 x
+# 2048 and B=2)
 COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
           "dprefill", "ddecode", "dunfused", "gprefill", "gdecode",
           "wprefill", "wdecode", "zprefill", "zdecode", "qprefill",
-          "qdecode", "pprefill", "pdecode", "vprefill", "vdecode", "vtrain")
+          "qdecode", "pprefill", "pdecode", "vprefill", "vdecode", "vtrain",
+          "tprefill", "tdecode", "t4prefill", "t4decode", "tgprefill",
+          "tgdecode")
 # the count keys of the LM paths whose cases also read device ms
 DEVICE_MS_KEYS = ("vit", "gprefill", "gdecode", "wprefill", "wdecode",
                   "zprefill", "zdecode", "qprefill", "qdecode", "pprefill",
@@ -465,8 +496,8 @@ LAUNCHES = {
     "deepseek-7b step": (121, 0, 61, 0),        # B=4 and B=1, K = 4096
     "gemma3-27b/8 prefill": (33, 8, 17, 0),     # fp32, 8 layers
     "gemma3-27b/8 step": (33, 0, 17, 0),        # K = 5376
-    "gemma3-27b prefill": (249, 62, 125, 0),    # bf16, 62 layers
-    "gemma3-27b step": (249, 0, 125, 0),
+    "gemma3-27b/20 prefill": (81, 20, 41, 0),   # bf16, 20 layers
+    "gemma3-27b/20 step": (81, 0, 41, 0),
     "whisper-base encoder": (24, 6, 13, 0),     # 4 x 1500 frames
     "whisper-base prefill": (67, 18, 32, 0),    # 4 x 64, the encoder's too
     "whisper-base prefill 1x16": (67, 18, 20, 0),   # 16 rows: skinny fp32
@@ -479,8 +510,14 @@ LAUNCHES = {
     "deepseek-7b verify": (121, 0, 61, 0),
     "gemma3-27b/8 chunk": (33, 0, 17, 0),
     "gemma3-27b/8 verify": (33, 0, 17, 0),
-    "gemma3-27b chunk": (249, 0, 125, 0),
-    "gemma3-27b verify": (249, 0, 125, 0),
+    "gemma3-27b/20 chunk": (81, 0, 41, 0),
+    "gemma3-27b/20 verify": (81, 0, 41, 0),
+    # tensor-parallel serving: gemma3-27b cut to 12 layers (bf16), each
+    # rank's calls as one device's, the norms split at K = 5376
+    "gemma3-27b/12 prefill": (49, 12, 25, 0),
+    "gemma3-27b/12 chunk": (49, 0, 25, 0),
+    "gemma3-27b/12 verify": (49, 0, 25, 0),
+    "gemma3-27b/12 step": (49, 0, 25, 0),
     # RWKV6-3B: a prefill (4 x 512, 1 x 333, the engine's exact lengths)
     # and a step (B=4, B=1): 10 matmuls, 3 norms and the recurrence a
     # layer, the head and the final norm
@@ -1027,11 +1064,16 @@ def dense_cases(cfg, dtype, gen, device):
     return cases
 
 
+# gemma3-27b's depth in bf16 here: three 5:1 groups and the 2-layer
+# local tail of the 62 (cut to keep the script's time)
+GEMMA_BF16_LAYERS = 20
+
+
 def gemma_cases(cfg, dtype, gen, device):
     """Every distinct kernel call of a gemma3-27b prefill at B=2 x 2048
     (M=4096) and of a decode step at B=2 (M=2), with its launches per
     prefill and per step of the model the phase runs in ``dtype`` (fp32:
-    8 layers, 7 local and 1 global; bf16: all 62, 52 local and 10
+    8 layers, 7 local and 1 global; bf16: 20, 17 local and 3
     global). Per layer: the qkv panel (32 q and 2 x 16 kv heads of 128)
     and the gate|up panel (GeGLU) with the RMS norm (split or not:
     :func:`norm_matmul_cases`), wo and down with the residual; causal
@@ -1041,7 +1083,7 @@ def gemma_cases(cfg, dtype, gen, device):
     position only."""
     import torch
     from repro_torch.models import attention, lm
-    n_layers = 8 if dtype == torch.float32 else cfg.n_layers
+    n_layers = 8 if dtype == torch.float32 else GEMMA_BF16_LAYERS
     stages = dataclasses.replace(cfg, n_layers=n_layers).stages()
     local = sum(st.repeat * sum(1 for b in st.body if b.window)
                 for st in stages)
@@ -2123,7 +2165,7 @@ def lm_rates(model, prompts, steps=8, extra=None):
 SKINNY_AB_KS = (1024, 8192)
 
 
-def skinny_norm_ab(name, models, prompts, smi, steps=16, rounds=3):
+def skinny_norm_ab(name, models, prompts, smi, steps=8, rounds=3):
     """Decode tokens/s end to end (host clock around synchronised steps)
     of each of ``models`` ({label: model}) after a prefill of
     ``prompts``, with ``rowwise_matmul.SKINNY_NORM_MAX_K`` at each of
@@ -2772,7 +2814,8 @@ ENGINE_CALLS = {"_admit": "prefill", "_chunk": "chunk", "_step": "step",
 
 def serve_engine(phase, model, prompts, oracles, *, want, max_new,
                  path=("rowwise_matmul", "flash_attention", "layernorm"),
-                 sync_check=True, plan=None, **engine_kw):
+                 sync_check=True, plan=None, eng=None, deadlines=None,
+                 **engine_kw):
     """Serve ``prompts`` (greedy, ``max_new`` tokens each) through the
     port's ``serve.engine.Engine`` on the card, as a user would: submit,
     then ``run``. Every step program the engine calls (``_admit``,
@@ -2791,7 +2834,9 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
     recovery boundary (under a fault ``plan`` the caller holds the
     statuses, and only the injected faults may reach it). The
     engine's keyword arguments: those of ``Engine`` and of
-    ``PagingConfig``."""
+    ``PagingConfig``; or ``eng``, an engine built already (on a
+    placement). ``deadlines``: {rid: seconds} of the requests that
+    carry one."""
     import collections
     import inspect
     import linecache
@@ -2806,9 +2851,10 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
     pkw = {k: engine_kw.pop(k) for k in list(engine_kw)
            if k in {f.name for f in dataclasses.fields(PagingConfig)}}
     t0 = time.perf_counter()
-    eng = engine_mod.Engine(model.params.tree(), cfg, eos_id=-1,
-                            device="cuda", paging=PagingConfig(**pkw),
-                            faults=plan, **engine_kw)
+    if eng is None:
+        eng = engine_mod.Engine(model.params.tree(), cfg, eos_id=-1,
+                                device="cuda", paging=PagingConfig(**pkw),
+                                faults=plan, **engine_kw)
     rows_of = {"_admit": lambda a: a[0].shape[1],
                "_chunk": lambda a: a[0].shape[1],
                "_step": lambda a: eng.n_slots,
@@ -2849,8 +2895,9 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
         return out
     eng._fetch = timed_fetch
     for rid, p in enumerate(prompts):
-        eng.submit(engine_mod.Request(rid=rid, prompt=p.cpu().numpy(),
-                                      max_new=max_new))
+        eng.submit(engine_mod.Request(
+            rid=rid, prompt=p.cpu().numpy(), max_new=max_new,
+            deadline_s=(deadlines or {}).get(rid)))
     torch.cuda.synchronize()
     for k in launches().values():
         k.launches = 0
@@ -3400,9 +3447,9 @@ def gemma_phase(smi):
     """gemma3-27b at full width: 8 layers (one 5:1 group and the 2-layer
     local tail) in fp32, teacher-forced against the plain path (two
     batches, one whose ring wraps during decode) and unfused; then the
-    fp32 model freed and all 62 layers in bf16 (its fp32 tree would not
-    fit the card), layer by layer against fp32 beside the float8
-    control, its full-depth logits as readings; prefill and decode
+    fp32 model freed and ``GEMMA_BF16_LAYERS`` layers in bf16, layer by
+    layer against fp32 beside the float8 control, its logits as
+    readings; prefill and decode
     rates, peak memory, the tied head's transpose."""
     import gc
 
@@ -3496,8 +3543,9 @@ def gemma_phase(smi):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    deep = dataclasses.replace(full, n_layers=GEMMA_BF16_LAYERS)
     model16 = lm.LanguageModel(
-        full, device="cuda", dtype=torch.bfloat16,
+        deep, device="cuda", dtype=torch.bfloat16,
         generator=torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
         jitter_norms(model16.params.tree(),
@@ -3505,18 +3553,18 @@ def gemma_phase(smi):
     out["params_bf16"] = sum(p.numel() for p in model16.parameters())
     gib = sum(p.numel() * p.element_size()
               for p in model16.parameters()) / 2 ** 30
-    say("gemma", f"{full.name}: all {full.n_layers} layers, "
+    say("gemma", f"{full.name}: {deep.n_layers} of {full.n_layers} layers, "
                  f"{out['params_bf16'] / 1e9:.3f} B parameters, bf16, "
                  f"{gib:.2f} GiB of weights, built in "
                  f"{time.perf_counter() - t0:.1f} s")
     bf = torch.bfloat16
     out["bf16_b2"] = check_serving(
         "gemma-bf16", model16, prompts, 8, None,
-        want_launches("gemma3-27b prefill",
-                      lm_counts(full, 2 * 2048, bf, attention=True)),
+        want_launches("gemma3-27b/20 prefill",
+                      lm_counts(deep, 2 * 2048, bf, attention=True)),
         state=gemma_state,
-        want_decode=want_launches("gemma3-27b step", lm_counts(
-            full, 2, bf, attention=False)))
+        want_decode=want_launches("gemma3-27b/20 step", lm_counts(
+            deep, 2, bf, attention=False)))
     out["bf16_layers"] = bf16_layers("gemma-bf16", model16, prompts)
     torch.cuda.reset_peak_memory_stats()
     rates["bf16"] = lm_rates(model16, prompts)
@@ -3526,19 +3574,19 @@ def gemma_phase(smi):
     with runtime.use_impl("ref"):
         rates["plain_bf16"] = lm_rates(model16, prompts)
     out["skinny_norm_ab"] = skinny_norm_ab(
-        "gemma3-27b", {"bf16, 62 layers": model16}, prompts, smi)
+        "gemma3-27b", {"bf16, 20 layers": model16}, prompts, smi)
     served = PagedServing(
         "gemma-paged-bf16", model16, reqs, tol=BF16_TOL,
-        want=paged_launches("gemma3-27b", full, bf), **paged)
+        want=paged_launches("gemma3-27b/20", deep, bf), **paged)
     out["paged_bf16"] = served.run()
     oracles = served.oracle
     del served
     out["engine_bf16"] = engine_phase_gemma(
         "gemma-engine-bf16", model16, reqs, oracles,
-        paged_launches("gemma3-27b", full, bf))
+        paged_launches("gemma3-27b/20", deep, bf))
     del oracles
     out["paged_rates_bf16"] = paged_rates(
-        "bf16, 62 layers", model16, prompts[:, :1024], reqs[0], chunk=512,
+        "bf16, 20 layers", model16, prompts[:, :1024], reqs[0], chunk=512,
         max_len=2048, page_size=16, smi=smi)
     out["tied_head_bf16"] = tied_head_copy(model16, "bf16")
     out.update(rates=rates, seconds=time.perf_counter() - t_phase)
@@ -3547,7 +3595,7 @@ def gemma_phase(smi):
         + "; decode tokens/s at B=2: " + ", ".join(
             f"{k} {v[1]:.2f}" for k, v in rates.items())
         + f"; peak memory {out['peak_memory_fp32_gib']:.2f} GiB (fp32, 8 "
-        f"layers), {out['peak_memory_bf16_gib']:.2f} GiB (bf16, 62 layers) "
+        f"layers), {out['peak_memory_bf16_gib']:.2f} GiB (bf16, 20 layers) "
         f"| {smi}")
     say("gemma", f"phase took {out['seconds']:.1f} s")
     del model16
@@ -4390,8 +4438,8 @@ TRAIN_GRAD_TOL = 1e-2
 # the last 5 steps at least this far (nats) below the first 5's
 TRAIN_MARGIN = 1.0
 # the depth of the preemption and resume runs (a full-depth checkpoint
-# is 24.7 GB of npz)
-RESUME_LAYERS = 4
+# is 24.7 GB of npz; cut from 4 to 2 layers to keep the script's time)
+RESUME_LAYERS = 2
 
 
 def train_counts(cfg, rows, dtype):
@@ -4782,6 +4830,486 @@ def resume_phase():
     return out
 
 
+# ------------------------------ tensor parallelism ----------------------
+
+# every collective, and the whole run of a world of ranks, must end in
+# this many seconds: a rank that hangs fails the phase, it does not eat
+# the run's time limit
+TP_TIMEOUT_S = 300
+TP_NEW = 8                  # tokens a request
+TP_GEMMA_LAYERS = 12        # two 5:1 groups: two global layers, the rest
+#                             local (window 1024), and the tied head
+TP_STEP_ITERS = 10          # decode steps timed, the same on every rank
+TP_DEADLINE = {3: 600.0}    # rid 3 carries a deadline (far off: it ends ok)
+# the configs of the phase: (name, probe batch B x S); the ranks run
+# them in this order
+TP_CONFIGS = (("deepseek-fp32", (4, 512)), ("deepseek-bf16", (4, 512)),
+              ("deepseek-int8", (4, 512)), ("gemma-bf16", (2, 2048)))
+TP_DIR = ROOT / "build" / "tp"
+
+
+def tp_cases(cfg, t, batch, dtype, gen, device, keys):
+    """Every kernel call of one rank's prefill (``batch`` = B x S) and
+    decode step (B rows) of ``cfg`` at ``t`` ranks, at the local shapes
+    (``TensorParallel.compute_cfg``): per layer the qkv panel at N / t
+    and the gate|up panel at segments of d_ff / t, each with its RMS
+    norm (split or not: :func:`norm_matmul_cases`), wo at K = n_heads hd
+    / t and down at K = d_ff / t with no residual (the residual is added
+    after the all-reduce), causal attention at prefill over n_heads / t
+    heads and n_kv_heads / t KV heads (the local layers with their
+    window); the vocab-sharded head at N = padded_vocab / t, or the
+    tied head whole, and the final norm, on the last position only.
+    ``keys``: the count keys of the prefill and the step."""
+    from repro_torch.models import attention, lm
+    from repro_torch.serve.placement import TensorParallel
+    loc = TensorParallel(t).compute_cfg(cfg)
+    b, s = batch
+    d, f, n = cfg.d_model, loc.d_ff, cfg.n_layers
+    qkv, ho = sum(attention.proj_splits(loc)), loc.n_heads * loc.head_dim
+    act = "gelu" if cfg.act == "geglu" else cfg.act
+    windowed = sum(st.repeat * sum(1 for blk in st.body if blk.window)
+                   for st in cfg.stages())
+    name = f"{cfg.name.split('-')[0]}/t{t}"
+    cases = []
+    for m, key in ((b * s, keys[0]), (b, keys[1])):
+        tag = f"{name}.{'prefill' if m > b else 'decode'}"
+        cases += norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen,
+                                   device, norm="rms", bias=False,
+                                   **{key: n})
+        cases += norm_matmul_cases(f"{tag} gate|up+{act}", m, d, f, dtype,
+                                   gen, device, norm="rms", bias=False,
+                                   act=act, gated=True, panel=(2 * f, 0),
+                                   **{key: n})
+        cases += [matmul_case(f"{tag} wo", m, ho, d, dtype, gen, device,
+                              bias=False, **{key: n}),
+                  matmul_case(f"{tag} down", m, f, d, dtype, gen, device,
+                              bias=False, **{key: n})]
+    vp = lm.padded_vocab(cfg)
+    head = vp if cfg.tie_embeddings else vp // t
+    head_name = "tied head" if cfg.tie_embeddings else "lm_head"
+    shape = (b, s, cfg.head_dim)
+    cases += [
+        matmul_case(f"{name} {head_name} fp32-out", b, d, head, dtype, gen,
+                    device, bias=False, out_f32=True,
+                    **{keys[0]: 1, keys[1]: 1}),
+        layernorm_case(f"{name} final_norm", b, d, dtype, gen, device,
+                       kind="rms", **{keys[0]: 1, keys[1]: 1}),
+        attention_case(f"{name}.prefill causal", shape, loc.n_heads,
+                       loc.n_kv_heads, dtype, gen, device, causal=True,
+                       **{keys[0]: n - windowed})]
+    if windowed:
+        cases.append(attention_case(
+            f"{name}.prefill causal+window", shape, loc.n_heads,
+            loc.n_kv_heads, dtype, gen, device, causal=True,
+            window=cfg.local_window, **{keys[0]: windowed}))
+    return cases
+
+
+def tp_tree(name):
+    """The full parameter tree and config of one TP config, built on the
+    card from the seeds the dense and gemma phases use (fp32, the norms
+    jittered): deepseek-7b in fp32, its bf16 copy, its weight-only int8
+    tree under the config with its dtype set to fp32 (the int8 leaves
+    dequantize to fp32), and gemma3-27b cut to ``TP_GEMMA_LAYERS`` in
+    bf16."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import quant
+    from repro_torch.models import lm
+    arch = "deepseek-7b" if name.startswith("deepseek") else "gemma3-27b"
+    cfg = get_config(arch)
+    if arch == "gemma3-27b":
+        cfg = dataclasses.replace(cfg, n_layers=TP_GEMMA_LAYERS)
+    tree = lm.LanguageModel(
+        cfg, device="cuda", dtype=torch.float32,
+        generator=torch.Generator(device="cuda").manual_seed(0)
+    ).params.tree()
+    with torch.no_grad():
+        jitter_norms(tree, torch.Generator(device="cuda").manual_seed(1))
+    if name.endswith("bf16"):
+        tree = to_bf16(tree)
+    elif name.endswith("int8"):
+        tree = quant.quantize_tree(tree, quant.lm_weight_predicate)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    return tree, cfg
+
+
+def tp_engine(tree, cfg, placement):
+    """The TP phase's engine: 4 slots of pages of 16 (max_len 1024),
+    chunks of 256, the prefix cache (a windowed arch opts out)."""
+    from repro_torch.core.types import PagingConfig
+    from repro_torch.serve.engine import Engine
+    return Engine(tree, cfg, n_slots=4, max_len=1024, eos_id=-1,
+                  device="cuda", placement=placement,
+                  paging=PagingConfig(page_size=16, prefill_chunk=256,
+                                      prefix_cache=True))
+
+
+def tp_inputs(cfg, batch):
+    """The six engine requests (seeded): 97, 700 (chunked at 256), 64,
+    200 (rid 3: with a deadline), 600 sharing the 700's first 520 tokens
+    (a prefix hit, chunked) and 150; and the probe batch (B x S) of the
+    dense prefill and step."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
+            for n in (97, 700, 64, 200, 80, 150)]
+    reqs[4] = torch.cat([reqs[1][:520], reqs[4]])
+    probe = torch.randint(0, cfg.vocab, batch, generator=gen, device="cuda")
+    return reqs, probe
+
+
+def tp_launch_key(cfg):
+    return "deepseek-7b" if cfg.name == "deepseek-7b" else (
+        f"gemma3-27b/{cfg.n_layers}")
+
+
+def collectives():
+    from repro_torch.core import partitioning
+    return {"all_reduce": partitioning.tp_reduce,
+            "all_gather": partitioning.tp_gather}
+
+
+def tp_serve(phase, name, eng, batch, oracles, *, sync_check):
+    """One TP config on ``eng`` (built on its placement; on a rank, from
+    that rank's shard): a dense prefill of the probe batch and one decode
+    step through ``placement.wrap`` (their launches; the first-token
+    logits), ``TP_STEP_ITERS`` decode steps timed by CUDA events (the
+    same count on every rank), then the six requests through the engine
+    (:func:`serve_engine`: each call's launches held to the counts the
+    local config gives, which are single-device's; streams held to
+    ``oracles`` by the near-tie rule where given), with the collectives
+    counted over the run; peak memory over all of it."""
+    import torch
+    from repro_torch.models import lm
+    cfg, rcfg, place = eng.cfg, eng.rcfg, eng.placement
+    dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+    reqs, probe = tp_inputs(cfg, batch)
+    b, s = batch
+    prefill, step = place.wrap(lm.prefill), place.wrap(lm.decode_step)
+    torch.cuda.reset_peak_memory_stats()
+    for c in collectives().values():
+        c.launches = 0
+    with torch.no_grad():
+        (lg, cache), pre = counted(lambda: prefill(eng.params, probe, rcfg,
+                                                   alloc=s + 1))
+        first = lg[:, :cfg.vocab].float().cpu()
+        tok = lg.argmax(-1)[:, None]
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        _, dec = counted(lambda: step(eng.params, cache, tok, lengths, rcfg))
+        probe_coll = {k: c.launches for k, c in collectives().items()}
+        for _ in range(3):
+            step(eng.params, cache, tok, lengths, rcfg)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TP_STEP_ITERS):
+            step(eng.params, cache, tok, lengths, rcfg)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / TP_STEP_ITERS
+    del lg, cache
+    key = tp_launch_key(cfg)
+    want_pre = want_launches(f"{key} prefill", lm_counts(
+        rcfg, b * s, dtype, attention=True))
+    want_dec = want_launches(f"{key} step", lm_counts(
+        rcfg, b, dtype, attention=False))
+    if pre != want_pre or dec != want_dec:
+        raise AssertionError(f"{phase}: a prefill launched {pre}, a step "
+                             f"{dec}; want {want_pre}, {want_dec}")
+    for c in collectives().values():
+        c.launches = 0
+    res = serve_engine(phase, eng, reqs, oracles,
+                       want=paged_launches(key, rcfg, dtype), max_new=TP_NEW,
+                       sync_check=sync_check, eng=eng, deadlines=TP_DEADLINE)
+    coll = {k: c.launches for k, c in collectives().items()}
+    layers = sum(st.repeat * len(st.body) for st in cfg.stages())
+    model_calls = sum(res["calls"][k] for k in ("prefill", "chunk", "step",
+                                                "verify"))
+    want_coll = {"all_reduce": 2 * layers * model_calls,
+                 "all_gather": 0 if cfg.tie_embeddings else model_calls}
+    want_probe = {"all_reduce": 4 * layers, "all_gather":
+                  0 if cfg.tie_embeddings else 2}
+    if place.axis is not None:
+        if coll != want_coll or probe_coll != want_probe:
+            raise AssertionError(
+                f"{phase}: collectives {coll} over {model_calls} model calls"
+                f" (want {want_coll}); the probe's {probe_coll} (want "
+                f"{want_probe})")
+    elif any(coll.values()) or any(probe_coll.values()):
+        raise AssertionError(f"{phase}: one device launched collectives "
+                             f"{coll}, {probe_coll}")
+    if name.startswith("deepseek") and not res["stats"]["prefix_hits"]:
+        raise AssertionError(f"{phase}: no prefix hit: {res['stats']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(phase, f"{name} on {place.describe()}: probe prefill B={b} x {s} "
+        f"launched {pre}, a step {dec}, collectives {probe_coll}; "
+        f"{TP_STEP_ITERS} decode steps at B={b}: {step_ms:.4f} ms a step "
+        f"(CUDA events); the engine's collectives {coll} over {model_calls} "
+        f"model calls; peak memory {peak:.2f} GiB")
+    return {"tokens": res["tokens"], "statuses": res["statuses"],
+            "stats": res["stats"], "launches": res["launches"],
+            "calls": res["calls"], "run_s": res["run_s"],
+            "collectives": coll, "probe_collectives": probe_coll,
+            "probe_launches": {"prefill": pre, "step": dec},
+            "step_ms": step_ms, "peak_gib": peak,
+            "step_gaps_s": [float(g) for g in res["step_gaps_s"]],
+            "first": first}
+
+
+def tp_oracles(tree, cfg, name, batch):
+    """The dense path's greedy streams of the six requests (near-tie
+    flags at the bf16 tolerance; ``dense_oracle``), for the bf16 runs."""
+    from repro_torch.models import lm
+    model = lm.LanguageModel(cfg, tree, device="cuda")
+    reqs, _ = tp_inputs(cfg, batch)
+    return [{k: v for k, v in dense_oracle(model, r, TP_NEW, BF16_TOL)
+             .items() if k in ("tokens", "ties")} for r in reqs]
+
+
+def tp_rank(rank, t, init):
+    """One rank of the TP phase's world (a process of its own, on the
+    one card): joins the gloo group at ``init``, then for each of
+    :data:`TP_CONFIGS` builds the full tree, its engine on
+    ``TensorParallel(t)`` (so keeping its shard) and frees the full tree,
+    one rank after another (two full fp32 trees would not fit beside the
+    shards), and serves it (:func:`tp_serve`). Its results, first-token
+    logits included, go to ``TP_DIR / rank<i>.pt``."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.serve.placement import TensorParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.library()
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=t,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    place = TensorParallel(t, rank=rank, timeout_s=TP_TIMEOUT_S)
+    place.connect()
+    oracles = torch.load(TP_DIR / "oracles.pt")
+    out = {}
+    for name, batch in TP_CONFIGS:
+        t0 = time.perf_counter()
+        eng = None
+        for r in range(t):
+            if r == rank:
+                tree, cfg = tp_tree(name)
+                eng = tp_engine(tree, cfg, place)
+                del tree
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        built = time.perf_counter() - t0
+        out[name] = tp_serve(f"tp-t{t}-rank{rank}", name, eng, batch,
+                             oracles.get(name), sync_check=False)
+        out[name]["build_s"] = built
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()                   # no rank leaves while one still sends
+    dist.destroy_process_group()
+    torch.save(out, TP_DIR / f"rank{rank}.pt")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def tp_world(t):
+    """The ranks of :func:`tp_rank`, each a process on the one card, all
+    waited for under ``TP_TIMEOUT_S`` x the configs: a rank that fails or
+    hangs fails the phase (every rank is then stopped). Rank 0 prints to
+    this output, the others to ``chiprun_out/tp_rank<i>.log``."""
+    import torch
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    logs = [None] + [open(ROOT / "chiprun_out" / f"tp_rank{i}.log", "w")
+                     for i in range(1, t)]
+    init = f"tcp://localhost:{free_port()}"
+    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; import chip_smoke "
+            "as c; c.tp_rank({}, {}, {!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(str(ROOT), str(ROOT / "src"), i,
+                                           t, init)],
+        cwd=ROOT, stdout=logs[i], stderr=subprocess.STDOUT if logs[i]
+        else None) for i in range(t)]
+    deadline = time.monotonic() + TP_TIMEOUT_S * len(TP_CONFIGS)
+    try:
+        # a rank that fails stops the others at once: they would wait in
+        # their next collective until its timeout
+        while (time.monotonic() < deadline
+               and any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs[1:]:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"tp: the ranks of t = {t} exited {codes} "
+                             "(rank 1's log: chiprun_out/tp_rank1.log)")
+    return [torch.load(TP_DIR / f"rank{i}.pt") for i in range(t)]
+
+
+def tp_cli(smi):
+    """``launch/serve.py`` at ``--mesh-shape model=2`` (its ranks spawned
+    by the CLI, gloo on the one card, deepseek-7b cut to 2 layers), held
+    to the same CLI on one device: each rank's completions the same and
+    the printed streams equal to one device's."""
+    import re
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "deepseek-7b", "--layers", "2", "--requests", "6", "--slots",
+            "4", "--max-len", "1024", "--max-new", "16", "--prompt-len",
+            "300", "--prefill-chunk", "256", "--prefix-cache",
+            "--device", "cuda:0"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    outs = {}
+    for label, extra in (("one device", []),
+                         ("model=2", ["--mesh-shape", "model=2",
+                                      "--dist-backend", "gloo",
+                                      "--dist-timeout", str(TP_TIMEOUT_S)])):
+        t0 = time.perf_counter()
+        run = subprocess.run(args + extra, cwd=ROOT, env=env,
+                             capture_output=True, text=True,
+                             timeout=2 * TP_TIMEOUT_S)
+        if run.returncode:
+            raise AssertionError(f"tp-cli {label}: exit {run.returncode}: "
+                                 f"{run.stderr[-3000:]}")
+        outs[label] = run.stdout
+        say("tp-cli", f"{label} in {time.perf_counter() - t0:.1f} s: "
+            + " | ".join(line.strip() for line in run.stdout.splitlines()
+                         if "statuses" in line or "ranks:" in line
+                         or "decoded" in line))
+    pattern = r"rid=\d+ status=\w+ prompt_len=\d+ tokens=\[[^]]*\]"
+    rows = [re.findall(pattern, o) for o in outs.values()]
+    if (not rows[0] or rows[0] != rows[1] or "ranks: 2, every rank's "
+            "completions" not in outs["model=2"]
+            or "statuses: {'ok': 6}" not in outs["model=2"]):
+        raise AssertionError(f"tp-cli: one device printed {rows[0]}, "
+                             f"model=2 {outs['model=2'][-2000:]}")
+    return {"rows": rows[0], "stdout": outs}
+
+
+def tp_json(run):
+    """A TP run's readings without its logits tensor."""
+    return {k: v for k, v in run.items() if k != "first"}
+
+
+def tp_phase(smi):
+    """Tensor-parallel serving (``serve/placement.py``): each config of
+    :data:`TP_CONFIGS` on one device (``SingleDevice``, the reference),
+    then deepseek-7b in fp32 as ``TensorParallel(1)`` on a one-rank NCCL
+    group (real collectives, launched), then every config at t = 2 as
+    two processes on the one card over gloo (NCCL refuses two ranks on
+    one device; gloo stages each collective through host memory, so its
+    step time is no TP speed), then the CLI at ``model=2``. Held: every
+    rank's completions identical; equal to one device's exactly in fp32
+    (the int8 tree runs in fp32) and, in bf16, to the dense stream up to
+    a near-tie; the probe's fp32 first-token logits within LOGIT_TOL x
+    max(1, max|logit|) of one device's; each call's launches those of
+    one device at the local shapes; 2 all-reduces a layer and, with an
+    untied head, 1 all-gather a model call."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.serve.placement import SingleDevice, TensorParallel
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    single, oracles = {}, {}
+    for name, batch in TP_CONFIGS:
+        tree, cfg = tp_tree(name)
+        if name.endswith("bf16"):
+            oracles[name] = tp_oracles(tree, cfg, name, batch)
+        eng = tp_engine(tree, cfg, SingleDevice())
+        single[name] = tp_serve("tp-single", name, eng, batch,
+                                oracles.get(name), sync_check=True)
+        if name == "deepseek-fp32":
+            # t = 1 on NCCL, on the same tree
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{free_port()}",
+                rank=0, world_size=1,
+                timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+            try:
+                eng1 = tp_engine(tree, cfg, TensorParallel(
+                    1, timeout_s=TP_TIMEOUT_S))
+                one = tp_serve("tp-t1-nccl", name, eng1, batch, None,
+                               sync_check=True)
+                del eng1
+            finally:
+                dist.destroy_process_group()
+        del eng, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(oracles, TP_DIR / "oracles.pt")
+    t_world = time.perf_counter()
+    ranks = tp_world(2)
+    world_s = time.perf_counter() - t_world
+    out = {"single": {}, "t1": {}, "t2": {}}
+    for name, _ in TP_CONFIGS:
+        ref = single[name]
+        fp32 = not name.endswith("bf16")
+        runs = [(f"t2 rank{i}", r[name]) for i, r in enumerate(ranks)]
+        if name == "deepseek-fp32":
+            runs.insert(0, ("t1 nccl", one))
+        for label, got in runs:
+            err, ok = err_ok(got["first"], ref["first"], LOGIT_TOL)
+            same = got["tokens"] == ref["tokens"]
+            if got["probe_launches"] != ref["probe_launches"] or (
+                    got["launches"] != ref["launches"]):
+                raise AssertionError(f"tp {name} {label}: launches "
+                                     f"{got['probe_launches']} / "
+                                     f"{got['launches']}, one device's "
+                                     f"{ref['probe_launches']} / "
+                                     f"{ref['launches']}")
+            if fp32 and (not ok or not same):
+                raise AssertionError(f"tp {name} {label}: first-token logits"
+                                     f" {err} off, streams equal {same}")
+            if any(s != "ok" for s in got["statuses"].values()):
+                raise AssertionError(f"tp {name} {label}: statuses "
+                                     f"{got['statuses']}")
+            say("tp", f"{name} {label}: first-token logits {err:.4g} off one "
+                f"device's (tol {LOGIT_TOL}*max(1,max|logit|)"
+                f"{'' if fp32 else ', a bf16 reading'}); streams equal to "
+                f"one device's: {same}; launches as one device's; "
+                f"collectives {got['collectives']}; peak "
+                f"{got['peak_gib']:.2f} GiB (one device "
+                f"{ref['peak_gib']:.2f}); a decode step {got['step_ms']:.4f}"
+                f" ms (one device {ref['step_ms']:.4f})"
+                + ("" if label.startswith("t1") else
+                   ", host-staged gloo: no TP speed")
+                + f" | {smi}")
+        if [r[name]["tokens"] for r in ranks].count(ranks[0][name]["tokens"]) \
+                != len(ranks):
+            raise AssertionError(f"tp {name}: the ranks' streams differ")
+        out["single"][name] = tp_json(ref)
+        out["t2"][name] = [tp_json(r[name]) for r in ranks]
+    out["t1"]["deepseek-fp32"] = tp_json(one)
+    out["world_s"] = world_s
+    out["cli"] = tp_cli(smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    say("tp", f"phase took {out['seconds']:.1f} s (the t = 2 world "
+              f"{world_s:.1f} s)")
+    return out
+
+
 def kernel_line(rows, name, key, launches, path, dtype="fp32",
                 label=None, source=None):
     """One kernel's entry of the kernels JSON line: its ``dtype`` cases
@@ -4930,6 +5458,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
 
+    def clock(done):
+        say("clock", f"{done} done at {time.perf_counter() - t_start:.1f} s")
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5010,6 +5541,21 @@ def main() -> int:
         rows += run_cases(moe_cases(phi_cfg, dt, gen, dev,
                                     ("pprefill", "pdecode")), name, tol)
         rows += run_cases(vl_cases(vl_cfg, dt, gen, dev), name, tol)
+        # one tensor-parallel rank's calls: deepseek-7b at t = 2 (run
+        # below) and t = 4 (its new shapes: down at K = 2752 = 43 x 64),
+        # gemma3-27b at 12 layers and t = 2
+        rows += run_cases(
+            tp_cases(dense_cfg, 2, (4, 512), dt, gen, dev,
+                     ("tprefill", "tdecode"))
+            + tp_cases(dataclasses.replace(gemma_cfg,
+                                           n_layers=TP_GEMMA_LAYERS),
+                       2, (2, 2048), dt, gen, dev,
+                       ("tgprefill", "tgdecode")), name, tol)
+        # t = 4 is not run on the one card: its shapes are checked, not
+        # timed
+        rows += run_cases(tp_cases(dense_cfg, 4, (4, 512), dt, gen, dev,
+                                   ("t4prefill", "t4decode")), name, tol,
+                          timed=False)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -5040,6 +5586,7 @@ def main() -> int:
                              f"({a / b:.2f}x)")
         for k, (a, b) in overheads.items()))
 
+    clock("phase 3")
     # 4./5. full-width Swin-T, fused and unfused
     rng = np.random.default_rng(0)
     model = SwinTransformer(CONFIG, device=dev,
@@ -5106,22 +5653,26 @@ def main() -> int:
                       f"{thr['plain_fp32']:.1f}; peak memory {peak_gb:.2f} "
                       f"GiB | {smi}")
 
+    clock("phases 4-7")
     # 8. RWKV6-3B at full width and depth
     rwkv = rwkv_phase(smi)
     tables = lm_tables(rows, ("prefill", "decode"), "rwkv-table")
 
+    clock("phase 8")
     # 9. deepseek-7b at full width and depth
     dense = dense_phase(smi)
     dense_tables = lm_tables(rows, ("dprefill", "ddecode", "dunfused"),
                              "dense-table")
 
-    # 10. gemma3-27b (8 layers in fp32, all 62 in bf16) and whisper-base
+    clock("phase 9")
+    # 10. gemma3-27b (8 layers in fp32, 32 in bf16) and whisper-base
     gemma = gemma_phase(smi)
     gemma_tables = lm_tables(rows, ("gprefill", "gdecode"), "gemma-table")
     whisper = whisper_phase(smi)
     whisper_tables = lm_tables(rows, ("wprefill", "wdecode"),
                                "whisper-table")
 
+    clock("phase 10")
     # 11. zamba2-1.2b, qwen2-moe-a2.7b and phi3.5-moe (8 layers)
     zamba2 = zamba2_phase(smi)
     zamba2_tables = lm_tables(rows, ("zprefill", "zdecode"), "zamba2-table")
@@ -5130,14 +5681,23 @@ def main() -> int:
     moe_tables = lm_tables(rows, ("qprefill", "qdecode", "pprefill",
                                   "pdecode"), "moe-table")
 
+    clock("phase 11")
     # 12. qwen2-vl-2b served; 13. the kernels' gradients; 14. qwen2-vl-2b
-    # trained at full depth, then preempted and resumed at 4 layers
+    # trained at full depth, then preempted and resumed at 2 layers
     vl = vl_phase(smi)
     vl_tables = lm_tables(rows, ("vprefill", "vdecode", "vtrain"),
                           "vl-table")
     grads = grads_phase()
     train = train_phase(smi)
     resume = resume_phase()
+
+    clock("phases 12-14")
+    # 15. tensor-parallel serving: one device, t = 1 on NCCL, t = 2 as
+    # two processes over gloo, the CLI at model=2
+    tp = tp_phase(smi)
+    tp_tables = lm_tables(rows, ("tprefill", "tdecode", "t4prefill",
+                                 "t4decode", "tgprefill", "tgdecode"),
+                          "tp-table")
 
     def both(run, batch, key="counts"):
         """A phase's launches per run of its largest batch, by dtype."""
@@ -5162,8 +5722,22 @@ def main() -> int:
             (moe_tables, "pprefill", both(phi, "b4")),
             (moe_tables, "pdecode", both(phi, "b4", "decode_counts")),
             (vl_tables, "vprefill", both(vl, "b4")),
-            (vl_tables, "vdecode", both(vl, "b4", "decode_counts"))):
+            (vl_tables, "vdecode", both(vl, "b4", "decode_counts")),
+            (tp_tables, "tprefill", {
+                dt: tp["t2"][f"deepseek-{dt}"][0]["probe_launches"][
+                    "prefill"] for dt in ("fp32", "bf16")}),
+            (tp_tables, "tdecode", {
+                dt: tp["t2"][f"deepseek-{dt}"][0]["probe_launches"]["step"]
+                for dt in ("fp32", "bf16")})):
         check_listed(tabs, key, counts)
+    # gemma3-27b ran at t = 2 in bf16 only
+    for key, call in (("tgprefill", "prefill"), ("tgdecode", "step")):
+        listed = {name: tp_tables.get(f"{key} bf16 {name}", {}).get(
+            "launches", 0) for name in REPLACES}
+        ran = tp["t2"]["gemma-bf16"][0]["probe_launches"][call]
+        if listed != ran:
+            raise AssertionError(f"the {key} bf16 cases list {listed} "
+                                 f"launches, a rank ran {ran}")
     # the train step's cases (fp32 only) against the step's launches
     listed = {name: vl_tables.get(f"vtrain fp32 {name}", {}).get(
         "launches", 0) for name in REPLACES}
@@ -5177,7 +5751,8 @@ def main() -> int:
         raise AssertionError(f"the Swin-T cases list {listed} launches, "
                              f"the forward ran {main_counts}")
 
-    # 15. the int8 path, the readings in processes of their own
+    clock("phase 15")
+    # 16. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
     import gc
     gc.collect()
@@ -5200,7 +5775,8 @@ def main() -> int:
                                   "layernorm_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    # 16. the kernels line and the result
+    clock("phase 16")
+    # 17. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -5291,6 +5867,16 @@ def main() -> int:
         for name in ("rowwise_matmul", "flash_attention", "layernorm"):
             kernels.append(kernel_line(rows, name, key, counts[name], path,
                                        label=f"{name} {tag}"))
+    # tensor-parallel serving: every kernel over one rank's fp32 probe
+    # prefill at t = 2, at the local shapes
+    tp_run = tp["t2"]["deepseek-fp32"][0]["probe_launches"]["prefill"]
+    for name in ("rowwise_matmul", "flash_attention", "layernorm"):
+        kernels.append(kernel_line(
+            rows, name, "tprefill", tp_run[name],
+            "one rank's deepseek-7b prefill at t = 2, B=4 x 512, fp32 (qkv "
+            "and gate|up at N / 2, wo and down at K / 2 with no residual, "
+            "16 of 32 heads, the head at N = 51200)",
+            label=f"{name} tensor-parallel t=2"))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -5314,7 +5900,8 @@ def main() -> int:
                                "moe_tables": moe_tables,
                                "qwen2_vl": vl, "vl_tables": vl_tables,
                                "grads": grads, "train": train,
-                               "resume": resume,
+                               "resume": resume, "tp": tp,
+                               "tp_tables": tp_tables,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
@@ -5335,7 +5922,8 @@ def main() -> int:
                 "attention rows: over the calls of one prefill that take "
                 "that mode; the zamba2-1.2b, qwen2-moe-a2.7b and qwen2-vl-2b "
                 "rows: over one fp32 prefill; the qwen2-vl-2b train rows: "
-                "over one fp32 train step)")
+                "over one fp32 train step; the tensor-parallel rows: over "
+                "one rank's fp32 prefill at t = 2)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

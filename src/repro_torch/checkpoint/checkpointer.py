@@ -17,7 +17,7 @@ written so that each package restores the other's checkpoints:
 
 A bf16 leaf is saved as the JAX package saves it (``ml_dtypes``'
 bfloat16, which that writer needs). ``shardings=`` (restore onto a
-mesh) waits for ROADMAP.md queue 1 item 8.
+mesh) waits for ROADMAP.md queue 1 item 8b.
 """
 from __future__ import annotations
 

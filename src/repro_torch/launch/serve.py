@@ -6,20 +6,44 @@ synthetic requests, on the card.
 
 The flags and output lines of the JAX package's ``launch/serve.py``,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-path). Weights come from ``lm.init_lm`` with a ``torch.Generator``
+path) and ``--layers`` (cut the config to that many layers at full
+width). Weights come from ``lm.init_lm`` with a ``torch.Generator``
 seeded with ``--seed``, the synthetic prompts from
 ``np.random.default_rng(seed)`` at the reference's lengths
-(``prompt_len + i % 8``). The engine runs on one device: a
-``--mesh-shape`` other than '' or '1' raises (tensor-parallel serving
-is not ported yet, ROADMAP.md queue 1 item 8).
+(``prompt_len + i % 8``).
+
+Tensor-parallel serving: ``--mesh-shape model=N`` (or ``N``) with N > 1
+serves N ranks. The CLI starts them itself: it runs itself once per
+rank (``--rank i``, all joined at ``--dist-init``, a
+``tcp://localhost:<port>`` it picks when none is given), waits for them
+and checks that every rank produced the same completions. Each rank
+builds the same full model from ``--seed``, keeps its shard
+(``serve/placement.py``) and serves the same requests; rank 0 prints
+the lines above. The collectives' backend is ``--dist-backend``
+(``nccl`` for a card, ``gloo`` for the CPU unless given), and
+``--device`` names each rank's device: one device for every rank or a
+comma-separated list, one a rank. NCCL refuses two ranks on one card;
+to run N ranks on fewer cards, ask for ``--dist-backend gloo`` (it
+stages every collective through host memory). Nothing switches backend
+or device on a failure, and a rank that fails fails the run.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import datetime
+import hashlib
+import os
+import socket
+import subprocess
+import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import runtime
@@ -27,18 +51,71 @@ from repro_torch.core.block_traffic import serve_kv_traffic
 from repro_torch.core.types import PagingConfig
 from repro_torch.models import lm
 from repro_torch.serve import faults as faults_mod
+from repro_torch.serve import placement as placement_mod
 from repro_torch.serve.engine import Engine, Request
 
 
-def single_device(spec: str) -> str:
-    """Check a ``--mesh-shape`` value names one device ('', '1' or
-    'model=1'); return the placement's description."""
-    if (spec or "").replace(" ", "") not in ("", "1", "model=1"):
-        raise ValueError(
-            f"--mesh-shape {spec!r}: the port's engine runs on one "
-            "device; tensor-parallel serving is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
-    return "single-device"
+def digest(done) -> str:
+    """A short hash of the completions (rid, status, tokens): equal on
+    every rank of a tensor-parallel run."""
+    h = hashlib.sha256()
+    for c in sorted(done, key=lambda c: c.rid):
+        h.update(repr((c.rid, c.status, list(c.tokens))).encode())
+    return h.hexdigest()[:16]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(argv, n: int, timeout_s: float) -> list:
+    """Run this CLI once per rank with ``argv`` plus ``--rank i`` and a
+    shared ``--dist-init``; every rank must exit 0 within ``timeout_s``.
+    Returns each rank's standard output."""
+    if "--dist-init" not in argv:
+        argv = [*argv, "--dist-init", f"tcp://localhost:{_free_port()}"]
+    env = dict(os.environ)
+    src = str(Path(__file__).resolve().parents[2])
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                 if p])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+         "--rank", str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for i in range(n)]
+    outs = [("", "")] * n
+
+    def drain(i):
+        outs[i] = procs[i].communicate()
+    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + timeout_s
+    # a rank that fails stops the others at once: they would wait in
+    # their next collective until its timeout
+    while (time.monotonic() < deadline
+           and any(p.poll() is None for p in procs)
+           and not any(p.poll() for p in procs)):
+        time.sleep(0.2)
+    failed = []
+    for i, p in enumerate(procs):
+        if p.poll() is None:
+            p.kill()
+            failed.append(f"rank {i} was stopped after {timeout_s:.0f} s "
+                          "or another rank's failure")
+    for th in threads:
+        th.join()
+    for i, p in enumerate(procs):
+        if p.returncode:
+            failed.append(f"rank {i} exited {p.returncode}:\n"
+                          + outs[i][1][-4000:])
+    if failed:
+        raise RuntimeError("tensor-parallel serving failed: "
+                           + "\n".join(failed))
+    return [out for out, _ in outs]
 
 
 def main(argv=None):
@@ -108,16 +185,68 @@ def main(argv=None):
                     help="per-request deadline in seconds (requests "
                          "past it retire with status 'deadline')")
     ap.add_argument("--mesh-shape", default="",
-                    help="'' or '1' (one device; tensor-parallel "
-                         "serving is not ported yet)")
+                    help="tensor-parallel mesh, e.g. 'model=4' or '4' "
+                         "('' or '1' = single device): that many ranks, "
+                         "one process each. Head counts, d_ff and the "
+                         "padded vocab must divide by it; indivisible "
+                         "shapes are rejected at engine construction")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: 'cuda' (the kernels) "
-                         "or 'cpu' (the plain PyTorch path)")
+                         "or 'cpu' (the plain PyTorch path); under a "
+                         "mesh, one device for every rank or a "
+                         "comma-separated list, one a rank")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=("nccl", "gloo"),
+                    help="the collectives' backend under a mesh "
+                         "(default: nccl on a card, gloo on the CPU)")
+    ap.add_argument("--dist-init", default=None,
+                    help="the ranks' rendezvous, e.g. "
+                         "tcp://localhost:29500 (default: a free port)")
+    ap.add_argument("--dist-timeout", type=float, default=600.0,
+                    help="seconds a collective (and the whole run of "
+                         "the ranks) may take before it fails")
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = all)")
     args = ap.parse_args(argv)
 
-    placement = single_device(args.mesh_shape)
-    device = runtime.resolve_device(args.device)
+    placement = placement_mod.from_mesh_shape(args.mesh_shape)
+    devices = args.device.split(",")
+    t = placement.n_shards
+    if len(devices) not in (1, t):
+        raise ValueError(f"--device names {len(devices)} devices for "
+                         f"{t} ranks: give one, or one a rank")
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    placement.validate(cfg)
+    devices = [runtime.resolve_device(d) for d in devices]
+    if t > 1 and args.rank is None:
+        outs = _spawn_ranks(list(sys.argv[1:] if argv is None else argv),
+                            t, args.dist_timeout + 60.0)
+        print(outs[0], end="")
+        sums = [line.split("completions=")[1] for out in outs
+                for line in out.splitlines() if "completions=" in line]
+        if len(sums) != t or len(set(sums)) != 1:
+            raise RuntimeError(f"the ranks' completions differ: {sums}")
+        print(f"ranks: {t}, every rank's completions {sums[0]}")
+        return None
+    device = devices[min(args.rank or 0, len(devices) - 1)]
+    if t > 1:
+        backend = args.dist_backend or (
+            "nccl" if device.type == "cuda" else "gloo")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        else:                        # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // t))
+        dist.init_process_group(
+            backend, init_method=args.dist_init, rank=args.rank,
+            world_size=t,
+            timeout=datetime.timedelta(seconds=args.dist_timeout))
+        placement = placement_mod.TensorParallel(
+            t, rank=args.rank, axis=placement.axis,
+            timeout_s=args.dist_timeout)
     if args.fault_plan.startswith("random:"):
         plan = faults_mod.FaultPlan.random(
             int(args.fault_plan.split(":", 1)[1]), n_steps=64,
@@ -135,8 +264,8 @@ def main(argv=None):
                      prefix_cache=args.prefix_cache,
                      prefill_token_budget=args.prefill_token_budget,
                      speculate_k=args.speculate),
-                 faults=plan, preempt_patience=args.preempt_patience,
-                 device=device)
+                 placement=placement, faults=plan,
+                 preempt_patience=args.preempt_patience, device=device)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         plen = min(args.prompt_len + (i % 8), args.max_len)
@@ -149,9 +278,15 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     total_new = sum(len(c.tokens) for c in done)
+    if t > 1:
+        print(f"rank={args.rank} completions={digest(done)}")
+        dist.barrier()               # no rank leaves while one still sends
+        dist.destroy_process_group()
+        if args.rank:
+            return done
     print(f"arch={cfg.name} slots={args.slots} requests={len(done)} "
           f"page_size={eng.page_size} pool={eng.pool.n_pages} pages "
-          f"placement={placement} device={device}")
+          f"placement={placement.describe()} device={device}")
     for c in sorted(done, key=lambda c: c.rid)[:4]:
         print(f"  rid={c.rid} status={c.status} prompt_len={c.prompt_len} "
               f"tokens={c.tokens[:8]}... latency={c.latency_s*1e3:.0f}ms "

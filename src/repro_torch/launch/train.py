@@ -11,7 +11,7 @@ NaN-step guard, a straggler EMA; plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch path) and ``--layers`` (cut the config
 to that many layers at full width; 0 keeps its depth). ``--mesh`` other
 than ``none`` and ``--compress-pods`` raise: the mesh and cross-pod
-compression are not ported yet (ROADMAP.md queue 1 item 8). Weights
+compression are not ported yet (ROADMAP.md queue 1 item 8b). Weights
 come from ``lm.init_lm`` in fp32 with a ``torch.Generator`` seeded with
 ``--seed``.
 """
@@ -58,7 +58,7 @@ def main(argv=None):
     if args.mesh != "none":
         raise ValueError(f"--mesh {args.mesh!r}: the port trains on one "
                          "device; a mesh is not ported yet (ROADMAP.md "
-                         "queue 1 item 8)")
+                         "queue 1 item 8b)")
     device = runtime.resolve_device(args.device)
 
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)

@@ -31,7 +31,7 @@ Training differentiates the chunked scan through the flash backward
 (:func:`_flash_bwd`, :class:`_ChunkedAttention`), which also serves as
 the backward of the attention kernel without a bias
 (:func:`flash_backward`). Not ported yet: the sequence-sharded decode
-(ROADMAP.md queue 1 item 8).
+(ROADMAP.md queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import partitioning as part
 from repro_torch.core import quant, runtime
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops
@@ -81,8 +82,16 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
 
 
 def _out_proj(out, wo, residual):
-    """Output projection with the residual in its epilogue."""
-    return ops.matmul(out, wo, residual=residual)
+    """Output projection with the residual in its epilogue. Under a
+    tensor-parallel shard context (``serve/placement.py``) ``wo`` is
+    row-sharded (each rank holds the rows of the heads it attended), so
+    the matmul yields a K-partial sum that is summed over the group
+    BEFORE the residual is added: a residual in each rank's epilogue
+    would be summed once per rank."""
+    if part.tp_axis() is None:
+        return ops.matmul(out, wo, residual=residual)
+    y = part.tp_reduce(ops.matmul(out, wo))
+    return y if residual is None else y + residual
 
 
 class KVCache(NamedTuple):

@@ -35,8 +35,11 @@ positions (``extra["positions3"]``). Training: :func:`loss_fn` over
 :func:`forward` in train mode, each repeat recomputed in the backward
 (``remat``, as the JAX package's ``jax.checkpoint``), on trees whose
 leaves require a gradient; :func:`fuse_params` / :func:`unfuse_params`
-migrate the seed's split projection layout. Tied TP heads come with a
-later slice (ROADMAP.md queue 1 item 8).
+migrate the seed's split projection layout. Tensor-parallel serving
+(``serve/placement.py``) runs these functions on each rank's shard:
+the row-parallel projections sum over the group and an untied head
+gathers its vocab blocks (``core/partitioning.py``); the training mesh
+waits for ROADMAP.md queue 1 item 8b.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.core import partitioning as part
 from repro_torch.core import quant, runtime
 from repro_torch.core.params import ParamTree
 from repro_torch.core.types import ModelConfig, Stage
@@ -340,11 +344,18 @@ def unembed(params, x, cfg: ModelConfig):
                       params["final_norm"].get("b"), kind=cfg.norm)
     if cfg.tie_embeddings:
         # the kernel reads weights with unit column stride: the tied
-        # head multiplies by a transposed copy of the table
+        # head multiplies by a transposed copy of the table. Tied
+        # embeddings stay replicated under tensor parallelism (the
+        # embed gather needs every row), so the logits are full-width
         w = quant.resolve_weight(params["embed"], x.dtype).t().contiguous()
+        logits = ops.matmul(x, w, out_dtype=torch.float32)
     else:
-        w = params["lm_head"]
-    logits = ops.matmul(x, w, out_dtype=torch.float32)
+        # under tensor parallelism the lm_head is vocab-sharded: each
+        # rank computes its contiguous logit block, and the tiled gather
+        # rebuilds the row before the pad mask, which needs global
+        # column indices (a no-op outside TP)
+        logits = part.tp_gather(ops.matmul(x, params["lm_head"],
+                                           out_dtype=torch.float32))
     if padded_vocab(cfg) != cfg.vocab:  # mask pad columns out of softmax
         logits[..., cfg.vocab:] = NEG_INF
     return logits

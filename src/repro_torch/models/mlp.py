@@ -8,6 +8,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import partitioning as part
 from repro_torch.core import quant
 from repro_torch.core.types import GATED_ACTS as GATED, ModelConfig
 from repro_torch.kernels import ops
@@ -54,7 +55,12 @@ def apply(params, x, *, cfg: ModelConfig, norm=None, residual=None):
             h = ops.matmul(x, wgi[..., f:]) * g
     else:
         h = ops.matmul(x, params["wi"], activation=act, norm=norm)
-    return ops.matmul(h, params["wo"], residual=residual)
+    if part.tp_axis() is None:
+        return ops.matmul(h, params["wo"], residual=residual)
+    # tensor-parallel serving: wo is row-sharded over the hidden dim, so
+    # the partial product is summed over the group before the residual
+    y = part.tp_reduce(ops.matmul(h, params["wo"]))
+    return y if residual is None else y + residual
 
 
 def init_cmix(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],

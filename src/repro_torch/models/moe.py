@@ -5,7 +5,7 @@ dispatch over the whole batch. The router, the dispatch and the experts
 are jnp there, outside any Pallas kernel, so here they are torch ops:
 the router product and the expert SwiGLU einsums in fp32, as in JAX.
 The expert-parallel path (``_apply_ep``, an all-to-all over the mesh's
-'model' axis) comes with tensor parallelism (ROADMAP.md queue 1).
+'model' axis) comes with the training mesh (ROADMAP.md queue 1 item 8b).
 
 Experts are padded up to a multiple of the model axis (qwen2-moe's 60
 -> 64) with router logits masked to -1e30: routing never reaches pads.

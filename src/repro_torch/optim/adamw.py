@@ -6,7 +6,7 @@ global-norm clip ``min(1, max_norm / max(norm, 1e-9))``. ``torch.optim
 .AdamW`` orders the bias correction, ``eps`` and the decay otherwise
 (it decays before the step), so it rounds differently; it is not used.
 Every operation stays on the device: no host read. ``state_specs`` (the
-sharded optimizer state) waits for ROADMAP.md queue 1 item 8.
+sharded optimizer state) waits for ROADMAP.md queue 1 item 8b.
 """
 from __future__ import annotations
 

@@ -10,10 +10,14 @@ on the engine's device (``_step``, ``_admit``, ``_chunk``, ``_spec``),
 calling the paged functions of ``models/lm.py``; the page pools are
 written in place, so nothing is donated. One ``torch.Generator`` on
 the device, seeded with ``seed``, stands in for the JAX key splits.
-The engine is single-device: tensor parallelism
-(``serve/placement.py``) is not ported yet (ROADMAP.md queue 1 item
-7), nor is ``audit_entry_points``, which feeds the JAX package's
-static auditor (queue 1 item 10).
+A placement (``serve/placement.py``) owns the parameters, the pools and
+the model calls: ``SingleDevice`` by default, or ``TensorParallel`` for
+one rank of a ``torch.distributed`` group, where every rank builds the
+same engine on its shard and runs this host loop, and the deadline
+sweep decides on rank 0's clock (``placement.agreed``) so that no
+rank's host decisions differ. ``audit_entry_points``, which feeds the
+JAX package's static auditor, is not ported (ROADMAP.md queue 1 item
+10).
 
 vLLM-style paging: a fixed batch of ``n_slots`` sequences decodes in
 lockstep, but attention KV lives in per-layer page *pools* shared by
@@ -113,6 +117,7 @@ from repro_torch.core.types import ModelConfig, PagingConfig
 from repro_torch.models import lm
 from repro_torch.serve import sampling, spec
 from repro_torch.serve.faults import AllocFault, FaultPlan, StepFault
+from repro_torch.serve.placement import SingleDevice
 from repro_torch.serve.paging import (PagePool, bucket_for, chunk_schedule,
                                       default_buckets, page_aligned_size,
                                       spec_ladder, supports_bucketing)
@@ -170,6 +175,9 @@ class _Pending:
     greedy), so resume needs no special device machinery."""
     req: Request
     t0: float                        # submission wall time (TTFT base)
+    t_dl: float = 0.0                # submission time the ranks agree on
+    #                                  (the deadline base: rank 0's clock
+    #                                  under tensor parallelism, t0 else)
     prior: List[int] = dataclasses.field(default_factory=list)
     prior_times: List[float] = dataclasses.field(default_factory=list)
     ttft: Optional[float] = None     # preserved across preemption: the
@@ -256,11 +264,15 @@ class Engine:
                  top_p: float = 1.0, seed: int = 0,
                  paging: PagingConfig = PagingConfig(),
                  buckets: Optional[List[int]] = None,
-                 cache_dtype=None,
+                 cache_dtype=None, placement=None,
                  faults: Optional[FaultPlan] = None,
                  preempt_patience: Optional[int] = None,
                  max_recoveries: int = 8, max_rid_failures: int = 3,
                  device="cuda"):
+        self.placement = placement or SingleDevice()
+        # fail at construction, never mid-step: an indivisible mesh axis
+        # would otherwise surface as a shape error deep in a model call
+        self.placement.validate(cfg)
         self.device = runtime.resolve_device(device)
         embed = params["embed"]
         leaf = embed["q"] if quant.is_quantized(embed) else embed
@@ -269,6 +281,9 @@ class Engine:
                              f"engine runs on {self.device}: move them "
                              "there first")
         self.cfg = cfg
+        # the config the model calls run against: per-rank heads / d_ff
+        # under tensor parallelism, cfg itself on one device
+        self.rcfg = self.placement.compute_cfg(cfg)
         self.n_slots, self.max_len, self.eos_id = n_slots, max_len, eos_id
         self.temperature = temperature
         # engine-level static top-k / nucleus filter: one decode/verify
@@ -297,8 +312,10 @@ class Engine:
         else:
             dtype = params["embed"].dtype
         self.cache_dtype = dtype
-        self.params = params
-        self.cache = self._init_cache()
+        # the placement owns the parameters and the pools (this rank's
+        # shard and KV heads under tensor parallelism)
+        self.params = self.placement.prepare_params(params, cfg)
+        self.cache = self.placement.prepare_cache(cfg, self._init_cache)
         if buckets is not None:
             if not supports_bucketing(cfg):
                 raise ValueError(
@@ -422,11 +439,17 @@ class Engine:
         self._admit_seq = [0] * n_slots          # admission order (age)
         self._seq = 0
         self._head_blocked = 0       # consecutive iters the head waited
+        # the model calls run through the placement (as this rank of its
+        # group under tensor parallelism; unchanged on one device)
+        self._step = self.placement.wrap(self._step)
+        self._admit = self.placement.wrap(self._admit)
+        self._chunk = self.placement.wrap(self._chunk)
+        self._spec = self.placement.wrap(self._spec)
 
     # ------------------------------------------------------------------
 
-    def _init_cache(self):
-        return lm.init_paged_cache(self.cfg, self.n_slots, self.max_len,
+    def _init_cache(self, cfg: ModelConfig):
+        return lm.init_paged_cache(cfg, self.n_slots, self.max_len,
                                    page_size=self.page_size,
                                    n_pages=self._n_pages,
                                    dtype=self.cache_dtype,
@@ -459,7 +482,7 @@ class Engine:
         """One lockstep paged decode step: ``(next, bad)``, lengths and
         the pools updated on the device."""
         logits, self.cache = lm.decode_step(
-            self.params, self.cache, self._last, self.lengths, self.cfg,
+            self.params, self.cache, self._last, self.lengths, self.rcfg,
             pages=self._tables_dev)
         # fault injection + containment: `poison` overwrites a slot's
         # logits with NaN (chaos testing the guard below); `bad` flags
@@ -480,9 +503,9 @@ class Engine:
     def _admit(self, tokens, slot, pages_row, plen, temp):
         """Bucketed one-shot prefill of one prompt into ``slot``, its
         paged insert and its first token: ``(first, bad)``."""
-        logits, states = lm.prefill_states(self.params, tokens, self.cfg,
+        logits, states = lm.prefill_states(self.params, tokens, self.rcfg,
                                            last_pos=plen)
-        self.cache = lm.insert_prefill(self.cfg, self.cache, states,
+        self.cache = lm.insert_prefill(self.rcfg, self.cache, states,
                                        slot=slot, pages=pages_row,
                                        plen=plen, page_size=self.page_size)
         bad = ~torch.isfinite(logits).all()
@@ -503,7 +526,7 @@ class Engine:
         # passes (0, 0), the identity
         self.cache = lm.cow_copy(self.cache, cow_src, cow_dst)
         logits, self.cache = lm.prefill_chunk(
-            self.params, self.cache, tokens, self.cfg, offset=offset,
+            self.params, self.cache, tokens, self.rcfg, offset=offset,
             chunk_len=chunk_len, pages=pages_row[None])
         # a NaN written by an *earlier* chunk propagates through the
         # prefix-page attention into these logits, so checking the
@@ -538,7 +561,7 @@ class Engine:
         # both attention partials fully masked
         clen = torch.where(active, 1 + draft_len, 1)
         logits, states = lm.verify_states(
-            self.params, self.cache, tokens, self.cfg, offset=self.lengths,
+            self.params, self.cache, tokens, self.rcfg, offset=self.lengths,
             chunk_len=clen, pages=self._tables_dev)
         logits = torch.where(poison[:, None, None], torch.nan, logits)
         rows = torch.arange(sc, device=dev)[None, :]
@@ -556,7 +579,7 @@ class Engine:
     def _insert_accepted(self, states, offset, n_keep):
         """Write ONLY the committed token plus the accepted prefix of a
         verify panel (host ``offset`` and ``n_keep``: no device read)."""
-        self.cache = lm.insert_verify(self.cfg, self.cache, states,
+        self.cache = lm.insert_verify(self.rcfg, self.cache, states,
                                       pages=self._tables_host,
                                       offset=offset, n_keep=n_keep)
 
@@ -580,7 +603,9 @@ class Engine:
             # rows and the prefill-sampled token retires it — there is
             # no in-bounds cache row left for a decode step to write
             req = dataclasses.replace(req, max_new=1)
-        self.queue.append(_Pending(req=req, t0=time.perf_counter()))
+        t0 = time.perf_counter()
+        self.queue.append(_Pending(req=req, t0=t0,
+                                   t_dl=self.placement.agreed(t0)))
 
     def compile_counts(self) -> dict:
         """Distinct shapes of the serving entry points — the host-side
@@ -673,11 +698,12 @@ class Engine:
             self._finish(pend, list(pend.prior), status)
 
     def _sweep_deadlines(self):
-        now = time.perf_counter()
+        # one clock reading for the sweep, the same on every rank
+        now = self.placement.agreed(time.perf_counter())
 
         def over(p: _Pending) -> bool:
             return (p.req.deadline_s is not None
-                    and now - p.t0 > p.req.deadline_s)
+                    and now - p.t_dl > p.req.deadline_s)
 
         for slot in range(self.n_slots):
             pend = self.active[slot]
@@ -710,7 +736,7 @@ class Engine:
         produced tokens for bit-identical greedy resume."""
         if self.active[slot] is not None:
             pend = self.active[slot]
-            new = _Pending(req=pend.req, t0=pend.t0,
+            new = _Pending(req=pend.req, t0=pend.t0, t_dl=pend.t_dl,
                            prior=list(self.out_tokens[slot]),
                            prior_times=list(self._token_times[slot]),
                            ttft=self.ttft[slot], admit_t=pend.admit_t)
@@ -745,7 +771,7 @@ class Engine:
         head = self.queue[0]
         if head.req.deadline_s is not None:
             def abs_dl(p: _Pending) -> float:
-                return (p.t0 + p.req.deadline_s
+                return (p.t_dl + p.req.deadline_s
                         if p.req.deadline_s is not None else float("inf"))
             cands = [s for s in live if abs_dl(self._pend_at(s))
                      > abs_dl(head)]
@@ -1187,7 +1213,7 @@ class Engine:
         boundary retires as `failed` instead of looping forever."""
         while self.pool.in_transaction():
             self.pool.rollback()
-        self.cache = self._init_cache()
+        self.cache = self.placement.prepare_cache(self.cfg, self._init_cache)
         self._zero_device_state()
         live = sorted((s for s in range(self.n_slots)
                        if self.active[s] is not None or s in self.chunking),
@@ -1195,7 +1221,7 @@ class Engine:
         for slot in reversed(live):      # appendleft keeps admission order
             if self.active[slot] is not None:
                 pend = self.active[slot]
-                new = _Pending(req=pend.req, t0=pend.t0,
+                new = _Pending(req=pend.req, t0=pend.t0, t_dl=pend.t_dl,
                                prior=list(self.out_tokens[slot]),
                                prior_times=list(self._token_times[slot]),
                                ttft=self.ttft[slot],

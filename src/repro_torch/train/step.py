@@ -10,7 +10,7 @@ prints. The gradients come from ``torch.autograd.grad`` of
 (``detach().requires_grad_()``: the state's own leaves never carry a
 graph). Cross-pod gradient compression (``compress_pods``) is a
 collective over a mesh, and waits with the mesh for ROADMAP.md queue 1
-item 8; so do ``state_logical_specs`` and ``param_specs``.
+item 8b; so do ``state_logical_specs`` and ``param_specs``.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def _no_compression(tcfg: TrainConfig):
     if tcfg.compress_pods:
         raise NotImplementedError(
             "compress_pods: cross-pod gradient compression reduces over a "
-            "'pod' mesh axis; not ported yet, ROADMAP.md queue 1 item 8")
+            "'pod' mesh axis; not ported yet, ROADMAP.md queue 1 item 8b")
 
 
 def init_state(params, tcfg: TrainConfig) -> TrainState:

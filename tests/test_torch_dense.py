@@ -453,20 +453,19 @@ def test_configs_match_jax():
 
 def test_unported_attention_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP.md item:
-    cross-pod gradient compression and a mesh (``--mesh`` /
-    ``--mesh-shape`` past their defaults) wait for item 8. M-RoPE and
+    cross-pod gradient compression and the training mesh (``--mesh``
+    past its default) wait for item 8b; a serving mesh
+    (``--mesh-shape``) runs (``tests/test_torch_tp.py``). M-RoPE and
     the qwen2-vl-2b architecture, pending before, rotate and build; the
     mamba2 mixer and the MoE FFN build and run a prefill."""
-    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.train import step as tsl
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 8b"):
         tsl.make_train_step(get_reduced("deepseek-7b"),
                             tsl.TrainConfig(compress_pods=True))
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
+    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8b"):
         train_cli.main(["--smoke", "--device", "cpu", "--mesh", "host"])
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
-        serve_cli.single_device("model=2")
     cfg = get_reduced("deepseek-7b")
     mrope = dataclasses.replace(cfg, rope="mrope")
     q = torch.randn(1, 3, 4, 16, generator=torch.Generator().manual_seed(0))

@@ -656,7 +656,9 @@ def test_cli_serves_on_the_cpu(capsys):
     """``launch/serve.py`` on the CPU: deepseek-7b chunked with the
     prefix cache and speculation, rwkv6-3b at exact lengths — every
     request ok, the shape counts and the KV-traffic line printed as the
-    JAX CLI prints them; a mesh of more than one device is refused."""
+    JAX CLI prints them; at ``--mesh-shape model=2`` two ranks (gloo on
+    the CPU) serve the same completions, and a mesh JAX refuses is
+    refused."""
     done, out = _cli(capsys, "--arch", "deepseek-7b", "--requests", "6",
                      "--slots", "2", "--max-len", "64", "--page-size", "8",
                      "--max-new", "6", "--prefill-chunk", "16",
@@ -679,10 +681,22 @@ def test_cli_serves_on_the_cpu(capsys):
     assert "faults: alloc@1,nan@3.0" in out
     assert ("KV traffic: n/a (no attention layers); compiles: prefill=4 "
             "chunk=0 step=1 spec=0 buckets=None prefill_chunk=0") in out
-    for mesh in ("4", "model=2", "data=1"):
-        with pytest.raises(ValueError, match="queue 1 item 8"):
+    for mesh, msg in (("data=1", "unknown mesh axis"), ("3", "cannot shard")):
+        with pytest.raises(ValueError, match=msg):
             tserve.main(["--smoke", "--device", "cpu", "--mesh-shape",
                          mesh])
+    deepseek = ["--arch", "deepseek-7b", "--requests", "6", "--slots", "2",
+                "--max-len", "64", "--page-size", "8", "--max-new", "6",
+                "--prefill-chunk", "16", "--prompt-len", "30"]
+    _, out = _cli(capsys, *deepseek)
+    rows = re.findall(r"rid=\d+ status=\w+ prompt_len=\d+ tokens=\[[^]]*\]",
+                      out)
+    done, out = _cli(capsys, *deepseek, "--mesh-shape", "model=2")
+    assert done is None and "statuses: {'ok': 6}" in out
+    assert "placement=tensor-parallel model=2 device=cpu" in out
+    assert re.search(r"ranks: 2, every rank's completions [0-9a-f]{16}", out)
+    assert re.findall(
+        r"rid=\d+ status=\w+ prompt_len=\d+ tokens=\[[^]]*\]", out) == rows
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-moe-a2.7b"])

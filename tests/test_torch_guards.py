@@ -22,6 +22,7 @@ from repro_torch.kernels.wkv import wkv_p
 from repro_torch.launch import serve
 from repro_torch.models import lm, vision
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.placement import TensorParallel
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -49,7 +50,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.core.block_traffic, repro_torch.launch.serve, "
         "repro_torch.models.mamba2, repro_torch.models.moe, "
         "repro_torch.configs.zamba2, repro_torch.configs.qwen2_moe, "
-        "repro_torch.configs.phi35_moe\n"
+        "repro_torch.configs.phi35_moe, repro_torch.serve.placement, "
+        "repro_torch.core.partitioning\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -137,6 +139,28 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     eng.submit(Request(rid=0, prompt=torch.zeros(3, dtype=torch.long),
                        max_new=2))
     assert [c.status for c in eng.run()] == ["ok"]
+
+
+def test_tensor_parallel_never_falls_back(capsys):
+    """A tensor-parallel engine with no process group raises rather than
+    serve on one device; the CLI's ranks take the card unless told
+    otherwise, and a backend that cannot run fails the run rather than
+    give way to another."""
+    dense = get_reduced("deepseek-7b")
+    params = lm.init_lm(dense, torch.Generator().manual_seed(0),
+                        device="cpu")
+    with pytest.raises(ValueError, match="needs a process group of 2"):
+        Engine(params, dense, n_slots=1, max_len=16, device="cpu",
+               placement=TensorParallel(2))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--smoke", "--requests", "1", "--mesh-shape",
+                        "model=2"])
+    if not torch.distributed.is_nccl_available():
+        with pytest.raises(RuntimeError, match="rank 0 exited"):
+            serve.main(["--smoke", "--requests", "1", "--mesh-shape",
+                        "model=2", "--device", "cpu", "--dist-backend",
+                        "nccl", "--dist-timeout", "30"])
 
 
 def test_impl_switch_is_auto_or_ref():
