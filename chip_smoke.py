@@ -206,28 +206,39 @@ Phases, each printing its lines:
    model call of the untied head; each rank's peak memory; then
    ``launch/serve.py`` at ``--mesh-shape model=2`` (2 layers) against
    the same CLI on one device;
-16. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+16. the training mesh (:func:`mesh_phase`): (a) qwen2-vl-2b at full
+   width and depth, fp32, B=4 x 512, one device and then the sharded
+   step on a (1,1,1) mesh over a one-rank NCCL group: 3 steps, losses,
+   step-0 gradients and parameters bitwise one device's, launches one
+   device's, collectives as the spec tree derives them, no synchronising
+   call; then a world of two processes on the card over gloo: (b)
+   data=2 and (c) pod=2 (the compressed step against the exact one, the
+   int32 sum of the int8 payloads) on qwen2-vl-2b cut to
+   ``MESH_VL_LAYERS``, (d) model=2 expert-parallel qwen2-moe-a2.7b at
+   ``MESH_MOE_LAYERS`` (logits, aux loss, routing and gradient blocks
+   against one device's), (e) the sequence-sharded decode of
+   deepseek-7b at ``MESH_DECODE_LAYERS`` (logits and stream against the
+   unsharded decode, half the cache a rank); (f) ``launch/train.py
+   --mesh host`` (eight ranks), its elastic restore on one device and
+   ``--compress-pods``;
+17. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
-   and its device time by matmul design (profiler); the profiles of a
-   zamba2-1.2b (fp32, bf16) and a qwen2-moe-a2.7b (bf16) prefill and
-   decode step, each in a process of its own (``launch/profile.py``:
-   wall, busy, idle share, device ms by kernel);
-17. the matmul, attention and WKV per design and dtype, summed over a
+   and its device time by matmul design (profiler);
+18. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
    line of the kernels (the int8 leg a row of its own), then the last
-   line ``{"ok": true, "device": {...}}``. Before the tables, each
-   picker's boundary (``threshold`` lines, device µs from the
-   profiler): the matmul's skinny design against the M > 16 design of
-   each dtype at M = 4 .. 16, WKV's step design against its chunk
-   design at S = 1 .. 32 tokens, layernorm's cta design against its
-   rows design at M = 1 .. 2048 rows of D = 96 .. 2560, and each matmul
-   design's norm prologue against the standalone norm and a
-   prologue-free matmul at K = 64 .. 8192, each design's boundary
-   beside the rule's; and decode tokens/s end to end of deepseek-7b
-   (fp32, bf16) and gemma3-27b (bf16, 20 layers) with
-   ``SKINNY_NORM_MAX_K`` on either side of their K, in ABBA order.
+   line ``{"ok": true, "device": {...}}``. Before the tables, the norm
+   prologue's boundary (a ``threshold`` line, device µs from the
+   profiler): each matmul design's norm prologue against the standalone
+   norm and a prologue-free matmul at K = 64 .. 8192, each design's
+   boundary beside the rule's. The other pickers' sweeps
+   (:func:`threshold_readings`, :func:`wkv_threshold_readings`,
+   :func:`layernorm_threshold_readings`), the zamba2 / qwen2-moe
+   profiles (:func:`lm_profile`) and the ``SKINNY_NORM_MAX_K`` ABBA
+   readings (:func:`skinny_norm_ab`) are readings of earlier slices,
+   cut from the run for its time (``cut`` lines); each runs by hand.
    The kernels line gives layernorm once per design: over the fused
    Swin-T forward (rows) and over an RWKV6-3B decode step (cta), and
    attention a second time over a deepseek-7b prefill (causal), and
@@ -236,7 +247,8 @@ Phases, each printing its lines:
    attention and layernorm over an fp32 prefill of zamba2-1.2b, of
    qwen2-moe-a2.7b and of qwen2-vl-2b, and over a qwen2-vl-2b train
    step, and over one tensor-parallel rank's deepseek-7b prefill at
-   t = 2.
+   t = 2, and over one rank's train step on the training mesh at
+   data=2 (``mesh-table`` lines).
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -478,7 +490,7 @@ COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
           "wprefill", "wdecode", "zprefill", "zdecode", "qprefill",
           "qdecode", "pprefill", "pdecode", "vprefill", "vdecode", "vtrain",
           "tprefill", "tdecode", "t4prefill", "t4decode", "tgprefill",
-          "tgdecode")
+          "tgdecode", "mtrain")
 # the count keys of the LM paths whose cases also read device ms
 DEVICE_MS_KEYS = ("vit", "gprefill", "gdecode", "wprefill", "wdecode",
                   "zprefill", "zdecode", "qprefill", "qdecode", "pprefill",
@@ -3328,8 +3340,11 @@ def dense_phase(smi):
         rates["bf16_unfused"] = lm_rates(model16, prompts)
     with runtime.use_impl("ref"):
         rates["plain_fp32"] = lm_rates(model, prompts)
-    out["skinny_norm_ab"] = skinny_norm_ab(
-        "deepseek-7b", {"fp32": model, "bf16": model16}, prompts, smi)
+    # the ABBA readings of SKINNY_NORM_MAX_K (the boundary's, its
+    # numbers in PERF.md) cut for the script's time with the training
+    # mesh; ``skinny_norm_ab`` takes them by hand
+    say("cut", "deepseek-7b's skinny norm prologue ABBA readings: a "
+               "reading of an earlier path, cut for the script's time")
     # paged serving: six requests on four slots in fp32 (the checks),
     # then the bf16 readings
     reqs = [torch.randint(0, cfg.vocab, (n,), generator=gen, device="cuda")
@@ -3573,8 +3588,8 @@ def gemma_phase(smi):
         rates["bf16_unfused"] = lm_rates(model16, prompts)
     with runtime.use_impl("ref"):
         rates["plain_bf16"] = lm_rates(model16, prompts)
-    out["skinny_norm_ab"] = skinny_norm_ab(
-        "gemma3-27b", {"bf16, 20 layers": model16}, prompts, smi)
+    say("cut", "gemma3-27b's skinny norm prologue ABBA readings: a "
+               "reading of an earlier path, cut for the script's time")
     served = PagedServing(
         "gemma-paged-bf16", model16, reqs, tol=BF16_TOL,
         want=paged_launches("gemma3-27b/20", deep, bf), **paged)
@@ -5310,6 +5325,807 @@ def tp_phase(smi):
     return out
 
 
+# ------------------------------ the training mesh ----------------------
+
+MESH_TIMEOUT_S = 600        # a collective, and the world's whole run
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_STEPS = 3              # sharded steps a run (warmup 1: steps 1-2 move)
+# the two-process runs share the one card, their collectives staged
+# through the host by gloo (~1 GB/s on an H100 80GB HBM3 host: a data=2
+# step at 8 layers took 27.6 s): qwen2-vl-2b cut from 28 layers to this
+# many for the data=2 and pod=2 runs (time; pod=2 also memory: each pod
+# holds the whole state and residual), qwen2-moe-a2.7b from 24 to 2
+# (memory: each rank holds one device's reference tree beside its
+# shard), deepseek-7b from 32 to 8 for the sequence-sharded decode (time
+# and memory)
+MESH_VL_LAYERS = 2
+MESH_MOE_LAYERS = 2
+MESH_DECODE_LAYERS = 8
+MESH_MOE_SEQ = 256
+MESH_DECODE = (2, 512, 16)  # B, prompt, steps
+MESH_RULES = {"kv_seq": "model", "decode_attn": "sharded",
+              # at B=2 on model=2 the default rule would give the batch
+              # the model axis first (resolve walks the dims in order)
+              "batch": ("pod", "data")}
+
+
+def mesh_cases(cfg, dtype, gen, device):
+    """Every kernel call of one rank's train step at data=2 (B=2 x 512,
+    M=1024; ``mtrain``), qwen2-vl-2b at ``MESH_VL_LAYERS`` layers: each
+    layer's calls twice (the forward's and the recomputation's), the
+    head and the final norm once."""
+    from repro_torch.models import attention, lm
+    d, f, n = cfg.d_model, cfg.d_ff, MESH_VL_LAYERS
+    qkv, ho = sum(attention.proj_splits(cfg)), cfg.n_heads * cfg.head_dim
+    m, tag = 2 * 512, "mesh.train"
+    counts = {"mtrain": 2 * n}
+    cases = norm_matmul_cases(f"{tag} qkv", m, d, qkv, dtype, gen, device,
+                              norm="rms", bias=False, **counts)
+    cases += norm_matmul_cases(f"{tag} gate|up+silu", m, d, f, dtype, gen,
+                               device, norm="rms", bias=False, act="silu",
+                               gated=True, panel=(2 * f, 0), **counts)
+    return cases + [
+        matmul_case(f"{tag} wo+res", m, ho, d, dtype, gen, device,
+                    bias=False, residual=True, **counts),
+        matmul_case(f"{tag} down+res", m, f, d, dtype, gen, device,
+                    bias=False, residual=True, **counts),
+        attention_case(f"{tag} causal", (2, 512, cfg.head_dim), cfg.n_heads,
+                       cfg.n_kv_heads, dtype, gen, device, causal=True,
+                       mtrain=2 * n),
+        matmul_case(f"{tag} lm_head fp32-out", m, d, lm.padded_vocab(cfg),
+                    dtype, gen, device, bias=False, out_f32=True, mtrain=1),
+        layernorm_case(f"{tag} final_norm", m, d, dtype, gen, device,
+                       kind="rms", mtrain=1)]
+
+
+def mesh_counts(cfg, shardings, n_buckets):
+    """The collectives of one sharded train step, derived from the spec
+    tree: each read of a leaf split over some axis is one all-gather (a
+    stacked leaf's every repeat twice, the forward's and the
+    recomputation's; the tied embedding twice, its gather and the head)
+    and one reduce-scatter; all-reduces: the loss's three sums, the
+    gradient buckets and one a set of axes for the global norm. Returns
+    (counts, the derivation)."""
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    gathers = scatters = 0
+    norm_sets = set()
+    lines = []
+    for path, s in tree_lib.leaves_with_paths(shardings):
+        spec = part.local_gather_spec(s)
+        if s.axes():
+            norm_sets.add(s.axes())
+        if not any(part.spec_axes(e) for e in spec):
+            continue
+        if path.startswith("stages/"):
+            reps = next(st.repeat for i, st in enumerate(cfg.stages())
+                        if path.startswith(f"stages/{i}/"))
+            gathers += 2 * reps
+            scatters += reps
+            lines.append(f"{path} {s.spec}: {reps} repeats x 2 gathers")
+        else:
+            reads = 2 if path == "embed" and cfg.tie_embeddings else 1
+            gathers += reads
+            scatters += reads
+            lines.append(f"{path} {s.spec}: {reads} read(s)")
+    counts = {"all_gather": gathers, "reduce_scatter": scatters,
+              "all_reduce": 3 + n_buckets + len(norm_sets),
+              "all_to_all": 0, "staged": 0}
+    return counts, lines
+
+
+def grad_buckets(cfg, shardings, mesh):
+    """The all-reduces of the gradients' reduction (``train/step.py``):
+    the leaves grouped by the axes they are not split over, each group
+    filled in order into buckets of at most ``BUCKET`` elements."""
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import lm
+    from repro_torch.train import step as tsl
+    groups = {}
+    for s, t in zip(tree_lib.leaves(shardings),
+                    tree_lib.leaves(lm.param_shapes(cfg))):
+        rest = tuple(a for a in part.auto_axes(mesh) if a not in s.axes())
+        if rest:
+            groups.setdefault(rest, []).append(
+                math.prod(s.local_shape(t.shape)))
+    n = 0
+    for numels in groups.values():
+        size = 0
+        for k in numels:
+            if size and size + k > tsl.BUCKET:
+                n += 1
+                size = 0
+            size += k
+        n += 1
+    return n
+
+
+def host_leaves(tree):
+    from repro_torch.core import tree as tree_lib
+    return [t.detach().cpu() for t in tree_lib.leaves(tree)]
+
+
+def vl_train_inputs(cfg, b, seed):
+    """A qwen2-vl-2b training batch of ``b`` x 512 on the card: tokens and
+    labels of ``SyntheticLM`` with 128 patch embeddings (labels -1) and
+    their (t, h, w) positions."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                global_batch=b, seed=seed))
+    _, extra = vl_inputs(cfg, torch.Generator(device="cuda").manual_seed(3),
+                         b, 512, 128)
+    return vl_batch(ds, 0, extra)
+
+
+def vl_params(cfg):
+    import torch
+    from repro_torch.models import lm
+    params = lm.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        jitter_norms(params, torch.Generator(device="cuda").manual_seed(1))
+    return params
+
+
+def mesh_tcfg(**kw):
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tsl
+    return tsl.TrainConfig(opt=adamw.AdamWConfig(lr=1e-3), warmup_steps=1,
+                           total_steps=20, **kw)
+
+
+def one_device_run(cfg, batch, tcfg, steps):
+    """One device's reference: step-0 gradients and the parameters after
+    ``steps`` steps on the host, each step's loss and launches, the
+    peak memory."""
+    import gc
+
+    import torch
+    from repro_torch.train import step as tsl
+    torch.cuda.reset_peak_memory_stats()
+    state = tsl.init_state(vl_params(cfg), tcfg)
+    grads, _ = tsl._grads_and_metrics(state.params, batch, cfg, tcfg)
+    grads = host_leaves(grads)
+    step = tsl.make_train_step(cfg, tcfg)
+    losses, counts, step_s = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), c = counted(lambda: step(state, batch))
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        counts.append(c)
+    out = {"grads": grads, "params": host_leaves(state.params),
+           "losses": losses, "launches": counts, "step_s": step_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_errs(got, want):
+    """max|g - w| / max|w| of each leaf."""
+    return [((a - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+            for a, w in zip(got, want)]
+
+
+def mesh_world1(smi):
+    """(a) qwen2-vl-2b at full width and depth, fp32, B=4 x 512 with patch
+    embeddings, one device and then the sharded step on a (1,1,1) mesh
+    over a one-rank NCCL group (real collectives): 3 steps each, losses,
+    step-0 gradients and the parameters after 3 steps bitwise one
+    device's; each step's launches one device's, its collectives the
+    count the spec tree gives, and no synchronising call. Both run
+    under ``torch.use_deterministic_algorithms``: without it one device's
+    step does not repeat itself bit for bit (the embedding's gradient
+    adds the rows of repeated tokens with atomics)."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import step as tsl
+    t_run = time.perf_counter()
+    cfg = get_config("qwen2-vl-2b")
+    tcfg = mesh_tcfg()
+    batch = vl_train_inputs(cfg, 4, 0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ref = one_device_run(cfg, batch, tcfg, MESH_STEPS)
+    want = want_launches("qwen2-vl-2b train step",
+                         train_counts(cfg, 4 * 512, torch.float32))
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh((1, 1, 1))
+        step = tsl.make_train_step(cfg, tcfg, mesh=mesh)
+        sh = tsl.state_shardings(cfg, tcfg, mesh)
+        with part.use_mesh(mesh):
+            derived, lines = mesh_counts(cfg, sh.params,
+                                         grad_buckets(cfg, sh.params, mesh))
+        for ln in lines:
+            say("mesh-a", f"derivation: {ln}")
+        torch.cuda.reset_peak_memory_stats()
+        state = tsl.shard_state(tsl.init_state(vl_params(cfg), tcfg), sh)
+        grads, _ = step.grads_and_metrics(state, batch)
+        g_same = all(torch.equal(a, b) for a, b in zip(
+            host_leaves(grads), ref["grads"]))
+        del grads
+        losses, counts, colls, step_s = [], [], [], []
+        for i in range(MESH_STEPS):
+            part.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, m), c = counted(lambda: no_syncs(
+                f"mesh-a step {i}", lambda: step(state, batch)))
+            step_s.append(time.perf_counter() - t0)
+            colls.append(part.counts())
+            counts.append(c)
+            losses.append(m["loss"].item())
+        p_same = all(torch.equal(a, b) for a, b in zip(
+            host_leaves(state.params), ref["params"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"losses": losses, "ref_losses": ref["losses"],
+           "grads_bitwise": g_same, "params_bitwise": p_same,
+           "launches": counts, "collectives": colls, "derived": derived,
+           "step_s": step_s, "peak_gib": peak, "ref_peak_gib":
+           ref["peak_gib"], "ref_launches": ref["launches"],
+           "ref_step_s": ref["step_s"],
+           "seconds": time.perf_counter() - t_run}
+    say("mesh-a", f"qwen2-vl-2b fp32 B=4 x 512, world 1 on NCCL, mesh "
+        f"(1,1,1): losses {losses} against one device's {ref['losses']} "
+        f"(bitwise: {losses == ref['losses']}); step-0 gradients bitwise: "
+        f"{g_same}; parameters after {MESH_STEPS} steps bitwise: {p_same}; "
+        f"launches a step {counts[0]} (one device {ref['launches'][0]}); "
+        f"collectives a step {colls[0]} (derived {derived}); no "
+        f"synchronising call in a step; a step {min(step_s):.3f} s (one "
+        f"device {min(ref['step_s']):.3f} s); peak "
+        f"{peak:.2f} GiB (one device {ref['peak_gib']:.2f}); the run "
+        f"{out['seconds']:.1f} s | {smi}")
+    if not (losses == ref["losses"] and g_same and p_same):
+        raise AssertionError(f"mesh-a: not one device's bit for bit: "
+                             f"losses {losses} / {ref['losses']}, grads "
+                             f"{g_same}, params {p_same}")
+    if any(c != want for c in counts + ref["launches"]):
+        raise AssertionError(f"mesh-a: launches {counts}, one device "
+                             f"{ref['launches']}, want {want}")
+    if any(c != derived for c in colls):
+        raise AssertionError(f"mesh-a: collectives {colls}, derived "
+                             f"{derived}")
+    return out
+
+
+def world_data2(rank, mesh_data, smi):
+    """(b) data=2: qwen2-vl-2b at ``MESH_VL_LAYERS`` layers, B=2 x 512 a
+    rank; rank 0 first runs one device's reference at B=4."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.train import step as tsl
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"),
+                              n_layers=MESH_VL_LAYERS)
+    tcfg = mesh_tcfg()
+    batch = vl_train_inputs(cfg, 4, 0)
+    ref = one_device_run(cfg, batch, tcfg, MESH_STEPS) if rank == 0 \
+        else None
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    step = tsl.make_train_step(cfg, tcfg, mesh=mesh_data)
+    sh = tsl.state_shardings(cfg, tcfg, mesh_data)
+    state = tsl.shard_state(tsl.init_state(vl_params(cfg), tcfg), sh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def first():
+        # step 0 as the step runs it, its gradient blocks kept
+        g, m = step.grads_and_metrics(state, batch)
+        return g, tsl._apply_update(state, g, m, cfg, tcfg, step.shardings)
+    losses, counts, colls, step_s = [], [], [], []
+    for i in range(MESH_STEPS):
+        part.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            (grads, (state, m)), c = counted(first)
+        else:
+            (state, m), c = counted(lambda: step(state, batch))
+        step_s.append(time.perf_counter() - t0)
+        counts.append(c)
+        colls.append(part.counts())
+        losses.append(m["loss"].item())
+        if i == 0:
+            full = host_leaves(part.gather_tree(grads, sh.params))
+            del grads
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = train_counts(cfg, 2 * 512, torch.float32)
+    out = {"losses": losses, "launches": counts, "collectives": colls,
+           "step_s": step_s, "peak_gib": peak}
+    if rank == 0:
+        rel = rel_errs(full, ref["grads"])
+        dl = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+        out.update(grad_rel_max=max(rel), loss_diff=dl,
+                   ref_losses=ref["losses"], ref_peak_gib=ref["peak_gib"],
+                   ref_step_s=ref["step_s"])
+        if dl[0] > TRAIN_LOSS_TOL * abs(ref["losses"][0]) or \
+                max(rel) > TRAIN_GRAD_TOL:
+            raise AssertionError(f"mesh-b: step-0 loss off by {dl[0]}, "
+                                 f"gradients by {max(rel)}")
+    if any(c != want for c in counts):
+        raise AssertionError(f"mesh-b rank {rank}: launches {counts}, one "
+                             f"device's at B=2 {want}")
+    del state, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def world_pod2(rank, mesh_pod, smi):
+    """(c) pod=2: the compressed step against the exact step from one
+    state (qwen2-vl-2b at ``MESH_VL_LAYERS`` layers, B=2 x 512 a pod,
+    ``MESH_STEPS`` steps, the last after one update), and the int32 sum
+    of the pods' int8 payloads. JAX's own oracle's limits, where it
+    applies them: the first step's loss within 1e-4, each leaf's max
+    relative difference < 0.1 after the steps, the residual non-zero.
+    The loss after the update is a reading: Adam's first update is
+    lr sign(g) an element, and an element the int8 mean rounds to 0
+    does not move, so the two steps' losses part by far more than
+    1e-4 (JAX's scenario compares at ``lr_scale = 0``, where no
+    parameter moves)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.optim import compression
+    from repro_torch.train import step as tsl
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b"),
+                              n_layers=MESH_VL_LAYERS)
+    batch = vl_train_inputs(cfg, 4, 0)
+    out = {}
+    for name, comp in (("exact", False), ("compressed", True)):
+        tcfg = mesh_tcfg(compress_pods=comp)
+        step = tsl.make_train_step(cfg, tcfg, mesh=mesh_pod)
+        sh = tsl.state_shardings(cfg, tcfg, mesh_pod)
+        state = tsl.shard_state(tsl.init_state(vl_params(cfg), tcfg), sh)
+        losses, step_s = [], []
+        part.reset_counts()
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+        out[name] = {"losses": losses, "step_s": step_s,
+                     "collectives": part.counts(),
+                     "params": host_leaves(state.params)}
+        if comp:
+            out[name]["residual_l1"] = sum(
+                r.abs().sum().item() for r in tree_lib.leaves(state.residual))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = [((a - b).abs().max() / (a.abs().max() + 1e-9)).item()
+           for a, b in zip(out["exact"]["params"],
+                           out["compressed"]["params"])]
+    dl = abs(out["exact"]["losses"][0] - out["compressed"]["losses"][0])
+    out["updated_loss_diff"] = abs(out["exact"]["losses"][-1]
+                                   - out["compressed"]["losses"][-1])
+    g = torch.randn((4096, 1536), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        10 + rank))
+    q, _ = compression._quantize(g)
+    pods = mesh_pod.group(("pod",))
+    total = compression.int8_sum(q, pods)
+    every = torch.empty((2,) + tuple(q.shape), dtype=torch.int8,
+                        device="cuda")
+    part.all_gather(every.view(-1, q.shape[1]), q, pods)
+    exact_sum = bool(torch.equal(total, every.to(torch.int32).sum(0)))
+    for k in ("exact", "compressed"):
+        del out[k]["params"]
+    out.update(max_rel=max(rel), loss_diff=dl, int8_sum_exact=exact_sum)
+    if not (dl < 1e-4 and max(rel) < 0.1
+            and out["compressed"]["residual_l1"] > 0 and exact_sum):
+        raise AssertionError(f"mesh-c rank {rank}: loss diff {dl}, max rel "
+                             f"{max(rel)}, residual "
+                             f"{out['compressed']['residual_l1']}, int32 sum "
+                             f"exact {exact_sum}")
+    return out
+
+
+def world_moe(rank, mesh_model, smi):
+    """(d) model=2: qwen2-moe-a2.7b at full width (60 experts padded to
+    64, 32 a rank) and ``MESH_MOE_LAYERS`` layers, B=2 x 256 (a row a
+    rank): one gradient pass of the train step, its forward's logits, aux
+    loss and every layer's routing and its gradient blocks against one
+    device's, which each rank computes first for itself (two full trees
+    fit; none crosses the host); 2 all-to-alls a layer forward. The expert-parallel path takes its
+    capacity per rank and one device per call (the JAX package's two
+    paths), so they agree where nothing drops: the run raises the
+    capacity factor to n_experts / top_k, where an expert takes every
+    token (the dropping case is held against JAX's ``_apply_ep`` on the
+    CPU)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import lm, moe
+    from repro_torch.train import step as tsl
+    cfg = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(
+        cfg, n_layers=MESH_MOE_LAYERS, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                                / cfg.moe.top_k))
+    tcfg = mesh_tcfg()
+    t = MESH_MOE_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (2, t), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    picks = []
+    route = moe._route
+
+    def recording(xf, w, cfg_, e):
+        out = route(xf, w, cfg_, e)
+        picks.append(out[1].detach())
+        return out
+
+    logits = []
+    unembed = lm.unembed
+
+    def stashing(*a, **k):
+        out = unembed(*a, **k)
+        logits.append(out.detach())
+        return out
+
+    def params():
+        return lm.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda", dtype=torch.float32)
+    # one gradient pass a side: its forward's logits, routing (the first
+    # call of each layer; the recomputation routes again) and aux loss
+    moe._route, lm.unembed = recording, stashing
+    try:
+        p = params()
+        g, m = tsl._grads_and_metrics(p, batch, cfg, tcfg)
+        ref = {"logits": logits[0][rank, :, :cfg.vocab].cpu(),
+               "aux": m["aux_loss"].item(),
+               "picks": torch.cat([x.reshape(2, t, -1)[rank].reshape(-1)
+                                   for x in picks[:MESH_MOE_LAYERS]]).cpu()}
+        ref_grads = host_leaves(g)
+        del p, g
+        logits.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        picks.clear()
+        sh = tsl.state_shardings(cfg, tcfg, mesh_model)
+        state = tsl.shard_state(tsl.init_state(params(), tcfg), sh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = tsl.make_train_step(cfg, tcfg, mesh=mesh_model)
+        part.reset_counts()
+        grads, m = step.grads_and_metrics(state, batch)
+        a2a = part.counts()["all_to_all"]
+        aux = m["aux_loss"]
+        flips = int((torch.cat([x.reshape(-1) for x in
+                                picks[:MESH_MOE_LAYERS]]).cpu()
+                     != ref["picks"]).sum())
+        scale = max(1.0, ref["logits"].abs().max().item())
+        err = (logits[0][0, :, :cfg.vocab].cpu() - ref["logits"]).abs()\
+            .max().item()
+        # this rank's block of each one-device gradient leaf
+        rel = rel_errs(host_leaves(grads), [
+            part.shard_leaf(w, s) for w, s in
+            zip(ref_grads, tree_lib.leaves(sh.params))])
+        out = {"aux": aux.item(), "all_to_all_forward": a2a // 3,
+               "all_to_all_pass": a2a,
+               "logit_err": err, "logit_scale": scale,
+               "aux_diff": abs(aux.item() - ref["aux"]), "flips": flips,
+               "grad_rel_max": max(rel)}
+        if err > LOGIT_TOL * scale or out["aux_diff"] > 1e-6 or flips \
+                or max(rel) > TRAIN_GRAD_TOL:
+            raise AssertionError(f"mesh-d rank {rank}: {out}")
+        # 2 a layer forward, again in the recomputation, and 2 in the
+        # backward (each all-to-all's gradient is one)
+        if a2a != 6 * MESH_MOE_LAYERS:
+            raise AssertionError(f"mesh-d rank {rank}: {a2a} all-to-alls a "
+                                 f"gradient pass of {MESH_MOE_LAYERS} layers")
+        del state, grads
+    finally:
+        moe._route, lm.unembed = route, unembed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def world_decode(rank, mesh_model, smi):
+    """(e) model=2 with the sequence-sharded rules: deepseek-7b at full
+    width, ``MESH_DECODE_LAYERS`` layers, fp32, B=2: a prefill, then 16
+    greedy steps with each rank holding half the cache's positions,
+    against the unsharded decode of the same prefill on the rank."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioning as part
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("deepseek-7b"),
+                              n_layers=MESH_DECODE_LAYERS)
+    b, s, n = MESH_DECODE
+    params = lm.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(6))
+    alloc = s + n
+
+    def run(sharded):
+        with torch.no_grad():
+            lg, cache = lm.prefill(params, prompts, cfg, alloc=alloc)
+            tok = lg.argmax(-1)
+            ctx = (part.use_mesh(mesh_model, MESH_RULES) if sharded
+                   else contextlib.nullcontext())
+            with ctx:
+                if sharded:
+                    sh = part.tree_shardings(
+                        mesh_model, lm.cache_logical_specs(cache, cfg),
+                        like=cache)
+                    cache = part.shard_tree(cache, sh)
+                rows = cache[0]["0"]["kv"].k.shape[2]
+                lengths = torch.full((b,), s, dtype=torch.int32,
+                                     device="cuda")
+                part.reset_counts()
+                logits, toks = [], [tok]
+                for _ in range(n - 1):
+                    lg, cache = lm.decode_step(params, cache, tok[:, None],
+                                               lengths, cfg)
+                    tok = lg.argmax(-1)
+                    logits.append(lg.cpu())
+                    toks.append(tok)
+                    lengths = lengths + 1
+        return (torch.stack(logits, 1), torch.stack(toks, 1).cpu(), rows,
+                part.counts())
+    ref_lg, ref_toks, ref_rows, _ = run(False)
+    lg, toks, rows, coll = run(True)
+    scale = max(1.0, ref_lg.abs().max().item())
+    err = (lg - ref_lg).abs().max().item()
+    out = {"logit_err": err, "scale": scale, "same_stream":
+           bool(torch.equal(toks, ref_toks)), "cache_rows": rows,
+           "alloc": alloc, "collectives": coll}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if err > LOGIT_TOL * scale or not out["same_stream"] or \
+            rows != alloc // 2 or coll["all_gather"]:
+        raise AssertionError(f"mesh-e rank {rank}: {out}")
+    return out
+
+
+def mesh_rank(rank, init):
+    """One rank of the mesh phase's world of two processes on the one
+    card (gloo: NCCL refuses two ranks on one device): runs (b)-(e), each
+    on a mesh of its own, and writes its results to ``MESH_DIR``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import partitioning as part
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.library()
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    smi = ""
+    meshes = {a: part.Mesh((2,), (a,)) for a in ("data", "pod", "model")}
+    out = {}
+    for key, fn, axis in (("data2", world_data2, "data"),
+                          ("pod2", world_pod2, "pod"),
+                          ("moe", world_moe, "model"),
+                          ("decode", world_decode, "model")):
+        t0 = time.perf_counter()
+        part.staged.launches = 0
+        out[key] = fn(rank, meshes[axis], smi)
+        out[key]["seconds"] = time.perf_counter() - t0
+        out[key]["staged"] = part.staged.launches
+        dist.barrier()
+    dist.barrier()                   # no rank leaves while one still sends
+    dist.destroy_process_group()
+    torch.save(out, MESH_DIR / f"rank{rank}.pt")
+
+
+def mesh_world():
+    """The two ranks of :func:`mesh_rank` under ``MESH_TIMEOUT_S``: a rank
+    that fails or hangs fails the phase (every rank is then stopped).
+    Rank 0 prints to this output, rank 1 to
+    ``chiprun_out/mesh_rank1.log``."""
+    import torch
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    log = open(ROOT / "chiprun_out" / "mesh_rank1.log", "w")
+    init = f"tcp://localhost:{free_port()}"
+    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; import chip_smoke "
+            "as c; c.mesh_rank({}, {!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(str(ROOT), str(ROOT / "src"), i,
+                                           init)],
+        cwd=ROOT, stdout=None if i == 0 else log,
+        stderr=None if i == 0 else subprocess.STDOUT) for i in range(2)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while (time.monotonic() < deadline
+               and any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"mesh: the ranks exited {codes} (rank 1's "
+                             "log: chiprun_out/mesh_rank1.log)")
+    return [torch.load(MESH_DIR / f"rank{i}.pt") for i in range(2)]
+
+
+def mesh_cli(smi):
+    """(f) ``launch/train.py --mesh host --smoke`` (eight ranks over gloo on
+    the one card, spawned by the CLI) for 4 steps with a checkpoint every
+    2, against the same CLI on one device (the printed losses equal);
+    then ``--mesh none`` from the mesh's checkpoint of step 2 (the
+    elastic restore: it resumes at step 2 and ends on the one device's
+    last loss); then ``--mesh host --compress-pods`` for 2 steps. Each
+    ``main`` runs in this process (the mesh's ranks in their own)."""
+    import contextlib
+    import gc
+    import io
+    import re
+    import shutil
+
+    import torch
+    from repro_torch.launch import train as train_cli
+    base = ["--arch", "deepseek-7b", "--smoke", "--steps", "4", "--batch",
+            "8", "--seq", "64", "--device", "cuda"]
+    mesh_args = ["--mesh", "host", "--dist-backend", "gloo",
+                 "--dist-timeout", str(MESH_TIMEOUT_S)]
+    d = MESH_DIR / "cli_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    outs, secs = {}, {}
+    runs = (("one device", []),
+            ("mesh host", mesh_args + ["--ckpt-dir", str(d),
+                                       "--ckpt-every", "2"]),
+            ("elastic --mesh none", ["--ckpt-dir", str(d)]),
+            ("mesh host --compress-pods", mesh_args + ["--compress-pods",
+                                                       "--steps", "2"]))
+    for label, extra in runs:
+        if label.startswith("elastic"):
+            shutil.rmtree(d / "step_00000004")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(base + extra)
+        secs[label] = time.perf_counter() - t0
+        outs[label] = buf.getvalue()
+        say("mesh-cli", f"{label} in {secs[label]:.1f} s: " + " | ".join(
+            ln.strip() for ln in outs[label].splitlines()
+            if ln.startswith(("step", "resumed", "arch"))))
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = {k: re.findall(r"step (\d+): loss=([\d.]+)", v)
+              for k, v in outs.items()}
+    shutil.rmtree(d, ignore_errors=True)
+    if (losses["mesh host"] != losses["one device"]
+            or "resumed from step 2" not in outs["elastic --mesh none"]
+            or losses["elastic --mesh none"][-1] != losses["one device"][-1]
+            or len(losses["mesh host --compress-pods"]) != 2):
+        raise AssertionError(f"mesh-cli: losses {losses}")
+    return {"losses": losses, "seconds": secs}
+
+
+def mesh_phase(smi):
+    """The training mesh (``core/partitioning.py``, ``train/step.py``,
+    ``optim/compression.py``, ``models/moe.py::_apply_ep``, the
+    sequence-sharded decode, the elastic checkpoint, ``launch/train.py
+    --mesh``): (a) world 1 on NCCL in this process, (b)-(e) a world of
+    two processes on the one card over gloo (staged through the host: no
+    mesh speed), (f) the train CLI's mesh."""
+    import gc
+
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"a": mesh_world1(smi)}
+    t_world = time.perf_counter()
+    ranks = mesh_world()
+    out["world_s"] = time.perf_counter() - t_world
+    out["ranks"] = ranks
+    r0, r1 = ranks
+    b = r0["data2"]
+    say("mesh-b", f"qwen2-vl-2b/{MESH_VL_LAYERS} fp32, data=2, B=2 x 512 a "
+        f"rank: step-0 loss {b['losses'][0]:.7f} against one device's "
+        f"{b['ref_losses'][0]:.7f} (tol {TRAIN_LOSS_TOL}*|loss|); step-0 "
+        f"gradients gathered leaf by leaf: worst relative error "
+        f"{b['grad_rel_max']:.3g} (tol {TRAIN_GRAD_TOL}); losses "
+        f"{b['losses']} (one device {b['ref_losses']}); launches a step "
+        f"{b['launches'][0]} on each rank (one device's at B=2); "
+        f"collectives a step {b['collectives'][0]}, {b['staged']} staged "
+        f"through the host in the run; a step {min(b['step_s']):.2f} / "
+        f"{min(r1['data2']['step_s']):.2f} s (gloo, host-staged: no mesh "
+        f"speed); peak {b['peak_gib']:.2f} / {r1['data2']['peak_gib']:.2f} "
+        f"GiB a rank against one device's {b['ref_peak_gib']:.2f} at B=4 "
+        f"| {smi}")
+    c = r0["pod2"]
+    say("mesh-c", f"qwen2-vl-2b/{MESH_VL_LAYERS} fp32, pod=2, {MESH_STEPS} "
+        f"steps: compressed against exact: first loss diff "
+        f"{c['loss_diff']:.3g} (tol 1e-4), the loss after one update "
+        f"{c['compressed']['losses'][-1]:.6f} against "
+        f"{c['exact']['losses'][-1]:.6f} (a reading), worst leaf's max "
+        f"relative difference "
+        f"{c['max_rel']:.3g} (tol 0.1), residual l1 "
+        f"{c['compressed']['residual_l1']:.4g}; the int32 sum equal to the "
+        f"pods' int8 payloads summed: {c['int8_sum_exact']}; a step exact "
+        f"{min(c['exact']['step_s']):.2f} s, compressed "
+        f"{min(c['compressed']['step_s']):.2f} s (host-staged) | {smi}")
+    d = r0["moe"]
+    say("mesh-d", f"qwen2-moe-a2.7b/{MESH_MOE_LAYERS} fp32, model=2 (32 of "
+        f"64 experts a rank), B=2 x {MESH_MOE_SEQ}: logits "
+        f"{d['logit_err']:.3g} off one device's (tol {LOGIT_TOL}*"
+        f"{d['logit_scale']:.3g}), aux {d['aux_diff']:.3g} off (tol 1e-6), "
+        f"routing flips {d['flips']}, step-0 gradients worst relative "
+        f"{d['grad_rel_max']:.3g} (tol {TRAIN_GRAD_TOL}); all-to-alls a "
+        f"forward {d['all_to_all_forward']}, a gradient pass "
+        f"{d['all_to_all_pass']} (forward, recomputation, backward) | "
+        f"{smi}")
+    e = r0["decode"]
+    say("mesh-e", f"deepseek-7b/{MESH_DECODE_LAYERS} fp32, model=2, "
+        f"sequence-sharded decode B={MESH_DECODE[0]}, prompt "
+        f"{MESH_DECODE[1]} + {MESH_DECODE[2]} steps: logits "
+        f"{e['logit_err']:.3g} / {r1['decode']['logit_err']:.3g} off the "
+        f"unsharded decode (tol {LOGIT_TOL}*{e['scale']:.3g}), the same "
+        f"greedy stream: {e['same_stream']}; each rank's cache holds "
+        f"{e['cache_rows']} of {e['alloc']} rows; collectives "
+        f"{e['collectives']} | {smi}")
+    for key in ("data2", "pod2", "moe", "decode"):
+        say("mesh", f"run {key}: {r0[key]['seconds']:.1f} s, "
+                    f"{r0[key]['staged']} collectives staged through the "
+                    "host")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = mesh_cli(smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    say("mesh", f"phase took {out['seconds']:.1f} s (the world of two "
+                f"{out['world_s']:.1f} s)")
+    return out
+
+
 def kernel_line(rows, name, key, launches, path, dtype="fp32",
                 label=None, source=None):
     """One kernel's entry of the kernels JSON line: its ``dtype`` cases
@@ -5556,6 +6372,9 @@ def main() -> int:
         rows += run_cases(tp_cases(dense_cfg, 4, (4, 512), dt, gen, dev,
                                    ("t4prefill", "t4decode")), name, tol,
                           timed=False)
+        if dt == torch.float32:
+            # one rank's train step on the training mesh at data=2
+            rows += run_cases(mesh_cases(vl_cfg, dt, gen, dev), name, tol)
     # attention off the B=8 Swin-T forward: ViT-B/16 at B=8, and every
     # Swin-T stage at B=64 (the throughput batch)
     for dt, name, tol in ((torch.float32, "fp32", FP32_TOL),
@@ -5699,6 +6518,20 @@ def main() -> int:
                                  "t4decode", "tgprefill", "tgdecode"),
                           "tp-table")
 
+    clock("phase 15")
+    # 16. the training mesh: world 1 on NCCL, a world of two processes
+    # over gloo (data=2, pod=2 compressed, model=2 expert parallel and
+    # sequence-sharded decode), the train CLI's mesh of eight
+    mesh = mesh_phase(smi)
+    mesh_tables = lm_tables(rows, ("mtrain",), "mesh-table")
+    listed = {name: mesh_tables.get(f"mtrain fp32 {name}", {}).get(
+        "launches", 0) for name in REPLACES}
+    for rank in mesh["ranks"]:
+        if listed != rank["data2"]["launches"][0]:
+            raise AssertionError(f"the mtrain cases list {listed} launches, "
+                                 f"a rank's step ran "
+                                 f"{rank['data2']['launches'][0]}")
+
     def both(run, batch, key="counts"):
         """A phase's launches per run of its largest batch, by dtype."""
         return {dt: run[f"{dt}_{batch}"][key] for dt in ("fp32", "bf16")}
@@ -5751,32 +6584,30 @@ def main() -> int:
         raise AssertionError(f"the Swin-T cases list {listed} launches, "
                              f"the forward ran {main_counts}")
 
-    clock("phase 15")
-    # 16. the int8 path, the readings in processes of their own
+    clock("phase 16")
+    # 17. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    profiles = {
-        "zamba2": readings_apart(
-            "zamba2_profile", "lm_profile('zamba2-1.2b', 4, 512, "
-            "('fp32', 'bf16'))"),
-        "qwen2-moe": readings_apart(
-            "qwen2_moe_profile", "lm_profile('qwen2-moe-a2.7b', 4, 256, "
-            "('bf16',))")}
-    threshold = readings_apart("skinny_threshold",
-                               "threshold_readings('cuda')")
+    # cut for the script's time when the training mesh came (readings of
+    # earlier paths, each in a process of its own; PERF.md keeps their
+    # last numbers): the zamba2-1.2b and qwen2-moe-a2.7b profiles
+    # (``lm_profile``; ``launch/profile.py --model`` takes them) and the
+    # skinny, WKV and layernorm threshold sweeps. The prologue sweep stays:
+    # it holds the split rule.
+    for cut in ("the zamba2-1.2b and qwen2-moe-a2.7b profiles",
+                "the skinny matmul threshold sweep",
+                "the WKV threshold sweep", "the layernorm threshold sweep"):
+        say("cut", f"{cut}: a reading of an earlier path, cut for the "
+                   "script's time")
+    profiles = threshold = threshold_wkv = threshold_ln = None
     threshold_prologue = readings_apart(
         "prologue_threshold", "prologue_threshold_readings('cuda')")
-    threshold_wkv = readings_apart(
-        "wkv_threshold",
-        "wkv_threshold_readings(get_config('rwkv6-3b'), 'cuda')")
-    threshold_ln = readings_apart("layernorm_threshold",
-                                  "layernorm_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    clock("phase 16")
-    # 17. the kernels line and the result
+    clock("phase 17")
+    # 18. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -5877,6 +6708,16 @@ def main() -> int:
             "and gate|up at N / 2, wo and down at K / 2 with no residual, "
             "16 of 32 heads, the head at N = 51200)",
             label=f"{name} tensor-parallel t=2"))
+    # the training mesh: every kernel over one rank's fp32 train step at
+    # data=2, at the local shapes
+    m_run = mesh["ranks"][0]["data2"]["launches"][0]
+    for name in ("rowwise_matmul", "flash_attention", "layernorm"):
+        kernels.append(kernel_line(
+            rows, name, "mtrain", m_run[name],
+            f"one rank's qwen2-vl-2b train step at data=2 ({MESH_VL_LAYERS} "
+            "of 28 layers), B=2 x 512 a rank, fp32, remat (the FFMA matmul "
+            "at M = 1024, attention at B=2)",
+            label=f"{name} training mesh data=2"))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -5902,6 +6743,7 @@ def main() -> int:
                                "grads": grads, "train": train,
                                "resume": resume, "tp": tp,
                                "tp_tables": tp_tables,
+                               "mesh": mesh, "mesh_tables": mesh_tables,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
@@ -5923,7 +6765,8 @@ def main() -> int:
                 "that mode; the zamba2-1.2b, qwen2-moe-a2.7b and qwen2-vl-2b "
                 "rows: over one fp32 prefill; the qwen2-vl-2b train rows: "
                 "over one fp32 train step; the tensor-parallel rows: over "
-                "one rank's fp32 prefill at t = 2)")
+                "one rank's fp32 prefill at t = 2; the training mesh rows: "
+                "over one rank's fp32 train step at data=2)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,16 @@ written so that each package restores the other's checkpoints:
     memory on the caller's thread and writes it on a background thread.
   * **Integrity** — :func:`restore` checks each shard's sha256 first.
 
+  * **Sharded states** — ``save(..., shardings=)`` takes this rank's
+    blocks of a state on a mesh (``partitioning.Sharding``), gathers
+    each leaf in turn (every rank joins the collectives) and writes the
+    global leaves from rank 0: the format of one device's checkpoint,
+    which either package restores. ``restore(..., shardings=)`` gives
+    each rank its block of every leaf for any mesh (elastic: the mesh
+    may differ from the one that saved).
+
 A bf16 leaf is saved as the JAX package saves it (``ml_dtypes``'
-bfloat16, which that writer needs). ``shardings=`` (restore onto a
-mesh) waits for ROADMAP.md queue 1 item 8b.
+bfloat16, which that writer needs).
 """
 from __future__ import annotations
 
@@ -58,9 +65,40 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _host_tree(tree: Any, shardings: Optional[Any]) -> Any:
+    """The tree's leaves on the host; with ``shardings`` the global
+    leaves, each gathered from the ranks' blocks in turn (every rank
+    takes part; only rank 0 keeps them: the others get None)."""
+    if shardings is None:
+        return tree_lib.tree_map(_host, tree)
+    from repro_torch.core import partitioning as part
+    keep = _rank() == 0
+
+    def one(leaf, s):
+        full = part.full_leaf(leaf, s)
+        return _host(full) if keep else None
+    return tree_lib.tree_map(one, tree, shardings)
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
-         extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save. Returns the final directory."""
+         extra: Optional[dict] = None, shardings: Optional[Any] = None
+         ) -> str:
+    """Synchronous atomic save. Returns the final directory. With
+    ``shardings`` every rank calls it with its blocks, rank 0 writes,
+    and every rank returns once the checkpoint is written."""
+    if shardings is not None:
+        import torch.distributed as dist
+        tree = _host_tree(tree, shardings)
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if _rank() == 0:
+            save(ckpt_dir, step, tree, extra)
+        dist.barrier()
+        return final
     flat = tree_lib.leaves_with_paths(tree)
     paths = [p for p, _ in flat]
     host = [_host(leaf) for _, leaf in flat]
@@ -102,7 +140,9 @@ def save(ckpt_dir: str, step: int, tree: Any,
 
 class AsyncCheckpointer:
     """Snapshot to host memory on the caller's thread, write on a
-    background thread; keep the newest ``keep`` checkpoints."""
+    background thread; keep the newest ``keep`` checkpoints. With
+    ``shardings`` every rank gathers with the others on its own thread,
+    and rank 0 alone writes."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
@@ -116,9 +156,12 @@ class AsyncCheckpointer:
             self._thread = None
 
     def save_async(self, step: int, tree: Any,
-                   extra: Optional[dict] = None):
+                   extra: Optional[dict] = None,
+                   shardings: Optional[Any] = None):
         self.wait()
-        snapshot = tree_lib.tree_map(_host, tree)
+        snapshot = _host_tree(tree, shardings)
+        if _rank() != 0:
+            return
 
         def work():
             save(self.ckpt_dir, step, snapshot, extra)
@@ -165,9 +208,11 @@ def _tensor(a: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, step: int, like: Any, *, device="cuda",
-            verify: bool = True):
+            verify: bool = True, shardings: Optional[Any] = None):
     """Restore into the structure and dtypes of ``like``, each leaf on
-    ``device``. Returns (tree, extra)."""
+    ``device``. With ``shardings`` (a tree of ``partitioning.Sharding``
+    of ``like``'s structure, on any mesh) each leaf is this rank's block,
+    cut on the host. Returns (tree, extra)."""
     device = runtime.resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
@@ -185,5 +230,11 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device="cuda",
     missing = [p for p, _ in flat if p not in arrays]
     if missing:
         raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
-    restored = [_tensor(arrays[p], ref, device) for p, ref in flat]
+    if shardings is None:
+        restored = [_tensor(arrays[p], ref, device) for p, ref in flat]
+    else:
+        from repro_torch.core import partitioning as part
+        restored = [part.shard_leaf(_tensor(arrays[p], ref, "cpu"), s).to(
+            device) for (p, ref), s in zip(flat,
+                                           tree_lib.leaves(shardings))]
     return tree_lib.unflatten(like, restored), manifest["extra"]

@@ -1,4 +1,5 @@
-"""A parameter tree held by an ``nn.Module``.
+"""A parameter tree held by an ``nn.Module``, and the initialisers'
+random draws.
 
 The functional forwards take trees of nested dicts and lists of tensors,
 the JAX package's trees; the model modules hold one as frozen
@@ -8,6 +9,16 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """fp32 standard normals of ``shape`` drawn from ``gen`` on its own
+    device; with no generator, a tensor on the meta device (the shape
+    alone: ``lm.param_shapes``)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
 
 
 class ParamTree(nn.Module):

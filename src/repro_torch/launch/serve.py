@@ -34,12 +34,8 @@ import dataclasses
 import datetime
 import hashlib
 import os
-import socket
-import subprocess
 import sys
-import threading
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,6 +45,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import runtime
 from repro_torch.core.block_traffic import serve_kv_traffic
 from repro_torch.core.types import PagingConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.serve import faults as faults_mod
 from repro_torch.serve import placement as placement_mod
@@ -62,60 +59,6 @@ def digest(done) -> str:
     for c in sorted(done, key=lambda c: c.rid):
         h.update(repr((c.rid, c.status, list(c.tokens))).encode())
     return h.hexdigest()[:16]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _spawn_ranks(argv, n: int, timeout_s: float) -> list:
-    """Run this CLI once per rank with ``argv`` plus ``--rank i`` and a
-    shared ``--dist-init``; every rank must exit 0 within ``timeout_s``.
-    Returns each rank's standard output."""
-    if "--dist-init" not in argv:
-        argv = [*argv, "--dist-init", f"tcp://localhost:{_free_port()}"]
-    env = dict(os.environ)
-    src = str(Path(__file__).resolve().parents[2])
-    env["PYTHONPATH"] = os.pathsep.join(
-        [src] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                 if p])
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", *argv,
-         "--rank", str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=env) for i in range(n)]
-    outs = [("", "")] * n
-
-    def drain(i):
-        outs[i] = procs[i].communicate()
-    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
-               for i in range(n)]
-    for th in threads:
-        th.start()
-    deadline = time.monotonic() + timeout_s
-    # a rank that fails stops the others at once: they would wait in
-    # their next collective until its timeout
-    while (time.monotonic() < deadline
-           and any(p.poll() is None for p in procs)
-           and not any(p.poll() for p in procs)):
-        time.sleep(0.2)
-    failed = []
-    for i, p in enumerate(procs):
-        if p.poll() is None:
-            p.kill()
-            failed.append(f"rank {i} was stopped after {timeout_s:.0f} s "
-                          "or another rank's failure")
-    for th in threads:
-        th.join()
-    for i, p in enumerate(procs):
-        if p.returncode:
-            failed.append(f"rank {i} exited {p.returncode}:\n"
-                          + outs[i][1][-4000:])
-    if failed:
-        raise RuntimeError("tensor-parallel serving failed: "
-                           + "\n".join(failed))
-    return [out for out, _ in outs]
 
 
 def main(argv=None):
@@ -223,8 +166,10 @@ def main(argv=None):
     placement.validate(cfg)
     devices = [runtime.resolve_device(d) for d in devices]
     if t > 1 and args.rank is None:
-        outs = _spawn_ranks(list(sys.argv[1:] if argv is None else argv),
-                            t, args.dist_timeout + 60.0)
+        outs = mesh_lib.spawn_ranks(
+            "repro_torch.launch.serve",
+            list(sys.argv[1:] if argv is None else argv), t,
+            args.dist_timeout + 60.0, "tensor-parallel serving")
         print(outs[0], end="")
         sums = [line.split("completions=")[1] for out in outs
                 for line in out.splitlines() if "completions=" in line]

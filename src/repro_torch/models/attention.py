@@ -30,8 +30,14 @@ in jnp; the pool is written in place (:func:`write_pages`,
 Training differentiates the chunked scan through the flash backward
 (:func:`_flash_bwd`, :class:`_ChunkedAttention`), which also serves as
 the backward of the attention kernel without a bias
-(:func:`flash_backward`). Not ported yet: the sequence-sharded decode
-(ROADMAP.md queue 1 item 8b).
+(:func:`flash_backward`).
+
+Under a mesh with ``{"kv_seq": "model", "decode_attn": "sharded"}``
+a global layer's decode runs sequence-sharded
+(:func:`_decode_seq_sharded`): each rank holds its block of the cache's
+positions and the partial softmaxes combine over ``model``; windowed
+layers keep their rings whole and take the unsharded path, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -40,9 +46,11 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import partitioning as part
 from repro_torch.core import quant, runtime
+from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope as rope_lib
@@ -71,14 +79,23 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     lead = () if stack is None else (stack,)
 
     def w(din, dout):
-        t = torch.randn(lead + (din, dout), generator=gen, device=gen.device,
-                        dtype=torch.float32) / math.sqrt(din)
+        t = randn(gen, lead + (din, dout)) / math.sqrt(din)
         return t.to(dtype=dtype, device=device)
 
     if cross:
         return {"wq": w(d, qo), "wkv": w(d, 2 * cfg.n_kv_heads * hd),
                 "wo": w(qo, d)}
     return {"wqkv": w(d, sum(proj_splits(cfg))), "wo": w(qo, d)}
+
+
+def logical_specs(stack: Optional[int], cross: bool = False):
+    """The logical axis names of :func:`init`'s leaves (the JAX
+    package's): d_model is ``embed``, the fused panels' N ``qkv``."""
+    ll = () if stack is None else ("layers",)
+    if cross:
+        return {"wq": ll + ("embed", "qkv"), "wkv": ll + ("embed", "qkv"),
+                "wo": ll + ("qkv", "embed")}
+    return {"wqkv": ll + ("embed", "qkv"), "wo": ll + ("qkv", "embed")}
 
 
 def _out_proj(out, wo, residual):
@@ -504,6 +521,14 @@ def decode_apply(params, x, cache: KVCache, *, cfg: ModelConfig,
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _decode_qkv(params, x, cfg, lengths, norm)
+    mesh = part.active_mesh()
+    rules = part.get_rules()
+    if (window == 0 and mesh is not None and "model" in mesh.axis_names
+            and rules.get("decode_attn") == "sharded"
+            and rules.get("kv_seq") == "model"):
+        out = _decode_seq_sharded(q, k, v, cache, lengths, cfg=cfg,
+                                  mesh=mesh)
+        return ops.matmul(out, params["wo"], residual=residual), cache
     cache = write_cache(cache, k, v, lengths)
     alloc = cache.k.shape[1]
     if window and window <= alloc:
@@ -517,6 +542,51 @@ def decode_apply(params, x, cache: KVCache, *, cfg: ModelConfig,
                             q_offset=0, kv_len=kv_len)
     out = out.reshape(b, 1, hq * hd)
     return _out_proj(out, params["wo"], residual), cache
+
+
+def _decode_seq_sharded(q, k_new, v_new, cache: KVCache, lengths, *,
+                        cfg: ModelConfig, mesh):
+    """Flash-decode over a KV cache split along the sequence over the
+    mesh's ``model`` axis (the JAX package's ``_decode_seq_sharded``):
+    ``cache`` is this rank's block of positions [m S_loc, (m+1) S_loc)
+    for its rows. The new token's K/V is written, in place, only on the
+    rank that owns its position; each rank takes the partial softmax
+    (m, l, acc) of its block in fp32, and the ranks combine them with an
+    all-reduce MAX of m and one SUM of (acc α, l α), α = exp(m_i - m), so
+    the cache is never gathered. Returns the (B, 1, Hq hd) output in q's
+    dtype; the cache keeps its own."""
+    b, _, hq, hd = q.shape
+    hkv = cfg.n_kv_heads
+    g = hq // hkv
+    s_loc = cache.k.shape[1]
+    dev = cache.k.device
+    base = mesh.coord("model") * s_loc
+    pos = lengths.long()
+    here = (pos >= base) & (pos < base + s_loc)                 # (B,)
+    lpos = torch.clamp(pos - base, 0, s_loc - 1)
+    bidx = torch.arange(b, device=dev)
+    for c, new in ((cache.k, k_new), (cache.v, v_new)):
+        c[bidx, lpos] = torch.where(here[:, None, None],
+                                    new[:, 0].to(c.dtype), c[bidx, lpos])
+    qg = q.reshape(b, hkv, g, hd).float()
+    kh = cache.k.transpose(1, 2).float()                 # (B, hkv, S, hd)
+    vh = cache.v.transpose(1, 2).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, kh) * hd ** -0.5
+    k_pos = base + torch.arange(s_loc, device=dev)
+    valid = (k_pos[None] < (pos + 1)[:, None])[:, None, None]  # (B,1,1,S)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m_i = s.max(-1).values                                  # (B, hkv, g)
+    p = torch.where(valid, torch.exp(s - m_i[..., None]),
+                    torch.zeros_like(s))
+    l_i = p.sum(-1)
+    acc_i = torch.einsum("bhgk,bhkd->bhgd", p, vh)
+    group = mesh.group(("model",))
+    m = part.all_reduce(m_i.clone(), group, op=dist.ReduceOp.MAX)
+    alpha = torch.exp(m_i - m)
+    tot = part.all_reduce(torch.cat([acc_i * alpha[..., None],
+                                     (l_i * alpha)[..., None]], -1), group)
+    out = tot[..., :hd] / torch.clamp(tot[..., hd:], min=1e-30)
+    return out.reshape(b, 1, hq * hd).to(q.dtype)
 
 
 # ----------------------------------------------------------------------

@@ -45,6 +45,14 @@ def _norm_init(cfg: ModelConfig, stack, dtype, device):
     return p
 
 
+def _norm_specs(cfg: ModelConfig, stack):
+    ll = () if stack is None else ("layers",)
+    s = {"g": ll + (None,)}
+    if cfg.norm == "layer":
+        s["b"] = ll + (None,)
+    return s
+
+
 def _norm_apply(p, x, cfg: ModelConfig):
     return ops.layernorm(x, p["g"], p.get("b"), kind=cfg.norm)
 
@@ -76,6 +84,30 @@ def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,
     elif blk.ffn == "rwkv6_cmix":
         params["ffn"] = mlp.init_cmix(gen, cfg, stack, dtype, device)
     return params
+
+
+def block_logical_specs(blk: BlockDef, cfg: ModelConfig, stack):
+    """The logical axis names of :func:`init_block`'s leaves (the JAX
+    package's ``init_block`` specs), from the config alone."""
+    specs = {"norm1": _norm_specs(cfg, stack)}
+    if blk.mixer == "attn":
+        specs["attn"] = attention.logical_specs(stack)
+    elif blk.mixer == "mamba2":
+        specs["mamba"] = mamba2.logical_specs(stack)
+    elif blk.mixer == "rwkv6":
+        specs["tmix"] = rwkv6.logical_specs(stack)
+    if blk.cross_attn:
+        specs["norm_x"] = _norm_specs(cfg, stack)
+        specs["cross"] = attention.logical_specs(stack, cross=True)
+    if blk.ffn != "none":
+        specs["norm2"] = _norm_specs(cfg, stack)
+    if blk.ffn == "mlp":
+        specs["ffn"] = mlp.logical_specs(cfg, stack)
+    elif blk.ffn == "moe":
+        specs["ffn"] = moe.logical_specs(cfg, stack)
+    elif blk.ffn == "rwkv6_cmix":
+        specs["ffn"] = mlp.cmix_logical_specs(stack)
+    return specs
 
 
 class BlockIO(NamedTuple):

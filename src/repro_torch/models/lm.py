@@ -38,8 +38,13 @@ leaves require a gradient; :func:`fuse_params` / :func:`unfuse_params`
 migrate the seed's split projection layout. Tensor-parallel serving
 (``serve/placement.py``) runs these functions on each rank's shard:
 the row-parallel projections sum over the group and an untied head
-gathers its vocab blocks (``core/partitioning.py``); the training mesh
-waits for ROADMAP.md queue 1 item 8b.
+gathers its vocab blocks (``core/partitioning.py``). Under the training
+mesh every parameter is read through ``partitioning.gathered`` (a
+stacked leaf one repeat at a time, inside the repeat's recomputation;
+the embedding, the head and the final norms where they are read), and
+:func:`loss_fn` reduces over the mesh; :func:`logical_specs` and
+:func:`cache_logical_specs` name every leaf's logical axes, the trees
+the JAX package's ``init_lm`` returns beside its parameters.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ from torch import nn
 
 from repro_torch.core import partitioning as part
 from repro_torch.core import quant, runtime
-from repro_torch.core.params import ParamTree
+from repro_torch.core.params import ParamTree, randn
 from repro_torch.core.types import ModelConfig, Stage
 from repro_torch.kernels import ops
 from repro_torch.models import attention, blocks, mamba2, rope
@@ -99,15 +104,17 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     """Random parameters in the JAX package's tree, drawn from
     ``generator`` on the generator's own device (a CUDA generator draws
     the 3 B normals of rwkv6-3b in well under a second) and placed on
-    ``device``. ``dtype``: default ``cfg.dtype``."""
+    ``device``. ``dtype``: default ``cfg.dtype``. The JAX package's
+    ``init_lm`` returns (params, specs); here the specs come from the
+    config alone (:func:`logical_specs`), and a ``generator`` of None
+    on ``device="meta"`` gives the shapes alone (:func:`param_shapes`)."""
     device = runtime.resolve_device(device)
     dtype = dtype or DTYPES[cfg.dtype]
     d = cfg.d_model
     vp = padded_vocab(cfg)
 
     def normal(shape, scale):
-        t = torch.randn(shape, generator=generator, device=generator.device,
-                        dtype=torch.float32) * scale
+        t = randn(generator, shape) * scale
         return t.to(dtype=dtype, device=device)
 
     params: Dict[str, Any] = {"embed": normal((vp, d), 0.02)}
@@ -129,6 +136,44 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
             params["enc"]["final_norm"]["b"] = torch.zeros(
                 (d,), dtype=dtype, device=device)
     return params
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.float32) -> Dict[str, Any]:
+    """:func:`init_lm`'s tree on the meta device: every leaf's shape and
+    dtype, nothing allocated."""
+    return init_lm(cfg, None, device="meta", dtype=dtype)
+
+
+def _stage_specs(stage: Stage, cfg: ModelConfig):
+    stacked, shared = {}, {}
+    for i, blk in enumerate(stage.body):
+        stack = None if blk.shared else stage.repeat
+        s = blocks.block_logical_specs(blk, cfg, stack)
+        (shared if blk.shared else stacked)[str(i)] = s
+    return {"stacked": stacked, "shared": shared}
+
+
+def logical_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axis names of every leaf of :func:`init_lm`'s tree,
+    the tree of the same structure the JAX package's ``init_lm`` returns
+    beside its parameters: ``("vocab", "embed")`` for the embedding,
+    ``("layers", ...)`` for a stacked leaf."""
+    def norm():
+        s = {"g": (None,)}
+        if cfg.norm == "layer":
+            s["b"] = (None,)
+        return s
+    specs: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "stages": [_stage_specs(st, cfg) for st in cfg.stages()],
+        "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    if cfg.encdec:
+        specs["enc"] = {"stages": [_stage_specs(st, cfg)
+                                   for st in cfg.enc_stages()],
+                        "final_norm": norm()}
+    return specs
 
 
 # ----------------------------------------------------------------------
@@ -268,8 +313,12 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
         out_states, aux = {}, 0.0
         for i, blk in enumerate(stage.body):
             key = str(i)
-            bp = (_tree_map(lambda a, r=rep: a[r], stacked[key])
-                  if key in stacked else shared[key])
+            # under a training mesh each leaf is gathered here, inside
+            # the repeat's recomputation (``part.gathered``)
+            bp = (_tree_map(lambda a, r=rep: part.gathered(a, r),
+                            stacked[key])
+                  if key in stacked else _tree_map(part.gathered,
+                                                   shared[key]))
             csl = (_tree_map(lambda a, r=rep: a[r], cache[key])
                    if cache and key in cache else None)
             x, io = blocks.apply_block(
@@ -326,7 +375,7 @@ def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
     (B, n_patches, d) over the first ``n_patches`` rows, in the table's
     dtype (the JAX package's ``dynamic_update_slice`` at (0, 0, 0)),
     built out of place so that a gradient reaches both."""
-    w = params["embed"]
+    w = part.gathered(params["embed"])
     if quant.is_quantized(w):
         # weight-only int8 tree: gather the int8 rows, then dequantize
         # only the gathered (B, S, d) block by the per-column scales
@@ -340,22 +389,23 @@ def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
 
 
 def unembed(params, x, cfg: ModelConfig):
-    x = ops.layernorm(x, params["final_norm"]["g"],
-                      params["final_norm"].get("b"), kind=cfg.norm)
+    fn = _tree_map(part.gathered, params["final_norm"])
+    x = ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
     if cfg.tie_embeddings:
         # the kernel reads weights with unit column stride: the tied
         # head multiplies by a transposed copy of the table. Tied
         # embeddings stay replicated under tensor parallelism (the
         # embed gather needs every row), so the logits are full-width
-        w = quant.resolve_weight(params["embed"], x.dtype).t().contiguous()
+        w = quant.resolve_weight(part.gathered(params["embed"]),
+                                 x.dtype).t().contiguous()
         logits = ops.matmul(x, w, out_dtype=torch.float32)
     else:
         # under tensor parallelism the lm_head is vocab-sharded: each
         # rank computes its contiguous logit block, and the tiled gather
         # rebuilds the row before the pad mask, which needs global
         # column indices (a no-op outside TP)
-        logits = part.tp_gather(ops.matmul(x, params["lm_head"],
-                                           out_dtype=torch.float32))
+        logits = part.tp_gather(ops.matmul(
+            x, part.gathered(params["lm_head"]), out_dtype=torch.float32))
     if padded_vocab(cfg) != cfg.vocab:  # mask pad columns out of softmax
         logits[..., cfg.vocab:] = NEG_INF
     return logits
@@ -388,7 +438,7 @@ def encode(params, frames, cfg: ModelConfig):
         frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)[None]
     x, _, _ = _run_stages(params["enc"]["stages"], cfg.enc_stages(), x,
                           cfg=cfg, mode="train", causal=False, remat=True)
-    fn = params["enc"]["final_norm"]
+    fn = _tree_map(part.gathered, params["enc"]["final_norm"])
     return ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
 
 
@@ -426,7 +476,14 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     ``batch``: ``tokens`` and ``labels`` (B, S), labels below 0 masked;
     every other key goes to :func:`forward` as ``extra``. The
     log-sum-exp runs in fp32 and the gold logit is gathered; the token
-    count is floored at 1."""
+    count is floored at 1.
+
+    Under a training mesh (``part.use_mesh``) ``batch`` is this rank's
+    rows: the token count, the loss and the accuracy are the global
+    batch's (summed over the mesh, each row counted once however many
+    ranks hold it), and the value returned for the gradient is this
+    rank's share of the global loss, so that the gradients summed over
+    the ranks are the global loss's."""
     extra = {k: v for k, v in batch.items()
              if k not in ("tokens", "labels")} or None
     logits, aux = forward(params, batch["tokens"], cfg, extra=extra,
@@ -438,12 +495,20 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - gold) * valid
-    ntok = torch.clamp(valid.sum(), min=1)
-    loss = nll.sum() / ntok
-    acc = ((torch.argmax(logits, -1) == safe) * valid).sum() / ntok
-    metrics = {"loss": loss, "aux_loss": aux, "ntokens": ntok,
-               "accuracy": acc}
-    return loss + aux, metrics
+    correct = ((torch.argmax(logits, -1) == safe) * valid).sum()
+    if part.active_mesh() is None:
+        ntok = torch.clamp(valid.sum(), min=1)
+        loss = nll.sum() / ntok
+        metrics = {"loss": loss, "aux_loss": aux, "ntokens": ntok,
+                   "accuracy": correct / ntok}
+        return loss + aux, metrics
+    reps = part.batch_replicas()
+    ntok = torch.clamp(part.mesh_sum(valid.sum()) // reps, min=1)
+    share = nll.sum() / (ntok * reps)
+    metrics = {"loss": part.mesh_sum(share), "aux_loss": aux.detach(),
+               "ntokens": ntok,
+               "accuracy": (part.mesh_sum(correct) // reps) / ntok}
+    return share + aux, metrics
 
 
 # ----------------------------------------------------------------------
@@ -546,6 +611,33 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
                                  f"multiple of page_size {page_size}")
     return _init_cache_tree(cfg, n_slots, max_len, dtype, device,
                             pool=(n_pages, page_size))
+
+
+def cache_logical_specs(cache, cfg: Optional[ModelConfig] = None):
+    """Logical names for every leaf of a dense cache (the JAX package's):
+    (layers, batch, ...), a 5-dim leaf (layers, batch, kv_seq, kv_heads,
+    head_dim). Paged pools stay engine-local. With ``cfg``, a windowed
+    layer's ring keeps its positions whole (``kv_seq`` dropped): its
+    decode takes the unsharded path under the sequence-sharded rules."""
+    from repro_torch.core import tree as tree_lib
+
+    def spec(leaf):
+        names = [None] * leaf.dim()
+        names[0] = "layers"
+        if leaf.dim() >= 2:
+            names[1] = "batch"
+        if leaf.dim() == 5:           # (R, B, S, kv_heads, hd)
+            names[2] = "kv_seq"
+            names[3] = "kv_heads"
+        return tuple(names)
+    specs = tree_lib.tree_map(spec, cache)
+    for stage, sc in zip(cfg.stages() if cfg else (), specs):
+        for i, blk in enumerate(stage.body):
+            kv = sc.get(str(i), {}).get("kv")
+            if blk.window and kv is not None:
+                sc[str(i)]["kv"] = type(kv)(*(n[:2] + (None,) + n[3:]
+                                              for n in kv))
+    return specs
 
 
 def _ring_from_prefill(k, window):

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops
 
@@ -51,8 +52,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     proj_out = 2 * d_in + 2 * s.d_state + n_heads
 
     def normal(*shape):
-        return torch.randn(lead + shape, generator=gen, device=gen.device,
-                           dtype=torch.float32)
+        return randn(gen, lead + shape)
 
     def w(din, dout):
         return (normal(din, dout) / math.sqrt(din)).to(dtype=dtype,
@@ -193,6 +193,21 @@ def apply(params, x, *, cfg: ModelConfig, state: Optional[MambaState] = None,
     y = ops.layernorm(y.to(x.dtype), params["norm_g"], kind="rms")
     out = ops.matmul(y, params["out_proj"])
     return out, MambaState(conv=new_conv.to(x.dtype), ssm=s_fin)
+
+
+def logical_specs(stack: Optional[int]):
+    """The logical axis names of :func:`init`'s leaves."""
+    ll = () if stack is None else ("layers",)
+    return {"in_proj": ll + ("embed", "ffn"),
+            "out_proj": ll + ("ffn", "embed"),
+            "conv_w": ll + (None, "ffn"), "conv_b": ll + ("ffn",),
+            "A_log": ll + (None,), "dt_bias": ll + (None,),
+            "D": ll + (None,), "norm_g": ll + ("ffn",)}
+
+
+def state_specs() -> MambaState:
+    return MambaState(conv=("batch", None, "ffn"),
+                      ssm=("batch", None, None, None))
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype, device) -> MambaState:

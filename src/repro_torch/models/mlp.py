@@ -10,13 +10,13 @@ import torch
 
 from repro_torch.core import partitioning as part
 from repro_torch.core import quant
+from repro_torch.core.params import randn
 from repro_torch.core.types import GATED_ACTS as GATED, ModelConfig
 from repro_torch.kernels import ops
 
 
 def _weight(gen, lead, din, dout, dtype, device):
-    t = torch.randn(lead + (din, dout), generator=gen, device=gen.device,
-                    dtype=torch.float32) / math.sqrt(din)
+    t = randn(gen, lead + (din, dout)) / math.sqrt(din)
     return t.to(dtype=dtype, device=device)
 
 
@@ -33,6 +33,13 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     if cfg.act in GATED:
         return {"wgi": w(d, 2 * f), "wo": w(f, d)}
     return {"wi": w(d, f), "wo": w(f, d)}
+
+
+def logical_specs(cfg: ModelConfig, stack: Optional[int]):
+    """The logical axis names of :func:`init`'s leaves."""
+    ll = () if stack is None else ("layers",)
+    first = "wgi" if cfg.act in GATED else "wi"
+    return {first: ll + ("embed", "ffn"), "wo": ll + ("ffn", "embed")}
 
 
 def apply(params, x, *, cfg: ModelConfig, norm=None, residual=None):
@@ -74,6 +81,14 @@ def init_cmix(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     return {"wk": w(d, f), "wv": w(f, d), "wr": w(d, d),
             "mu_k": torch.full(lead + (d,), 0.5, dtype=dtype, device=device),
             "mu_r": torch.full(lead + (d,), 0.5, dtype=dtype, device=device)}
+
+
+def cmix_logical_specs(stack: Optional[int]):
+    """The logical axis names of :func:`init_cmix`'s leaves."""
+    ll = () if stack is None else ("layers",)
+    return {"wk": ll + ("embed", "ffn"), "wv": ll + ("ffn", "embed"),
+            "wr": ll + ("embed", "embed"), "mu_k": ll + (None,),
+            "mu_r": ll + (None,)}
 
 
 def apply_cmix(params, x, x_prev):

@@ -4,8 +4,10 @@ The JAX package's local path (no mesh): capacity-based scatter/gather
 dispatch over the whole batch. The router, the dispatch and the experts
 are jnp there, outside any Pallas kernel, so here they are torch ops:
 the router product and the expert SwiGLU einsums in fp32, as in JAX.
-The expert-parallel path (``_apply_ep``, an all-to-all over the mesh's
-'model' axis) comes with the training mesh (ROADMAP.md queue 1 item 8b).
+Under a mesh whose ``model`` axis divides the padded experts the
+expert-parallel path runs (``_apply_ep``: each rank routes its rows and
+a tiled all-to-all over ``model`` carries them to the rank holding
+their expert and back); the aux loss is then the global batch's.
 
 Experts are padded up to a multiple of the model axis (qwen2-moe's 60
 -> 64) with router logits masked to -1e30: routing never reaches pads.
@@ -25,7 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import partitioning as part
 from repro_torch.core import quant
+from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
 
 MODEL_AXIS_FOR_PADDING = 16
@@ -48,8 +52,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     lead = () if stack is None else (stack,)
 
     def w(*shape):
-        t = torch.randn(lead + shape, generator=gen, device=gen.device,
-                        dtype=torch.float32) / math.sqrt(shape[-2])
+        t = randn(gen, lead + shape) / math.sqrt(shape[-2])
         return t.to(dtype=dtype, device=device)
 
     params = {"router": w(d, e), "wi": w(e, d, f), "wg": w(e, d, f),
@@ -62,6 +65,22 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
         params["shared_gate"] = torch.zeros(lead + (d, 1), dtype=dtype,
                                             device=device)
     return params
+
+
+def logical_specs(cfg: ModelConfig, stack: Optional[int]):
+    """The logical axis names of :func:`init`'s leaves: the stacked
+    expert dim is ``experts`` (expert parallel over ``model``)."""
+    ll = () if stack is None else ("layers",)
+    specs = {"router": ll + ("embed", None),
+             "wi": ll + ("experts", "embed", None),
+             "wg": ll + ("experts", "embed", None),
+             "wo": ll + ("experts", None, "embed")}
+    if cfg.moe.n_shared:
+        specs.update({"shared_wi": ll + ("embed", "ffn"),
+                      "shared_wg": ll + ("embed", "ffn"),
+                      "shared_wo": ll + ("ffn", "embed"),
+                      "shared_gate": ll + ("embed", None)})
+    return specs
 
 
 def _route(xf, router_w, cfg: ModelConfig, e_pad: int):
@@ -119,10 +138,17 @@ def _expert_mlp(x, wi, wg, wo):
 
 
 def _aux_loss(gate_idx, probs, cfg: ModelConfig):
+    """Shazeer's load-balance loss. Under a mesh each rank routes its own
+    tokens: ``f_e`` and ``p_e`` are averaged over every (non-manual)
+    mesh axis first, so the value is the global batch's on every rank
+    (the JAX package's ``_apply_ep``; its GSPMD local path is global by
+    construction)."""
     mo = cfg.moe
     e = probs.shape[-1]
     f_e = _one_hot(gate_idx, e, torch.float32).sum(1).mean(0)
     p_e = probs.mean(0)
+    if part.active_mesh() is not None:
+        f_e, p_e = part.mesh_mean(f_e), part.mesh_mean(p_e)
     return mo.n_experts * (f_e * p_e).sum() * mo.router_aux_coef
 
 
@@ -135,25 +161,11 @@ def _shared_expert(params, xf):
     return s_gate * s_out
 
 
-def _apply_local(params, x, *, cfg: ModelConfig):
-    """Single-shard dispatch."""
-    mo = cfg.moe
-    b, s, d = x.shape
-    t = b * s
-    e = padded_experts(cfg)
-    k = mo.top_k
-    cap = max(int(t * k / mo.n_experts * mo.capacity_factor), k)
-    xf = x.reshape(t, d)
-    gate_vals, gate_idx, probs = _route(xf, params["router"], cfg, e)
-    slot, keep, token_idx = _dispatch_indices(gate_idx, e, cap)
-    # the last row takes the dropped (token, choice) pairs
-    buf = xf.new_zeros((e * cap + 1, d))
-    buf[slot] = xf[token_idx]
-    expert_out = _expert_mlp(buf[:e * cap].reshape(e, cap, d),
-                             params["wi"], params["wg"], params["wo"])
-    flat_out = expert_out.reshape(e * cap, d)
+def _combine(flat_out, slot, keep, gate_vals, t, k, d):
+    """Each token's k expert rows, gated and summed in choice order."""
+    e_cap = flat_out.shape[0]
     gathered = torch.where(keep[:, None],
-                           flat_out[torch.clamp(slot, max=e * cap - 1)],
+                           flat_out[torch.clamp(slot, max=e_cap - 1)],
                            torch.zeros((), dtype=flat_out.dtype,
                                        device=flat_out.device))
     # each token's k gated rows are adjacent (token_idx = repeat(arange
@@ -163,7 +175,88 @@ def _apply_local(params, x, *, cfg: ModelConfig):
     out = rows[:, 0]
     for j in range(1, k):
         out = out + rows[:, j]
-    if mo.n_shared:
+    return out
+
+
+def _dispatch(xf, params, cfg: ModelConfig, e: int):
+    """Route the rows of ``xf`` (T, d) and lay them out by expert: ->
+    (buf (E, C, d), slot, keep, gate_vals, gate_idx, probs), the capacity
+    C over these T rows."""
+    mo = cfg.moe
+    t, d = xf.shape
+    k = mo.top_k
+    cap = max(int(t * k / mo.n_experts * mo.capacity_factor), k)
+    gate_vals, gate_idx, probs = _route(xf, params["router"], cfg, e)
+    slot, keep, token_idx = _dispatch_indices(gate_idx, e, cap)
+    # the last row takes the dropped (token, choice) pairs
+    buf = xf.new_zeros((e * cap + 1, d))
+    buf[slot] = xf[token_idx]
+    return (buf[:e * cap].reshape(e, cap, d), slot, keep, gate_vals,
+            gate_idx, probs)
+
+
+def _apply_local(params, x, *, cfg: ModelConfig):
+    """Single-shard dispatch (under a mesh: each rank over its own rows,
+    the capacity per rank, the aux loss global)."""
+    b, s, d = x.shape
+    t = b * s
+    e = padded_experts(cfg)
+    xf = x.reshape(t, d)
+    buf, slot, keep, gate_vals, gate_idx, probs = _dispatch(xf, params,
+                                                            cfg, e)
+    expert_out = _expert_mlp(buf, params["wi"], params["wg"], params["wo"])
+    out = _combine(expert_out.reshape(-1, d), slot, keep, gate_vals, t,
+                   cfg.moe.top_k, d)
+    if cfg.moe.n_shared:
+        out = out + _shared_expert(params, xf)
+    return (out.reshape(b, s, d).to(x.dtype),
+            _aux_loss(gate_idx, probs, cfg))
+
+
+def _local_experts(w, mesh, e_loc: int):
+    """This rank's expert block of an expert leaf: the leaf itself when
+    the training mesh keeps it local (``part.fsdp``), else its rows of
+    the full leaf."""
+    if w.shape[0] == e_loc:
+        return w
+    m = mesh.coord("model")
+    if w.shape[0] != e_loc * mesh.sizes["model"]:
+        raise ValueError(f"an expert leaf of {w.shape[0]} experts on a "
+                         f"model axis of {mesh.sizes['model']}")
+    return w[m * e_loc:(m + 1) * e_loc]
+
+
+def _apply_ep(params, x, *, cfg: ModelConfig, mesh):
+    """Expert-parallel dispatch over the mesh's ``model`` axis, the JAX
+    package's ``_apply_ep``: each rank routes its own rows (capacity per
+    rank, over its tokens) into (E, C, d), a tiled all-to-all sends
+    expert block j to model rank j, which runs its E / n_model experts
+    over (E_loc, n_model C, d) and sends the rows back the same way.
+    Both all-to-alls have a backward (the all-to-all itself). The expert
+    weights are local over ``model``; under the training mesh they were
+    gathered over ``data`` alone (``part.fsdp`` keeps the expert dim
+    local). The aux loss is the global batch's."""
+    b, s, d = x.shape
+    t = b * s
+    e = padded_experts(cfg)
+    n = mesh.sizes["model"]
+    e_loc = e // n
+    group = mesh.group(("model",))
+    xf = x.reshape(t, d)
+    buf, slot, keep, gate_vals, gate_idx, probs = _dispatch(xf, params,
+                                                            cfg, e)
+    cap = buf.shape[1]
+    # dispatch: (E, C, d) = (n, E_loc, C, d) -> (E_loc, n C, d)
+    recv = part.all_to_all_blocks(buf.reshape(n, e_loc, cap, d), group)
+    recv = recv.transpose(0, 1).reshape(e_loc, n * cap, d)
+    w = [_local_experts(params[k], mesh, e_loc) for k in ("wi", "wg", "wo")]
+    out_e = _expert_mlp(recv, *w).to(xf.dtype)
+    # return: (E_loc, n C, d) -> (n, E_loc, C, d) = (E, C, d)
+    back = part.all_to_all_blocks(
+        out_e.reshape(e_loc, n, cap, d).transpose(0, 1), group)
+    out = _combine(back.reshape(e * cap, d), slot, keep, gate_vals, t,
+                   cfg.moe.top_k, d)
+    if cfg.moe.n_shared:
         out = out + _shared_expert(params, xf)
     return (out.reshape(b, s, d).to(x.dtype),
             _aux_loss(gate_idx, probs, cfg))
@@ -177,4 +270,8 @@ def apply(params, x, *, cfg: ModelConfig):
         params = dict(params)
         for k in ("wi", "wg", "wo"):
             params[k] = quant.resolve_weight(params[k])
+    mesh = part.active_mesh()
+    if (mesh is not None and "model" in mesh.axis_names
+            and padded_experts(cfg) % mesh.sizes["model"] == 0):
+        return _apply_ep(params, x, cfg=cfg, mesh=mesh)
     return _apply_local(params, x, cfg=cfg)

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops
 
@@ -42,8 +43,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
     lead = () if stack is None else (stack,)
 
     def normal(*shape):
-        return torch.randn(lead + shape, generator=gen, device=gen.device,
-                           dtype=torch.float32)
+        return randn(gen, lead + shape)
 
     def w(din, dout, scale=1.0):
         return (normal(din, dout) * scale / math.sqrt(din)).to(
@@ -63,6 +63,18 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
         "ln_g": full((d,), 1.0, dtype),
         "ln_b": full((d,), 0.0, dtype),
     }
+
+
+def logical_specs(stack: Optional[int]):
+    """The logical axis names of :func:`init`'s leaves."""
+    ll = () if stack is None else ("layers",)
+    return {"wr": ll + ("embed", "qkv"), "wk": ll + ("embed", "qkv"),
+            "wv": ll + ("embed", "qkv"), "wg": ll + ("embed", "qkv"),
+            "wo": ll + ("qkv", "embed"), "w0": ll + (None,),
+            "w_lora_a": ll + ("embed", None),
+            "w_lora_b": ll + (None, "embed"), "u": ll + (None, None),
+            "mu": ll + (None, None), "ln_g": ll + (None,),
+            "ln_b": ll + (None,)}
 
 
 def wkv_chunked(r, k, v, lw, u, *, chunk: int = CHUNK, s0=None):

@@ -5,8 +5,14 @@ the bias corrections ``1 - b ** step`` in fp32, ``delta = mh / (sqrt(vh)
 global-norm clip ``min(1, max_norm / max(norm, 1e-9))``. ``torch.optim
 .AdamW`` orders the bias correction, ``eps`` and the decay otherwise
 (it decays before the step), so it rounds differently; it is not used.
-Every operation stays on the device: no host read. ``state_specs`` (the
-sharded optimizer state) waits for ROADMAP.md queue 1 item 8b.
+Every operation stays on the device: no host read.
+
+Under a training mesh the optimizer state takes the parameters' specs
+(:func:`state_specs`, ZeRO): each rank updates its own blocks, element
+by element. The global norm counts each element once: a leaf's sum of
+squares over this rank's block is all-reduced over the axes the leaf is
+split over (its replicas hold the same block and are not summed again),
+one all-reduce for every set of axes.
 """
 from __future__ import annotations
 
@@ -46,9 +52,27 @@ def init(params) -> AdamWState:
                       nu=tree_lib.tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def state_specs(param_specs) -> AdamWState:
+    """Optimizer state inherits parameter logical specs (ZeRO-1)."""
+    return AdamWState(step=(), mu=param_specs, nu=param_specs)
+
+
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The l2 norm of every leaf together; ``shardings`` (a tree of
+    ``partitioning.Sharding``) when the leaves are this rank's blocks."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
             for x in tree_lib.leaves(tree)]
+    if shardings is not None:
+        from repro_torch.core import partitioning as part
+        by_axes: dict = {}
+        for i, s in enumerate(tree_lib.leaves(shardings)):
+            if s.axes():
+                by_axes.setdefault((s.mesh, s.axes()), []).append(i)
+        for (mesh, axes), idx in by_axes.items():
+            part_sums = torch.stack([sums[i] for i in idx])
+            part.all_reduce(part_sums, mesh.group(axes))
+            for j, i in enumerate(idx):
+                sums[i] = part_sums[j]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -62,12 +86,15 @@ def clip_by_global_norm(grads, max_norm):
     return tree_lib.tree_map(lambda g: g * scale, grads), norm
 
 
-def apply(cfg: AdamWConfig, state: AdamWState, params, grads, lr_scale=1.0):
+def apply(cfg: AdamWConfig, state: AdamWState, params, grads, lr_scale=1.0,
+          shardings=None):
     """-> (new_params, new_state, grad_norm). The clipped gradient of a
     leaf is made where the leaf is updated (the same products as
-    clipping the whole tree first, without a second copy of it)."""
+    clipping the whole tree first, without a second copy of it).
+    ``shardings``: the parameters' (``partitioning.Sharding``) when the
+    leaves are this rank's blocks."""
     grads = tree_lib.tree_map(lambda g: g.to(torch.float32), grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     stepf = step.to(torch.float32)

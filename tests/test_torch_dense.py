@@ -452,20 +452,20 @@ def test_configs_match_jax():
 
 
 def test_unported_attention_paths_raise():
-    """What the port does not run yet raises, naming its ROADMAP.md item:
-    cross-pod gradient compression and the training mesh (``--mesh``
-    past its default) wait for item 8b; a serving mesh
-    (``--mesh-shape``) runs (``tests/test_torch_tp.py``). M-RoPE and
-    the qwen2-vl-2b architecture, pending before, rotate and build; the
-    mamba2 mixer and the MoE FFN build and run a prefill."""
+    """The paths pending before run now, and what cannot run raises:
+    cross-pod gradient compression without a mesh (it reduces over the
+    ``pod`` axis; the training mesh runs in
+    ``tests/test_torch_mesh_worlds.py``), a serving mesh runs
+    (``tests/test_torch_tp.py``). M-RoPE and the qwen2-vl-2b
+    architecture rotate and build; the mamba2 mixer and the MoE FFN
+    build and run a prefill."""
     from repro_torch.launch import train as train_cli
     from repro_torch.train import step as tsl
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 8b"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         tsl.make_train_step(get_reduced("deepseek-7b"),
                             tsl.TrainConfig(compress_pods=True))
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8b"):
-        train_cli.main(["--smoke", "--device", "cpu", "--mesh", "host"])
+    with pytest.raises(ValueError, match="--mesh host"):
+        train_cli.main(["--smoke", "--device", "cpu", "--compress-pods"])
     cfg = get_reduced("deepseek-7b")
     mrope = dataclasses.replace(cfg, rope="mrope")
     q = torch.randn(1, 3, 4, 16, generator=torch.Generator().manual_seed(0))

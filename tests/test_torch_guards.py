@@ -290,3 +290,44 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_mesh_modules_import_no_jax():
+    """The training mesh's modules pull in nothing of JAX or of the JAX
+    package, and building no mesh touches no process group."""
+    code = ("import sys\n"
+            "import repro_torch.launch.mesh, repro_torch.optim.compression, "
+            "repro_torch.train.step, repro_torch.launch.train, "
+            "repro_torch.checkpoint.checkpointer\n"
+            "import torch.distributed as dist\n"
+            "print(dist.is_initialized(), sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = _run(code, env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False []"
+
+
+def test_mesh_refuses_what_it_cannot_form(tmp_path):
+    """A mesh needs a process group of its size: without one, or in a
+    world of another size, it raises (no quiet single-device run)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import partitioning
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import step as tsl
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh_lib.make_host_mesh()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 8 ranks"):
+            mesh_lib.make_host_mesh()
+        mesh = mesh_lib.make_host_mesh((1, 1, 1))
+        with pytest.raises(ValueError, match="'pod' axis"):
+            tsl.state_shardings(get_reduced("deepseek-7b"),
+                                tsl.TrainConfig(compress_pods=True),
+                                partitioning.Mesh((1,), ("data",)))
+        assert mesh.coords == {"pod": 0, "data": 0, "model": 0}
+    finally:
+        dist.destroy_process_group()

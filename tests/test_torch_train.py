@@ -552,13 +552,18 @@ def test_loss_decreases():
 
 
 def test_compress_pods_raises():
-    """Cross-pod compression needs the mesh of ROADMAP.md item 8."""
+    """Cross-pod compression reduces over a mesh's ``pod`` axis: without
+    a mesh the step refuses it (no quiet single-device run); the state
+    carries the fp32 error-feedback residual, zero, as JAX's does."""
     _, params = _tiny_start()
     tcfg = tsl.TrainConfig(compress_pods=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         tsl.make_train_step(_tiny(False), tcfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsl.init_state(params, tcfg)
+    state = tsl.init_state(params, tcfg)
+    assert [p for p, _ in tree_lib.leaves_with_paths(state.residual)] == [
+        p for p, _ in tree_lib.leaves_with_paths(params)]
+    assert all(r.dtype == torch.float32 and not r.any()
+               for r in tree_lib.leaves(state.residual))
 
 
 def test_training_modules_import_no_jax():
