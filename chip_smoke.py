@@ -221,10 +221,28 @@ Phases, each printing its lines:
    unsharded decode, half the cache a rank); (f) ``launch/train.py
    --mesh host`` (eight ranks), its elastic restore on one device and
    ``--compress-pods``;
-17. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+17. the auditor and the cost models (:func:`audit_phase`): (a) the audit
+   CLI on the card (``python -m repro_torch.analysis.audit --device
+   cuda``, the reduced deepseek-7b engine): exit 0, every pass checked
+   something, 0 host reads in each entry point by the dispatch recorder
+   and by ``torch.cuda.set_sync_debug_mode("error")``, the engine's
+   ``_fetch`` sites the allowlist's; (b) every built kernel (the
+   library's ``rk_query_*`` and ``ptxas.log``) against its shared-memory
+   model byte for byte, the H100's 232,448 bytes a block and 65,536
+   registers an SM, no spill, and a seeded over-budget kernel firing
+   RWA401; (c) the roofline (``launch/roofline.py``) of the launch
+   records of one deepseek-7b bf16 prefill (B=4 x 512) and decode step
+   (B=4) against PERF.md's bounds (25.14 ms for the 120 wgmma launches,
+   3.88 ms for the 121 skinny ones, within 0.5%), each kernel's share of
+   its bound beside its device ms; (d) ``core/rowwise.py``'s tile
+   constants against the library's; (e) a deepseek-7b bf16 engine run
+   with the recording switch off and on (the same streams and launches),
+   and the engine's entry points at full width (no host read, every
+   cache leaf in place, a decode step's peak memory under a pool leaf);
+18. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler);
-18. the matmul, attention and WKV per design and dtype, summed over a
+19. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
@@ -322,11 +340,6 @@ BF16_LAYER_TOL = 1.5e-2
 # in float64 on the card, exact below 2^53), so only the fp32 dequant
 # and activation differ, by a few ulps.
 INT8_TOL = 1e-5
-
-# H100 SXM peaks (NVIDIA's data sheet, dense): fp32 off the tensor cores,
-# bf16 and int8 on them, and the device memory rate.
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
-PEAK_BYTES = 3.35e12
 
 REPLACES = {
     "rowwise_matmul": "src/repro/kernels/rowwise_matmul.py:142",
@@ -444,9 +457,10 @@ def tensor_core_counts(library):
 
 
 def bound(flops, nbytes, dtype_name):
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    """The least time of a call (``launch/roofline.py``: the H100 SXM's
+    peaks, NVIDIA's data sheet, dense), in ms, and what bounds it."""
+    from repro_torch.launch.roofline import bound as roofline_bound
+    return roofline_bound(flops, nbytes, dtype_name)
 
 
 def nbytes(*tensors, out=(0, None)):
@@ -6126,6 +6140,224 @@ def mesh_phase(smi):
     return out
 
 
+# ------------------------------ the auditor ------------------------------
+
+# the roofline's prices of two calls, PERF.md section 6: the 120 wgmma
+# launches of a deepseek-7b bf16 prefill at B=4 x 512 (row 1b, the
+# operations bound) and the 121 skinny launches of its bf16 decode step
+# at B=4 (row 1c, the bytes bound), both from chip_smoke.py's cases
+AUDIT_BOUNDS = {"prefill": ("rowwise_matmul wgmma", 120, 25.14),
+                "decode": ("rowwise_matmul skinny", 121, 3.88)}
+AUDIT_BOUND_TOL = 0.005
+AUDIT_ENTRIES = ["step", "prefill", "chunk", "spec"]
+
+
+def audit_phase(smi):
+    """The auditor and the cost models on the card: (a) the audit CLI
+    (``python -m repro_torch.analysis.audit --device cuda``) exits 0, each
+    pass checked something, the recorder's host reads in each entry point
+    and the sync debug mode's agree at 0, and the engine's fetch sites
+    are the allowlist's; (b) every built kernel's shared memory against
+    its model and the H100's budget, no spill, and a seeded over-budget
+    kernel fires RWA401; (c) the roofline from the launch records of one
+    deepseek-7b bf16 prefill (B=4 x 512) and decode step (B=4) against
+    PERF.md's bounds, each kernel's share of its bound beside its device
+    ms; (d) ``plan_matmul``'s tile constants against the library's; (e)
+    a deepseek-7b bf16 engine run with the recording switch off and on:
+    the same streams, the same launches."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import audit as audit_cli
+    from repro_torch.analysis import dispatch, donation, smem, sync
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import PagingConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch import roofline
+    from repro_torch.launch.profile import profile_call
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    out = {}
+    # (a) the CLI, in a process of its own
+    path = ROOT / "chiprun_out" / "audit.json"
+    path.parent.mkdir(exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.audit", "--arch",
+         "deepseek-7b", "--device", "cuda", "--json", str(path)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    for line in proc.stdout.splitlines():
+        say("audit-a", line)
+    if proc.returncode:
+        raise AssertionError(f"the audit CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    rep = json.loads(path.read_text())
+    checked = {p["pass"]: p["checked"] for p in rep["passes"]}
+    reads = {e["name"]: (e["host_reads"], e["debug_syncs"])
+             for e in rep["entries"]}
+    sites = sync.site_counts((ROOT / "src" / "repro_torch" / "serve" /
+                              "engine.py").read_text())
+    fetch = {f: n for f, (n, _) in sites.items() if n}
+    say("audit-a", f"checked by pass {checked}; host reads by entry point "
+                   f"(recorder, sync debug mode) {reads}; Engine._fetch "
+                   f"sites {fetch}, the allowlist "
+                   f"{audit_cli.ENGINE_FETCH_ALLOW}")
+    if set(checked) != set(audit_cli.PASSES) or min(checked.values()) <= 0:
+        raise AssertionError(f"a pass checked nothing: {checked}")
+    if list(reads) != AUDIT_ENTRIES or any(
+            v != (0, 0) for v in reads.values()):
+        raise AssertionError(f"host reads in the entry points: {reads}")
+    if fetch != audit_cli.ENGINE_FETCH_ALLOW:
+        raise AssertionError(f"fetch sites {fetch}")
+    out["a"] = {"checked": checked, "reads": reads, "fetch_sites": fetch,
+                "entries": rep["entries"]}
+
+    # (b) the build's shared memory and registers; (d) the constants
+    lib = _build.library()
+    ptxas = smem.parse_ptxas((_build.BUILD_DIR / "ptxas.log").read_text())
+    built = smem.query_library(lib)
+    models = {m.name: m for m in smem.kernel_models()}
+    for b in built:
+        m = models.get(b.name)
+        say("audit-b", f"{b.name}: dynamic {b.dynamic} B (modeled "
+                       f"{m.dynamic if m else None}), static {b.static} B "
+                       f"(modeled {m.static if m else None}), "
+                       f"{b.static + b.dynamic} of {smem.BUDGET} B; "
+                       f"{b.registers} registers x {b.threads} threads x "
+                       f"{b.min_blocks} blocks = "
+                       f"{b.registers * b.threads * b.min_blocks} of 65536;"
+                       f" local {b.local_bytes} B")
+    res = smem.audit_build(built, ptxas)
+    consts = smem.library_constants(lib)
+    res_d = smem.check_constants(consts)
+    seeded = smem.audit_models([dataclasses.replace(
+        models["rowwise_matmul_kernel_wgmma<bf16,false>"],
+        dynamic=smem.BUDGET + 1)])
+    for d in res.diagnostics + res_d.diagnostics:
+        say("audit-b", f"{d} [{d.severity}]")
+    say("audit-b", f"{len(built)} kernels queried, "
+                   f"{sum(e.entry for e in ptxas)} in ptxas.log, "
+                   f"{len(smem.spills(ptxas))} spilling; {res.summary()}; "
+                   f"seeded over-budget kernel: "
+                   f"{[d.code for d in seeded.diagnostics]}")
+    say("audit-d", f"library constants {consts}; {res_d.summary()}")
+    if not res.ok or not res_d.ok or \
+            [d.code for d in seeded.diagnostics] != ["RWA401"]:
+        raise AssertionError("the smem pass failed on the build")
+    out["b"] = {"kernels": [dataclasses.asdict(b) for b in built],
+                "warnings": [str(d) for d in res.diagnostics]}
+    out["d"] = consts
+
+    # (c) the roofline of deepseek-7b bf16 at full width and depth
+    cfg = get_config("deepseek-7b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_lm(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    b, seq = 4, 512
+    tokens = torch.randint(0, cfg.vocab, (b, seq), generator=gen,
+                           device="cuda")
+    lengths = torch.full((b,), seq, dtype=torch.int32, device="cuda")
+
+    def prefill():
+        return lm.prefill(params, tokens, cfg, alloc=seq + 1)
+    with torch.no_grad():
+        with roofline.recording() as pre:
+            _, cache = prefill()
+        with roofline.recording() as dec:
+            lm.decode_step(params, cache, tokens[:, -1:], lengths, cfg)
+    calls = {"prefill": (pre, lambda: prefill(), b * seq),
+             "decode": (dec, lambda: lm.decode_step(
+                 params, cache, tokens[:, -1:], lengths, cfg), b)}
+    out["c"] = {}
+    for what, (recs, fn, items) in calls.items():
+        report = roofline.report(recs, arch=cfg.name,
+                                 shape=f"{what} B={b} bf16")
+        by = report.by_kernel()
+        prof = profile_call(fn, items)
+        key, launches_, want = AUDIT_BOUNDS[what]
+        got = by.get(key, {})
+        for k, e in sorted(by.items()):
+            dev_ms = prof["designs_ms"].get(k)
+            share = e["bound_ms"] / dev_ms if dev_ms else None
+            say("audit-c", f"{what} {k}: {e['launches']} launches, bound "
+                           f"{e['bound_ms']:.4f} ms ({e['bound_by']}), "
+                           f"device {dev_ms if dev_ms is None else round(dev_ms, 4)}"
+                           f" ms, share "
+                           f"{'n/a' if share is None else f'{share:.1%}'}"
+                           f" | {smi}")
+        say("audit-c", f"{what}: {key} {got.get('launches')} launches price "
+                       f"to {got.get('bound_ms', 0):.4f} ms against "
+                       f"{want} ms (PERF.md section 6), call bound "
+                       f"{report.bound_ms:.4f} ms, wall "
+                       f"{prof['wall_ms']:.3f} ms")
+        out["c"][what] = {"by_kernel": by, "bound_ms": report.bound_ms,
+                          "profile": {k: prof[k] for k in (
+                              "wall_ms", "device_busy_ms", "designs_ms",
+                              "own_kernels_ms")}}
+        if got.get("launches") != launches_ or \
+                abs(got["bound_ms"] - want) > AUDIT_BOUND_TOL * want:
+            raise AssertionError(f"the roofline prices the {what}'s {key} "
+                                 f"at {got}, want {launches_} launches and "
+                                 f"{want} ms within {AUDIT_BOUND_TOL:.1%}")
+    del cache
+
+    # (e) an engine run with the recording switch off and on
+    def serve(record):
+        eng = Engine(params, cfg, n_slots=2, max_len=96, eos_id=-1,
+                     paging=PagingConfig(page_size=16, prefill_chunk=32),
+                     device="cuda")
+        rng = np.random.default_rng(0)
+        for i, plen in enumerate((20, 45, 9)):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, plen).astype(np.int32), max_new=6))
+        before = {k: f.launches for k, f in launches().items()}
+        ctx = roofline.recording() if record else contextlib.nullcontext([])
+        with ctx as recs:
+            done = eng.run()
+        counts = {k: f.launches - before[k] for k, f in launches().items()}
+        return ({c.rid: list(c.tokens) for c in done}, counts,
+                sum(r["launched"] for r in recs))
+    off, on = serve(False), serve(True)
+    say("audit-e", f"streams off {off[0]}, on {on[0]}; launches off "
+                   f"{off[1]}, on {on[1]}; {on[2]} launch records")
+    if off[:2] != on[:2] or on[2] != sum(on[1].values()):
+        raise AssertionError("recording changed the engine's run")
+    out["e"] = {"streams": off[0], "launches": off[1], "records": on[2]}
+    # the entry points at full width: no host read (recorder and sync
+    # debug mode), every cache leaf in place, and a decode step's peak
+    # memory held under one pool leaf
+    eng = Engine(params, cfg, n_slots=2, max_len=96, eos_id=-1,
+                 paging=PagingConfig(page_size=16, prefill_chunk=32,
+                                     speculate_k=2), device="cuda")
+    runs = dispatch.run_entry_points(eng)
+    step = next(r for r in runs if r.name == "step")
+    leaf = min(x.nbytes for x in step.before if len(x.shape) == 5)
+    res = sync.audit_entry_points(runs).merge(donation.audit_runs(runs))
+    res.merge(donation.peak_check(step.peak_growth, leaf))
+    for r in runs:
+        say("audit-e", f"full width, entry {r.name}: "
+                       f"{len(r.recorder.host_reads)} host reads recorded, "
+                       f"sync debug mode {r.debug_syncs}, peak memory "
+                       f"+{r.peak_growth:,} B, largest allocation "
+                       f"{r.recorder.largest[1]:,} B ({r.recorder.largest[0]})"
+                       f"; a pool leaf {leaf:,} B")
+    for d in res.diagnostics:
+        say("audit-e", str(d))
+    if not res.ok:
+        raise AssertionError("the entry points at full width failed the "
+                             "sync or donation pass")
+    out["e"]["full_width"] = {r.name: {
+        "host_reads": len(r.recorder.host_reads),
+        "debug_syncs": r.debug_syncs, "peak_growth": r.peak_growth,
+        "largest": r.recorder.largest[1]} for r in runs}
+    out["e"]["pool_leaf_bytes"] = leaf
+    del params, eng, runs, step
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    say("audit", f"phase {out['seconds']:.1f} s | {smi}")
+    return out
+
+
 def kernel_line(rows, name, key, launches, path, dtype="fp32",
                 label=None, source=None):
     """One kernel's entry of the kernels JSON line: its ``dtype`` cases
@@ -6138,6 +6370,7 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
     def total(k):
         return sum(r[key] * r[k] for r in per)
 
+    from repro_torch.launch.roofline import PEAK_BYTES, PEAK_FLOPS
     b_ops = total("flops") / PEAK_FLOPS[dtype]
     b_bytes = total("bytes") / PEAK_BYTES
     return {"name": label or name, "route": "cuda",
@@ -6264,6 +6497,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.analysis import smem
     from repro_torch.configs import get_config
     from repro_torch.configs.swin_t import CONFIG, VIT_CONFIG
     from repro_torch.core import runtime
@@ -6289,17 +6523,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     _build.library()
-    log = (_build.BUILD_DIR / "ptxas.log").read_text()
-    spills, fn = [], None
-    for line in log.splitlines():
-        found = re.search(r"Function properties for (\S+)", line)
-        fn = found.group(1) if found else fn
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-        if found and found.groups() != ("0", "0"):
-            spills.append((fn, *found.groups()))
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
-            if "Used " in ln and " registers" in ln]
+    ptxas = smem.parse_ptxas((_build.BUILD_DIR / "ptxas.log").read_text())
+    spills = smem.spills(ptxas)
+    regs = [e.registers for e in ptxas if e.entry]
     say("build", f"{_build.LIBRARY.relative_to(ROOT)} in "
                  f"{time.perf_counter() - t0:.1f} s; {len(regs)} kernels, "
                  f"max {max(regs, default=0)} registers, "
@@ -6585,7 +6811,11 @@ def main() -> int:
                              f"the forward ran {main_counts}")
 
     clock("phase 16")
-    # 17. the int8 path, the readings in processes of their own
+    # 17. the auditor and the cost models
+    audit = audit_phase(smi)
+
+    clock("phase 17")
+    # 18. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
     import gc
     gc.collect()
@@ -6606,8 +6836,8 @@ def main() -> int:
         "prologue_threshold", "prologue_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    clock("phase 17")
-    # 18. the kernels line and the result
+    clock("phase 18")
+    # 19. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -6744,6 +6974,7 @@ def main() -> int:
                                "resume": resume, "tp": tp,
                                "tp_tables": tp_tables,
                                "mesh": mesh, "mesh_tables": mesh_tables,
+                               "audit": audit,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,

@@ -427,6 +427,7 @@ def all_gather(out, inp, group):
     """``out`` (G * n0, ...) <- every group rank's ``inp`` (n0, ...), in
     group-rank order."""
     all_gather.launches += 1
+    all_gather.bytes += _nbytes(out)
     return _collective(lambda o, i: _ALL_GATHER(
         o, i.contiguous(), group=group), out, inp, group)
 
@@ -435,6 +436,7 @@ def reduce_scatter(out, inp, group):
     """``out`` (n0, ...) <- the sum over the group of block ``rank`` of
     ``inp`` (G * n0, ...)."""
     reduce_scatter.launches += 1
+    reduce_scatter.bytes += _nbytes(out)
     return _collective(lambda o, i: _REDUCE_SCATTER(
         o, i.contiguous(), group=group), out, inp, group)
 
@@ -442,6 +444,7 @@ def reduce_scatter(out, inp, group):
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
     """``t`` reduced over the group, in place."""
     all_reduce.launches += 1
+    all_reduce.bytes += _nbytes(t)
 
     def run(o, i):
         dist.all_reduce(o, op=op, group=group)
@@ -459,6 +462,7 @@ def all_to_all(out, inp, group):
     """``out[i]`` <- block ``rank`` of group rank i's ``inp`` (both
     (G, ...))."""
     all_to_all.launches += 1
+    all_to_all.bytes += _nbytes(out)
     return _collective(lambda o, i: dist.all_to_all_single(
         o, i.contiguous(), group=group), out, inp, group)
 
@@ -469,13 +473,26 @@ COLLECTIVES = (all_gather, reduce_scatter, all_reduce, all_to_all)
 def reset_counts():
     for c in COLLECTIVES + (staged,):
         c.launches = 0
+    for c in COLLECTIVES + (tp_reduce, tp_gather):
+        c.bytes = 0
 
 
 def counts() -> dict:
     return {c.__name__: c.launches for c in COLLECTIVES + (staged,)}
 
 
-reset_counts()
+def byte_counts() -> dict:
+    """The bytes each collective wrapper delivered since
+    :func:`reset_counts`, by wrapper: the output of each call (the
+    gathered tensor, the reduced shard, the reduced buffer, the
+    exchanged blocks), the JAX package's convention for its HLO
+    collectives (``launch/roofline.py::collective_bytes``)."""
+    return {c.__name__: c.bytes for c in COLLECTIVES + (tp_reduce,
+                                                        tp_gather)}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ----------------------------------------------------------------------
@@ -728,6 +745,7 @@ def tp_reduce(y: torch.Tensor) -> torch.Tensor:
     y = y.contiguous()
     dist.all_reduce(y, group=group)
     tp_reduce.launches += 1
+    tp_reduce.bytes += _nbytes(y)
     return y
 
 
@@ -741,8 +759,11 @@ def tp_gather(y: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, y, group=group)
     tp_gather.launches += 1
-    return torch.cat(parts, dim=-1)
+    out = torch.cat(parts, dim=-1)
+    tp_gather.bytes += _nbytes(out)
+    return out
 
 
 tp_reduce.launches = 0
 tp_gather.launches = 0
+reset_counts()

@@ -287,3 +287,20 @@ class ModelConfig:
                     total += stage.repeat * p
                     active += stage.repeat * p
         return {"total": total, "active": active}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell. kind: train | prefill | decode."""
+
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        # tokens processed per step: full seq for train/prefill, 1/seq for decode
+        if self.kind == "decode":
+            return self.global_batch
+        return self.global_batch * self.seq_len

@@ -143,4 +143,38 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
+// One kernel's build, for the shared-memory audit (analysis/smem.py):
+// the launcher's dynamic shared-memory request is set on the kernel as
+// the launcher sets it, then cudaFuncGetAttributes reads the build back.
+// out: threads a block, the __launch_bounds__ minimum blocks an SM, the
+// dynamic request, static shared bytes, registers a thread, local bytes
+// a thread, the max dynamic shared bytes, the max threads a block.
+template <typename K>
+inline int query_kernel(K* kernel, int threads, int min_blocks, int dyn,
+                        long long* out) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = cudaSuccess;
+  if (dyn > 0)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  cudaFuncAttributes at{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, fn);
+  out[0] = threads;
+  out[1] = min_blocks;
+  out[2] = dyn;
+  out[3] = static_cast<long long>(at.sharedSizeBytes);
+  out[4] = at.numRegs;
+  out[5] = static_cast<long long>(at.localSizeBytes);
+  out[6] = at.maxDynamicSharedSizeBytes;
+  out[7] = at.maxThreadsPerBlock;
+  return static_cast<int>(err);
+}
+
+// A file's constants for the audit: names (comma-separated) and values.
+inline const char* query_constants(const long long* values, int n,
+                                   const char* names, long long* out) {
+  for (int i = 0; i < n; ++i) out[i] = values[i];
+  return names;
+}
+
 }  // namespace rk

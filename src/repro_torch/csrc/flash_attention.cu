@@ -694,3 +694,44 @@ extern "C" int rk_flash_attention(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+namespace {
+
+template <int HD>
+int query_attention(bool mma, long long* out) {
+  if (mma)
+    return rk::query_kernel(attention_kernel_mma<HD>, MmaTile<HD>::NT,
+                            HD <= 64 ? 4 : 2, smem_bytes<MmaTile<HD>, HD>(),
+                            out);
+  return rk::query_kernel(attention_kernel_ffma<HD>, FfmaTile<HD>::NT, 1,
+                          smem_bytes<FfmaTile<HD>, HD>(), out);
+}
+
+}  // namespace
+
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): as rk_query_wgmma. Kernels 0-3 the mma design at
+// head dims 16, 32, 64, 128, kernels 4-7 the ffma design.
+extern "C" const char* rk_query_attention(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {BQ, BK, BIAS_PITCH, MmaTile<64>::NT,
+                           FfmaTile<64>::NT, FfmaTile<64>::SCRATCH};
+    return rk::query_constants(c, 6, "BQ,BK,BIAS_PITCH,MMA_NT,FFMA_NT,"
+                                     "FFMA_SCRATCH", out);
+  }
+  static const char* names[] = {
+      "attention_kernel_mma<16>",  "attention_kernel_mma<32>",
+      "attention_kernel_mma<64>",  "attention_kernel_mma<128>",
+      "attention_kernel_ffma<16>", "attention_kernel_ffma<32>",
+      "attention_kernel_ffma<64>", "attention_kernel_ffma<128>"};
+  if (i >= 8) return nullptr;
+  const bool mma = i < 4;
+  switch (i % 4) {
+    case 0: *err = query_attention<16>(mma, out); break;
+    case 1: *err = query_attention<32>(mma, out); break;
+    case 2: *err = query_attention<64>(mma, out); break;
+    default: *err = query_attention<128>(mma, out);
+  }
+  return names[i];
+}

@@ -447,6 +447,54 @@ extern "C" int rk_layernorm(const void* x, long long ldx, const void* gamma,
                                          : launch<float>(p, rows, s));
 }
 
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): as rk_query_wgmma. The staged wide kernel's
+// request is the largest the launcher makes, STAGE_BYTES.
+extern "C" const char* rk_query_layernorm(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {MAX_THREADS, ROWS_SLOTS, ROWS_MAX_LANES,
+                           CTA_ELEMS, STAGE_BYTES};
+    return rk::query_constants(c, 5, "MAX_THREADS,ROWS_SLOTS,ROWS_MAX_LANES,"
+                                     "CTA_ELEMS,STAGE_BYTES", out);
+  }
+  constexpr int R = ROWS_MAX_LANES, C = MAX_THREADS;
+  switch (i) {
+    case 0: *err = rk::query_kernel(layernorm_kernel_rows<float, 1>, R, 1, 0, out);
+      return "layernorm_kernel_rows<fp32,1>";
+    case 1: *err = rk::query_kernel(layernorm_kernel_rows<float, 2>, R, 1, 0, out);
+      return "layernorm_kernel_rows<fp32,2>";
+    case 2: *err = rk::query_kernel(layernorm_kernel_rows<float, ROWS_SLOTS>, R, 1, 0, out);
+      return "layernorm_kernel_rows<fp32,4>";
+    case 3: *err = rk::query_kernel(layernorm_kernel_rows<bf16, 1>, R, 1, 0, out);
+      return "layernorm_kernel_rows<bf16,1>";
+    case 4: *err = rk::query_kernel(layernorm_kernel_rows<bf16, 2>, R, 1, 0, out);
+      return "layernorm_kernel_rows<bf16,2>";
+    case 5: *err = rk::query_kernel(layernorm_kernel_rows<bf16, ROWS_SLOTS>, R, 1, 0, out);
+      return "layernorm_kernel_rows<bf16,4>";
+    case 6: *err = rk::query_kernel(layernorm_kernel_cta<float, 1>, C, 1, 0, out);
+      return "layernorm_kernel_cta<fp32,1>";
+    case 7: *err = rk::query_kernel(layernorm_kernel_cta<float, 2>, C, 1, 0, out);
+      return "layernorm_kernel_cta<fp32,2>";
+    case 8: *err = rk::query_kernel(layernorm_kernel_cta<float, CTA_ELEMS / 4>, C, 1, 0, out);
+      return "layernorm_kernel_cta<fp32,4>";
+    case 9: *err = rk::query_kernel(layernorm_kernel_cta<bf16, 1>, C, 1, 0, out);
+      return "layernorm_kernel_cta<bf16,1>";
+    case 10: *err = rk::query_kernel(layernorm_kernel_cta<bf16, CTA_ELEMS / 8>, C, 1, 0, out);
+      return "layernorm_kernel_cta<bf16,2>";
+    case 11: *err = rk::query_kernel(layernorm_kernel_cta_wide<float, true>, C, 1, STAGE_BYTES, out);
+      return "layernorm_kernel_cta_wide<fp32,true>";
+    case 12: *err = rk::query_kernel(layernorm_kernel_cta_wide<float, false>, C, 1, 0, out);
+      return "layernorm_kernel_cta_wide<fp32,false>";
+    case 13: *err = rk::query_kernel(layernorm_kernel_cta_wide<bf16, true>, C, 1, STAGE_BYTES, out);
+      return "layernorm_kernel_cta_wide<bf16,true>";
+    case 14: *err = rk::query_kernel(layernorm_kernel_cta_wide<bf16, false>, C, 1, 0, out);
+      return "layernorm_kernel_cta_wide<bf16,false>";
+    default:
+      return nullptr;
+  }
+}
+
 extern "C" const char* rk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

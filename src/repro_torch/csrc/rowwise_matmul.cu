@@ -243,3 +243,25 @@ extern "C" int rk_rowwise_matmul(
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): as rk_query_wgmma.
+extern "C" const char* rk_query_ffma(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {FT, FK, FTHREADS};
+    return rk::query_constants(c, 3, "FT,FK,FTHREADS", out);
+  }
+  switch (i) {
+    case 0:
+      *err = rk::query_kernel(rowwise_matmul_kernel<false>, FTHREADS, 3, 0,
+                              out);
+      return "rowwise_matmul_kernel<false>";
+    case 1:
+      *err = rk::query_kernel(rowwise_matmul_kernel<true>, FTHREADS, 2, 0,
+                              out);
+      return "rowwise_matmul_kernel<true>";
+    default:
+      return nullptr;
+  }
+}

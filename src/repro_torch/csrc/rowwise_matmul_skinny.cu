@@ -261,3 +261,41 @@ void rk_launch_skinny(const rk::MatmulArgs& a, cudaStream_t stream) {
   else
     launch<float>(a, stream);
 }
+
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): as rk_query_wgmma.
+extern "C" const char* rk_query_skinny(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {STHREADS, SUB, NB};
+    return rk::query_constants(c, 3, "STHREADS,SUB,NB", out);
+  }
+  switch (i) {
+    case 0:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<float, 4>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<fp32,4>";
+    case 1:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<float, 16>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<fp32,16>";
+    case 2:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<__nv_bfloat16, 4>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<bf16,4>";
+    case 3:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<__nv_bfloat16, 16>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<bf16,16>";
+    case 4:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<int8_t, 4>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<int8,4>";
+    case 5:
+      *err = rk::query_kernel(rowwise_matmul_kernel_skinny<int8_t, 16>,
+                              STHREADS, 1, 0, out);
+      return "rowwise_matmul_kernel_skinny<int8,16>";
+    default:
+      return nullptr;
+  }
+}

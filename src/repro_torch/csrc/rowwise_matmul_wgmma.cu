@@ -52,6 +52,10 @@ constexpr int STAGE_BYTES = 2 * A_BYTES;   // A, then B (and Bg, gated)
 constexpr int WTHREADS = 384;
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 +
                            TM * static_cast<int>(sizeof(rk::RowStats));
+// tile columns: two weights' tiles share a stage when gated
+__host__ __device__ constexpr int bn_of(bool gated) {
+  return gated ? 64 : 128;
+}
 
 // How the producer fills a stage.
 struct Loads {
@@ -374,7 +378,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                                 const rk::MatmulArgs a, const Loads ld) {
   constexpr bool INT8 = sizeof(T) == 1;
   constexpr bool KMAJOR = INT8;
-  constexpr int BN = GATED ? 64 : 128;
+  constexpr int BN = bn_of(GATED);
   constexpr int KE = KB / sizeof(T);   // K elements per stage
   constexpr int B_BYTES = BN * KB;     // one weight's tile
   using Acc = typename std::conditional<INT8, int, float>::type;
@@ -655,7 +659,7 @@ int launch(const rk::MatmulArgs& a, const Loads& ld, const CUtensorMap& ma,
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bn = GATED ? 64 : 128;
+  const int bn = bn_of(GATED);
   const dim3 grid((a.n + bn - 1) / bn, (a.m + TM - 1) / TM);
   kernel<<<grid, WTHREADS, SMEM_BYTES, stream>>>(ma, mb, mbg, a, ld);
   return 0;
@@ -678,4 +682,39 @@ int rk_launch_wgmma(const rk::MatmulArgs& a, cudaStream_t stream) {
              (!a.wg || encode(&mbg, a.wg, bf, 2, a.n, a.k, a.ldwg, 64, 64));
   return a.wg ? launch<__nv_bfloat16, true>(a, ld, ma, mb, mbg, stream)
               : launch<__nv_bfloat16, false>(a, ld, ma, mb, mbg, stream);
+}
+
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): kernel i's name (nullptr past the last) and its
+// build in out[0..7] (rk::query_kernel), the CUDA error in *err; i = -1
+// gives the tile constants' names and their values in out.
+extern "C" const char* rk_query_wgmma(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {TM, KB, STAGES, bn_of(false), bn_of(true),
+                           WTHREADS, SMEM_BYTES};
+    return rk::query_constants(c, 7,
+                               "TM,KB,STAGES,BN,BN_GATED,WTHREADS,"
+                               "SMEM_BYTES", out);
+  }
+  switch (i) {
+    case 0:
+      *err = rk::query_kernel(rowwise_matmul_kernel_wgmma<__nv_bfloat16, false>,
+                              WTHREADS, 1, SMEM_BYTES, out);
+      return "rowwise_matmul_kernel_wgmma<bf16,false>";
+    case 1:
+      *err = rk::query_kernel(rowwise_matmul_kernel_wgmma<__nv_bfloat16, true>,
+                              WTHREADS, 1, SMEM_BYTES, out);
+      return "rowwise_matmul_kernel_wgmma<bf16,true>";
+    case 2:
+      *err = rk::query_kernel(rowwise_matmul_kernel_wgmma<int8_t, false>,
+                              WTHREADS, 1, SMEM_BYTES, out);
+      return "rowwise_matmul_kernel_wgmma<int8,false>";
+    case 3:
+      *err = rk::query_kernel(rowwise_matmul_kernel_wgmma<int8_t, true>,
+                              WTHREADS, 1, SMEM_BYTES, out);
+      return "rowwise_matmul_kernel_wgmma<int8,true>";
+    default:
+      return nullptr;
+  }
 }

@@ -572,3 +572,47 @@ extern "C" int rk_wkv(const void* r, const void* k, const void* v,
   if (dtype == rk::BF16) return launch_p<__nv_bfloat16>(a, p, design, st);
   return launch_p<float>(a, p, design, st);
 }
+
+namespace {
+
+template <typename T, int P>
+int query_wkv(bool chunk, long long* out) {
+  if (chunk)
+    return rk::query_kernel(wkv_kernel_chunk<T, P>, THREADS,
+                            sizeof(T) == 4 && P == 64 ? 6 : 4,
+                            static_cast<int>(sizeof(ChunkSmem<T, P>)), out);
+  return rk::query_kernel(wkv_kernel_step<T, P>, 4 * P, 1, 0, out);
+}
+
+}  // namespace
+
+// The kernels and constants of this file, for the shared-memory audit
+// (analysis/smem.py): as rk_query_wgmma. Kernels 0-5 the chunk design
+// (fp32 then bf16, P = 16, 32, 64), 6-11 the step design.
+extern "C" const char* rk_query_wkv(int i, long long* out, int* err) {
+  *err = 0;
+  if (i < 0) {
+    const long long c[] = {L, W, THREADS};
+    return rk::query_constants(c, 3, "L,W,THREADS", out);
+  }
+  static const char* names[] = {
+      "wkv_kernel_chunk<fp32,16>", "wkv_kernel_chunk<fp32,32>",
+      "wkv_kernel_chunk<fp32,64>", "wkv_kernel_chunk<bf16,16>",
+      "wkv_kernel_chunk<bf16,32>", "wkv_kernel_chunk<bf16,64>",
+      "wkv_kernel_step<fp32,16>",  "wkv_kernel_step<fp32,32>",
+      "wkv_kernel_step<fp32,64>",  "wkv_kernel_step<bf16,16>",
+      "wkv_kernel_step<bf16,32>",  "wkv_kernel_step<bf16,64>"};
+  if (i >= 12) return nullptr;
+  const bool chunk = i < 6, f32 = i % 6 < 3;
+  const int p = 16 << (i % 3);
+  if (f32) {
+    *err = p == 16 ? query_wkv<float, 16>(chunk, out)
+         : p == 32 ? query_wkv<float, 32>(chunk, out)
+                   : query_wkv<float, 64>(chunk, out);
+  } else {
+    *err = p == 16 ? query_wkv<__nv_bfloat16, 16>(chunk, out)
+         : p == 32 ? query_wkv<__nv_bfloat16, 32>(chunk, out)
+                   : query_wkv<__nv_bfloat16, 64>(chunk, out);
+  }
+  return names[i];
+}

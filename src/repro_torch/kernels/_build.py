@@ -18,6 +18,7 @@ library is written under the checkout's ``build/``. A wheel ships no
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,6 +38,38 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The launch records (``launch/roofline.py``): None while recording is
+# off; inside :func:`recording`, a list to which each wrapper appends one
+# record a launch (:func:`note`), beside its ``launches`` count.
+records = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every kernel launch in the block: yields the list of
+    records, each ``{"kernel", "design", "tensors": {name: (shape,
+    dtype)}, **options}``."""
+    global records
+    prev, records = records, []
+    try:
+        yield records
+    finally:
+        records = prev
+
+
+def note(kernel: str, design: str, tensors: dict, launched: bool = True,
+         **options) -> None:
+    """One launch's record, when recording is on: the shape and dtype of
+    each tensor operand (the output included) and the scalar options.
+    A wrapper given CPU tensors notes its plain call with ``launched``
+    False and the design the card would take."""
+    if records is not None:
+        records.append({
+            "kernel": kernel, "design": design, "launched": launched,
+            "tensors": {name: (tuple(t.shape), t.dtype)
+                        for name, t in tensors.items() if t is not None},
+            **options})
 
 
 def nvcc() -> str:

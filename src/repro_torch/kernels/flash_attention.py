@@ -66,8 +66,14 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"for q {tuple(q.shape)}, k {tuple(k.shape)}")
     scale = hd ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale, q_offset=q_offset, bias=bias)
+        out = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                scale=scale, q_offset=q_offset, bias=bias)
+        if _build.records is not None and q.dtype in DESIGNS:
+            _build.note("flash_attention", DESIGNS[q.dtype],
+                        dict(q=q, k=k, v=v, bias=bias, out=out),
+                        launched=False, causal=bool(causal),
+                        window=int(window), q_offset=int(q_offset))
+        return out
 
     dev = _build.check_cuda("flash_attention_p", q, k, v, bias)
     dt = _build.dtype_code("flash_attention_p", q.dtype)
@@ -103,6 +109,11 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mode = mode_of(causal, window, sq, skv)
         flash_attention_p.modes[mode] = flash_attention_p.modes.get(mode,
                                                                     0) + 1
+        if _build.records is not None:
+            _build.note("flash_attention", pick_design(q.dtype),
+                        dict(q=q, k=k, v=v, bias=bias, out=out),
+                        causal=bool(causal), window=int(window),
+                        q_offset=int(q_offset))
     return out
 
 

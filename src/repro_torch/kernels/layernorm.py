@@ -87,7 +87,13 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
     if flags is None:
         raise ValueError(f"kind must be 'layer' or 'rms', not {kind!r}")
     if x.is_cpu:
-        return rownorm(x, gamma, beta, kind=kind, eps=eps).to(x.dtype)
+        out = rownorm(x, gamma, beta, kind=kind, eps=eps).to(x.dtype)
+        if _build.records is not None and x.dim() == 2 and x.dtype in (
+                torch.float32, torch.bfloat16):
+            _build.note("layernorm", pick_design(*x.shape, x.dtype),
+                        dict(x=x, gamma=gamma, beta=beta, out=out),
+                        launched=False)
+        return out
     # shape, dtype and gradient first, so that they hold on any device
     shape, sx = x.shape, x.stride()
     if len(shape) != 2 or sx[1] != 1 or gamma.shape != shape[1:] or (
@@ -126,7 +132,8 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
         if beta.dtype is torch.float32:
             flags |= _F_BETA_F32
         bptr = beta.data_ptr()
-    if pick_design(m, d, x.dtype) == "rows":
+    design = pick_design(m, d, x.dtype)
+    if design == "rows":
         flags |= _F_ROWS
     out = torch.empty_like(x) if sx[0] == d else x.new_empty((m, d))
     if m:
@@ -136,6 +143,9 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
         if err:
             _build.check(err, "layernorm_p")
         layernorm_p.launches += 1
+        if _build.records is not None:
+            _build.note("layernorm", design,
+                        dict(x=x, gamma=gamma, beta=beta, out=out))
     return out
 
 

@@ -136,22 +136,29 @@ def _vector(name, t, size):
     return t, (_VEC_BITS[name] if t.dtype == torch.float32 else 0)
 
 
+def skinny_splits(n: int, k: int, gated: bool, sms: int) -> tuple:
+    """(splits, kc) of the skinny design: about one wave of blocks (two
+    per SM of ``sms``), each split at least _SKINNY_MIN_ROWS rows, kc a
+    multiple of the 64 rows a block has in flight."""
+    tiles = _cdiv(n, _SKINNY_COLS)
+    z = 2 if gated else 1
+    want = _cdiv(_SKINNY_BLOCKS_PER_SM * sms, tiles * z)
+    splits = max(1, min(want, _cdiv(k, _SKINNY_MIN_ROWS)))
+    kc = _cdiv(_cdiv(k, splits), 64) * 64
+    return _cdiv(k, kc), kc
+
+
 def _skinny_plan(dev, m, n, k, gated):
-    """K splits for the skinny design: about one wave of blocks (two per
-    SM), each split at least _SKINNY_MIN_ROWS rows; the workspace for
-    their partial sums (4-byte fp32 or int32) and the column tiles'
-    counters (zeroed once: the kernel leaves them zeroed). Both are kept
-    per device and grown as needed, as calls on one stream run in
-    order."""
+    """K splits for the skinny design (:func:`skinny_splits`); the
+    workspace for their partial sums (4-byte fp32 or int32) and the
+    column tiles' counters (zeroed once: the kernel leaves them zeroed).
+    Both are kept per device and grown as needed, as calls on one stream
+    run in order."""
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = _cdiv(n, _SKINNY_COLS)
     z = 2 if gated else 1
-    want = _cdiv(_SKINNY_BLOCKS_PER_SM * _sms[dev], tiles * z)
-    splits = max(1, min(want, _cdiv(k, _SKINNY_MIN_ROWS)))
-    # kc a multiple of the 64 rows a block has in flight
-    kc = _cdiv(_cdiv(k, splits), 64) * 64
-    splits = _cdiv(k, kc)
+    splits, kc = skinny_splits(n, k, gated, _sms[dev])
     counters = _counters.get(dev)
     if counters is None or counters.numel() < tiles:
         counters = _counters[dev] = torch.zeros(max(tiles, 4096),
@@ -202,11 +209,19 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                          "and gamma")
     out_dtype = out_dtype or (torch.float32 if int8 else x.dtype)
     if x.device.type == "cpu":
-        return ref.pipeline_ref(
+        out = ref.pipeline_ref(
             x, w, bias=bias, activation=activation, w_gate=w_gate,
             bias_gate=bias_gate, residual=residual, norm_kind=prologue,
             gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
             x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
+        if _build.records is not None and x.dtype in _DT:
+            _build.note("rowwise_matmul", pick_design(x.shape[0], x.dtype),
+                        dict(x=x, w=w, w_gate=w_gate, bias=bias,
+                             bias_gate=bias_gate, residual=residual,
+                             gamma=gamma, pbeta=pbeta, x_scale=x_scale,
+                             w_scale=w_scale, wg_scale=wg_scale, out=out),
+                        launched=False, prologue=prologue, splits=0)
+        return out
 
     dev = _build.check_cuda("rowwise_matmul_p", x, w, w_gate, bias,
                             bias_gate, residual, gamma, pbeta, x_scale,
@@ -265,6 +280,12 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
         _build.stream(dev))
     _build.check(err, "rowwise_matmul_p")
     rowwise_matmul_p.launches += 1
+    if _build.records is not None:
+        _build.note("rowwise_matmul", design, dict(
+            x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
+            residual=residual, gamma=gamma, pbeta=pbeta, x_scale=x_scale,
+            w_scale=w_scale, wg_scale=wg_scale, out=out),
+            prologue=prologue, splits=splits)
     return out
 
 

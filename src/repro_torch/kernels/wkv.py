@@ -58,7 +58,12 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         f = [t.to(torch.float32) for t in (r, k, v, lw, u)]
         y, s_fin = wkv_chunked(*f, chunk=chunk, s0=None if s0 is None
                                else s0.to(torch.float32))
-        return y.to(r.dtype), s_fin
+        y = y.to(r.dtype)
+        if _build.records is not None:
+            _build.note("wkv", pick_design(r.shape[1]),
+                        dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0, y=y,
+                             s_fin=s_fin), launched=False)
+        return y, s_fin
     dev = _build.check_cuda("wkv_p", r, k, v, lw, u, s0)
     if chunk != CHUNK:
         raise ValueError(f"wkv_p: the kernel runs {CHUNK}-token chunks, "
@@ -104,6 +109,9 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides, b, s, h, p, dt, DESIGNS[design], _build.stream(dev))
     _build.check(err, "wkv_p")
     wkv_p.launches += 1
+    if _build.records is not None:
+        _build.note("wkv", design, dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0,
+                                        y=y, s_fin=s_fin))
     return y, s_fin
 
 

@@ -611,17 +611,65 @@ class Engine:
         """Distinct shapes of the serving entry points — the host-side
         proxy the JAX engine falls back to (distinct padded prefill
         lengths / chunk panel shapes / decode table widths / verify
-        panel widths, one compiled program each there). Bounded by
-        ``n_buckets + n_chunk_shapes + 1`` plus ``len(spec_ladder(K))``.
-        The ``spec`` entry appears only when speculation is configured.
-        (``audit_entry_points``, which feeds the JAX package's static
-        auditor, is not ported: ROADMAP.md queue 1 item 10.)"""
+        panel widths, one compiled program each there; here, what CUDA
+        graph captures would be keyed on). Bounded by ``n_buckets +
+        n_chunk_shapes + 1`` plus ``len(spec_ladder(K))``. The ``spec``
+        entry appears only when speculation is configured. The auditor
+        (``repro_torch.analysis.compile_bound``) holds these against the
+        static enumeration and the shapes the step programs really took."""
         counts = {"prefill": len(self._prefill_lens),
                   "chunk": len(self._chunk_shapes),
                   "step": len(self._step_widths)}
         if self.spec_k:
             counts["spec"] = len(self._spec_shapes)
         return counts
+
+    def audit_entry_points(self):
+        """The step programs with arguments shaped as the run loop passes
+        them, for the auditor (``repro_torch.analysis``). Each entry is
+        ``(name, fn, args, host)``: ``host`` the positions of the
+        operands the program takes on the host by design (Python numbers
+        and numpy block-table rows, from which the paged writes build
+        their targets with no device read); every other operand is a
+        tensor on the engine's device.
+
+        The JAX package's auditor lowers these without running them; the
+        port's auditor RUNS them, and they write the pools in place:
+        every slot idle, the prefill and chunk aimed at slot 0's table
+        row (its scratch page on a fresh engine). Audit an engine before
+        it serves, and restore its step state after
+        (:meth:`audit_state` / :meth:`restore_audit_state`)."""
+        off = self._put(np.zeros((self.n_slots,), bool))
+        row = self.pool.tables[0].copy()
+        temp = float(self.temperature)
+        entries = [("step", self._step, (off, off), ())]
+        bl = self.buckets[0] if self.buckets else min(8, self.max_len)
+        entries.append(
+            ("prefill", self._admit,
+             (self._put(np.zeros((1, bl), np.int64)), 0, row, bl, temp),
+             (1, 2, 3, 4)))
+        if self.prefill_chunk:
+            c = self.prefill_chunk
+            entries.append(
+                ("chunk", self._chunk,
+                 (self._put(np.zeros((1, c), np.int64)), 0, c, 0, row, temp,
+                  0, 0), (1, 2, 3, 4, 5, 6, 7)))
+        if self.spec_k:
+            w = 1 + self.spec_ladder[0]
+            entries.append(
+                ("spec", self._spec,
+                 (self._put(np.zeros((self.n_slots, w), np.int64)), off, off,
+                  self._put(np.zeros((self.n_slots,), np.int64))), ()))
+        return entries
+
+    def audit_state(self):
+        """The step state the entry points change: lengths, the last
+        tokens, the temperatures."""
+        return tuple(t.clone() for t in (self.lengths, self._last,
+                                         self._temps))
+
+    def restore_audit_state(self, state):
+        self.lengths, self._last, self._temps = state
 
     def _req_temp(self, req: Request) -> float:
         return self.temperature if req.temperature is None else \

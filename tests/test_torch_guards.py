@@ -51,7 +51,13 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.models.mamba2, repro_torch.models.moe, "
         "repro_torch.configs.zamba2, repro_torch.configs.qwen2_moe, "
         "repro_torch.configs.phi35_moe, repro_torch.serve.placement, "
-        "repro_torch.core.partitioning\n"
+        "repro_torch.core.partitioning, repro_torch.analysis, "
+        "repro_torch.analysis.audit, repro_torch.analysis.smem, "
+        "repro_torch.analysis.sync, repro_torch.analysis.donation, "
+        "repro_torch.analysis.compile_bound, repro_torch.analysis.rules, "
+        "repro_torch.analysis.dispatch, repro_torch.core.rowwise, "
+        "repro_torch.core.asic_model, repro_torch.launch.roofline, "
+        "repro_torch.launch.specs, repro_torch.configs.shapes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -76,6 +82,27 @@ def test_no_jax_or_repro_imports(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_source_scan_covers_the_analysis_package():
+    scanned = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")}
+    assert "analysis" in scanned
+    assert {p.name for p in (PORT / "analysis").glob("*.py")} >= {
+        "audit.py", "sync.py", "donation.py", "compile_bound.py",
+        "smem.py", "rules.py", "dispatch.py", "report.py"}
+
+
+def test_audit_and_roofline_refuse_to_fall_back_to_cpu():
+    """The audit CLI and the roofline run on the card unless given
+    ``--device cpu``: with no card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from repro_torch.analysis import audit
+    from repro_torch.launch import roofline
+    with pytest.raises(RuntimeError, match="CUDA"):
+        audit.main(["--passes", "rules"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.main(["--smoke"])
 
 
 def test_build_module_imports_without_nvcc():
