@@ -239,10 +239,23 @@ Phases, each printing its lines:
    with the recording switch off and on (the same streams and launches),
    and the engine's entry points at full width (no host read, every
    cache leaf in place, a decode step's peak memory under a pool leaf);
-18. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
+18. the tooling (``tooling_phase``): (a) the op walk
+   (``launch/op_cost.py``) of one deepseek-7b bf16 prefill (B=4 x 512)
+   and one qwen2-moe-a2.7b bf16 prefill (B=4 x 256) on the card, each
+   beside the profiler: the whole call's bound (kernels and glue) beside
+   its busy ms, the glue's bound beside the "other" device ms, the
+   walk's FLOPs equal to the same call's dry walk on ``meta`` tensors,
+   and the 120 wgmma launches' bound PERF.md's 25.1444 ms within 0.5%;
+   (b) the dry-run CLI (``launch/dryrun.py``, on the CPU: a fake world)
+   for deepseek-7b train_4k on the multipod mesh and gemma3-27b
+   decode_32k on the pod mesh, exit 0 and every key in each JSON, and
+   the dry run's ``HBM_BYTES`` the card's memory within 1%; (c)
+   ``examples/torch_quickstart.py`` and ``torch_vit_rowwise.py`` with
+   ``--device cuda``;
+19. the int8 path: ``ops.matmul_int8`` at every Swin-T matmul shape
    (B=8), as often as a fused forward runs each (53 launches, counted),
    and its device time by matmul design (profiler);
-19. the matmul, attention and WKV per design and dtype, summed over a
+20. the matmul, attention and WKV per design and dtype, summed over a
    Swin-T forward (B=8 and, for attention, B=64), a ViT-B/16 forward,
    each LM's prefill and decode step
    (``design-table`` lines); one JSON
@@ -266,7 +279,8 @@ Phases, each printing its lines:
    qwen2-moe-a2.7b and of qwen2-vl-2b, and over a qwen2-vl-2b train
    step, and over one tensor-parallel rank's deepseek-7b prefill at
    t = 2, and over one rank's train step on the training mesh at
-   data=2 (``mesh-table`` lines).
+   data=2 (``mesh-table`` lines), and over the bf16 prefills the tooling
+   phase walks (their launches counted in the walk).
 
 Phase 3 also holds every RWKV6-3B kernel call (M=2048 prefill and M=4
 decode matmuls and norms, the WKV recurrence at B=4 x 512, B=1 x 333
@@ -1538,8 +1552,11 @@ PROLOGUE_DESIGNS = (("skinny", "fp32", (16, 16), 0),
                     ("skinny", "bf16", (4, 4), 0),
                     ("ffma", "fp32", (2048, 4096), 8),
                     ("wgmma", "bf16", (2048, 4096), 8))
-PROLOGUE_KS = (64, 96, 128, 192, 256, 320, 384, 512, 768, 1024, 2048, 4096,
-               5376, 8192)
+# the K of every Swin-T stage and ViT-B/16, the skinny boundary and the
+# point above it, and the LM widths (deepseek-7b 4096, gemma3-27b 5376);
+# 128, 256, 320 and 512 were cut for the script's time (PERF.md keeps
+# their last readings)
+PROLOGUE_KS = (64, 96, 192, 384, 768, 1024, 2048, 4096, 5376, 8192)
 
 
 def _prologue_panels(k, m_lm, batch):
@@ -1618,7 +1635,9 @@ def prologue_threshold_readings(device):
                     raise AssertionError(f"prologue threshold {design} "
                                          f"{name} K={k} {width}: split "
                                          f"against fused max abs err {err}")
-                calls = 5 if design != "skinny" else 10
+                # a call of the M = 2048 / 4096 panels takes up to 0.1 s:
+                # 3 a profile, for the script's time
+                calls = 3 if design != "skinny" else 10
                 f_us = kernel_us(fused, "rowwise_matmul_kernel", calls)
                 s_us = (kernel_us(split, "rowwise_matmul_kernel", calls)
                         + kernel_us(lambda: layernorm_p(x, g, kind="rms"),
@@ -6149,6 +6168,12 @@ def mesh_phase(smi):
 AUDIT_BOUNDS = {"prefill": ("rowwise_matmul wgmma", 120, 25.14),
                 "decode": ("rowwise_matmul skinny", 121, 3.88)}
 AUDIT_BOUND_TOL = 0.005
+# the 120 wgmma launches of a deepseek-7b bf16 prefill (B=4 x 512), as
+# the audit phase prices them (PERF.md section 6)
+TOOLING_WGMMA_MS = 25.1444
+# seconds a process of the tooling phase (a dry-run cell, an example)
+# may take
+TOOLING_CLI_S = 300
 AUDIT_ENTRIES = ["step", "prefill", "chunk", "spec"]
 
 
@@ -6355,6 +6380,198 @@ def audit_phase(smi):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     say("audit", f"phase {out['seconds']:.1f} s | {smi}")
+    return out
+
+
+# the tooling phase's calls: (arch, batch, seq) of each bf16 prefill the
+# op walk prices on the card, its cases' key in phase 3, its launches
+TOOLING_CALLS = (("deepseek-7b", 4, 512, "dprefill", "deepseek-7b prefill"),
+                 ("qwen2-moe-a2.7b", 4, 256, "qprefill",
+                  "qwen2-moe-a2.7b prefill"))
+# the dry-run cells the phase runs through the CLI, and what each JSON
+# holds
+TOOLING_CELLS = (("deepseek-7b", "train_4k", "multipod"),
+                 ("gemma3-27b", "decode_32k", "pod"))
+DRYRUN_KEYS = ("flops_per_device", "bytes_per_device",
+               "coll_bytes_per_device", "model_flops", "compute_t",
+               "memory_t", "memory_t_fused", "collective_t", "bound",
+               "step_time", "step_time_unfused", "mfu", "mfu_unfused",
+               "useful_flops_ratio", "memory_analysis",
+               "live_bytes_per_device", "fits_hbm_80g",
+               "launches_by_kernel", "collectives", "params_total",
+               "params_active", "rules", "seconds", "schedule",
+               "call_bound_ms")
+
+
+def tooling_phase(smi):
+    """The dry run and the op-level cost walk on the card: (a) each
+    ``TOOLING_CALLS`` prefill walked by ``launch/op_cost.py`` with its
+    kernels launched (counts reset just before, read just after), its
+    dry walk on ``meta`` (the same FLOPs, exactly), its roofline
+    (``roofline.analyze``: kernels and glue) beside the profiler's busy
+    and "other" device ms; (b) the dry-run CLI's ``TOOLING_CELLS``; (c)
+    two of the port's examples on the card. The examples and the CLI run
+    in processes of their own; the CLI's cells run on the CPU (a fake
+    world on meta tensors) beside (a)."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_cost, roofline
+    from repro_torch.launch.profile import profile_call
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # (b) started first: it needs no card
+    cli = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
+         str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT, env=env)) for cell in TOOLING_CELLS]
+    out = {"a": {}}
+    try:
+        # (a) the op walk on the card beside the profiler
+        for arch, b, seq, key, literal in TOOLING_CALLS:
+            cfg = get_config(arch)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = lm.init_lm(cfg, gen, device="cuda",
+                                dtype=torch.bfloat16)
+            tokens = torch.randint(0, cfg.vocab, (b, seq), generator=gen,
+                                   device="cuda")
+
+            def prefill():
+                return lm.prefill(params, tokens, cfg, alloc=seq + 1)
+            with torch.no_grad():
+                prefill()                           # the first launches
+                (res, cost), counts = counted(lambda: op_cost.walk(prefill))
+                del res
+            mparams = lm.init_lm(cfg, None, device="meta",
+                                 dtype=torch.bfloat16)
+            with torch.no_grad():
+                _, dry = op_cost.walk(
+                    lm.prefill, mparams, tokens.to("meta"), cfg,
+                    alloc=seq + 1)
+            rep = roofline.analyze(cost, arch=arch, shape=f"prefill B={b} "
+                                   f"x {seq} bf16", dtype=torch.bfloat16)
+            prof = profile_call(prefill, b * seq)
+            by = rep.by_kernel()
+            launched = sum(r["launched"] for r in cost.records)
+            busy, other = prof["device_busy_ms"], prof["other_device_ms"]
+            rec = {
+                "counts": counts, "launched_records": launched,
+                "flops": cost.flops, "dry_flops": dry.flops,
+                "kernel_bound_ms": rep.bound_ms, "glue_bound_ms": cost.glue_ms,
+                "call_bound_ms": rep.call_bound_ms,
+                "busy_ms": busy, "other_ms": other,
+                "wall_ms": prof["wall_ms"], "glue_ops": cost.glue_ops,
+                "glue_bytes": cost.glue_bytes,
+                "dry_glue_bound_ms": dry.glue_ms,
+                "by_kernel": by, "roofline": rep.to_dict(),
+                "top_glue": sorted(
+                    ([op, v[0], v[1], v[2]] for op, v in cost.by_op.items()
+                     if op.startswith("aten.")), key=lambda r: -r[1])[:8]}
+            out["a"][arch] = rec
+            say("tooling-a", f"{arch} bf16 prefill B={b} x {seq}: bound of "
+                             f"the whole call {rep.call_bound_ms:.4f} ms "
+                             f"(kernels {rep.bound_ms:.4f}, glue "
+                             f"{cost.glue_ms:.4f} over {cost.glue_ops} ops)"
+                             f" beside {busy:.3f} busy ms (share "
+                             f"{rep.call_bound_ms / busy:.1%}); the glue's "
+                             f"bound {cost.glue_ms:.4f} ms beside "
+                             f"{other:.3f} other device ms (share "
+                             f"{cost.glue_ms / other:.1%}); FLOPs card "
+                             f"{cost.flops:.6g}, dry walk on meta "
+                             f"{dry.flops:.6g}; launches {counts}; wall "
+                             f"{prof['wall_ms']:.3f} ms | {smi}")
+            for k, e in sorted(by.items()):
+                say("tooling-a", f"{arch} {k}: {e['launches']} launches, "
+                                 f"bound {e['bound_ms']:.4f} ms "
+                                 f"({e['bound_by']}), device "
+                                 f"{prof['designs_ms'].get(k, 0):.4f} ms")
+            for op, nbytes, fl, n in rec["top_glue"]:
+                say("tooling-a", f"{arch} glue {op}: {n} calls, "
+                                 f"{nbytes / 1e9:.4f} GB, {fl:.4g} FLOPs")
+            want = dict(zip(REPLACES, LAUNCHES[literal]))
+            if counts != want or launched != sum(counts.values()) or \
+                    len(cost.records) != launched:
+                raise AssertionError(f"tooling-a {arch}: launches {counts} "
+                                     f"({launched} launched records of "
+                                     f"{len(cost.records)}), want {want}")
+            if cost.flops != dry.flops:
+                raise AssertionError(f"tooling-a {arch}: the card walk's "
+                                     f"FLOPs {cost.flops} differ from the "
+                                     f"dry walk's {dry.flops}")
+            if arch == "deepseek-7b":
+                key_, n_, ms_ = AUDIT_BOUNDS["prefill"]
+                got = by.get(key_, {})
+                if got.get("launches") != n_ or abs(
+                        got["bound_ms"] - TOOLING_WGMMA_MS) > \
+                        AUDIT_BOUND_TOL * TOOLING_WGMMA_MS:
+                    raise AssertionError(f"tooling-a: {key_} priced {got}, "
+                                         f"want {n_} launches at "
+                                         f"{TOOLING_WGMMA_MS} ms")
+            del params, mparams, tokens, cost, dry
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        logs = {}
+        for cell, proc in cli:
+            try:
+                logs[cell] = proc.communicate(timeout=TOOLING_CLI_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                logs[cell] = proc.communicate()
+    # (b) the dry-run cells, and the card's memory their fits_hbm_80g
+    # takes
+    from repro_torch.launch import dryrun
+    total = torch.cuda.get_device_properties(0).total_memory
+    say("tooling-b", f"the card's memory {total} bytes (total_memory), "
+                     f"the dry run's HBM_BYTES {dryrun.HBM_BYTES} | {smi}")
+    if abs(total - dryrun.HBM_BYTES) > 0.01 * total:
+        raise AssertionError(f"the dry run's HBM_BYTES {dryrun.HBM_BYTES} "
+                             f"is not the card's {total} within 1%")
+    out["b"] = {"card_memory_bytes": total}
+    for cell, proc in cli:
+        stdout, stderr = logs[cell]
+        for line in stdout.splitlines():
+            say("tooling-b", line)
+        if proc.returncode:
+            raise AssertionError(f"the dry-run CLI on {cell} exited "
+                                 f"{proc.returncode}: {stderr[-3000:]}")
+        rec = json.loads((out_dir / "__".join(cell)).with_suffix(
+            ".json").read_text())
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        if missing or not rec.get("ok"):
+            raise AssertionError(f"the dry run's {cell} JSON lacks "
+                                 f"{missing} or is not ok")
+        out["b"]["__".join(cell)] = {
+            k: rec[k] for k in ("seconds", "call_bound_ms", "bound",
+                                "live_bytes_per_device", "fits_hbm_80g",
+                                "collectives", "memory_analysis")}
+    # (c) the examples on the card, both at once
+    out["c"] = {}
+    examples = [(name, subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), "--device",
+         "cuda"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=env)) for name in ("torch_quickstart",
+                                         "torch_vit_rowwise")]
+    for name, proc in examples:
+        try:
+            stdout, stderr = proc.communicate(timeout=TOOLING_CLI_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        for line in stdout.splitlines():
+            say("tooling-c", f"{name}: {line}")
+        if proc.returncode:
+            raise AssertionError(f"examples/{name}.py exited "
+                                 f"{proc.returncode}: {stderr[-3000:]}")
+        out["c"][name] = stdout.splitlines()
+    out["seconds"] = time.perf_counter() - t0
+    say("tooling", f"phase {out['seconds']:.1f} s | {smi}")
     return out
 
 
@@ -6815,7 +7032,11 @@ def main() -> int:
     audit = audit_phase(smi)
 
     clock("phase 17")
-    # 18. the int8 path, the readings in processes of their own
+    # 18. the tooling: the op walk on the card, the dry-run CLI, examples
+    tooling = tooling_phase(smi)
+
+    clock("phase 18")
+    # 19. the int8 path, the readings in processes of their own
     i8_counts, i8_device_ms = int8_path(i8_cases)
     import gc
     gc.collect()
@@ -6836,8 +7057,8 @@ def main() -> int:
         "prologue_threshold", "prologue_threshold_readings('cuda')")
     designs = design_tables(rows)
 
-    clock("phase 18")
-    # 19. the kernels line and the result
+    clock("phase 19")
+    # 20. the kernels line and the result
     swin = "one fused Swin-T forward, B=8, fp32"
     kernels = [kernel_line(rows, name, "fused", main_counts[name], swin)
                for name in ("rowwise_matmul", "flash_attention")]
@@ -6948,6 +7169,15 @@ def main() -> int:
             "of 28 layers), B=2 x 512 a rank, fp32, remat (the FFMA matmul "
             "at M = 1024, attention at B=2)",
             label=f"{name} training mesh data=2"))
+    # the tooling phase: every kernel over each bf16 prefill the op walk
+    # priced on the card, its launches counted in the walk
+    for arch, b, seq, key, _ in TOOLING_CALLS:
+        for name in ("rowwise_matmul", "flash_attention", "layernorm"):
+            kernels.append(kernel_line(
+                rows, name, key, tooling["a"][arch]["counts"][name],
+                f"one {arch} prefill, B={b} x {seq}, bf16, under the op "
+                "walk (launch/op_cost.py)", dtype="bf16",
+                label=f"{name} op walk {arch}"))
     kernels.append(kernel_line(
         rows, "rowwise_matmul", "fused", i8_counts["rowwise_matmul"],
         "ops.matmul_int8 at every Swin-T matmul shape, B=8", dtype="int8",
@@ -6974,7 +7204,7 @@ def main() -> int:
                                "resume": resume, "tp": tp,
                                "tp_tables": tp_tables,
                                "mesh": mesh, "mesh_tables": mesh_tables,
-                               "audit": audit,
+                               "audit": audit, "tooling": tooling,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
                                "design_tables": designs,
@@ -6997,7 +7227,8 @@ def main() -> int:
                 "rows: over one fp32 prefill; the qwen2-vl-2b train rows: "
                 "over one fp32 train step; the tensor-parallel rows: over "
                 "one rank's fp32 prefill at t = 2; the training mesh rows: "
-                "over one rank's fp32 train step at data=2)")
+                "over one rank's fp32 train step at data=2; the op walk "
+                "rows: over one bf16 prefill each)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

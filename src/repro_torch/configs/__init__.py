@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the language models it runs.
+"""Architecture registry of the port: ``--arch <id>`` resolves through
+``ARCHS``, in the JAX package's order, with its shape cells.
 
 The JAX package's registry names ten architectures; the port runs all
 ten. ``PENDING`` names any architecture a later item of ``ROADMAP.md``
@@ -10,23 +11,38 @@ from __future__ import annotations
 from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_20b,
                                  internlm2_20b, phi35_moe, qwen2_moe,
                                  qwen2_vl, rwkv6_3b, whisper_base, zamba2)
+from repro_torch.configs.shapes import SHAPES, SMOKE_SHAPES
 from repro_torch.core.types import ModelConfig
 
 _MODULES = {
-    "deepseek-7b": deepseek_7b,
-    "gemma3-27b": gemma3_27b,
-    "granite-20b": granite_20b,
-    "internlm2-20b": internlm2_20b,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "qwen2-moe-a2.7b": qwen2_moe,
-    "qwen2-vl-2b": qwen2_vl,
-    "rwkv6-3b": rwkv6_3b,
-    "whisper-base": whisper_base,
     "zamba2-1.2b": zamba2,
+    "qwen2-vl-2b": qwen2_vl,
+    "granite-20b": granite_20b,
+    "deepseek-7b": deepseek_7b,
+    "gemma3-27b": gemma3_27b,
+    "internlm2-20b": internlm2_20b,
+    "whisper-base": whisper_base,
+    "rwkv6-3b": rwkv6_3b,
 }
+
+ARCHS = {name: mod.CONFIG for name, mod in _MODULES.items()}
+REDUCED = {name: mod.reduced for name, mod in _MODULES.items()}
 
 # architectures not ported yet, with the ROADMAP item that ports each
 PENDING: dict = {}
+
+# Shape-cell applicability (the JAX package's, DESIGN.md section 5):
+#  - long_500k only for sub-quadratic archs
+#  - (no encoder-only archs in this pool, so no decode skips)
+
+
+def cell_applicable(arch: str, shape: str) -> bool:
+    cfg = ARCHS[arch]
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False
+    return True
 
 
 def _module(arch: str):
@@ -47,4 +63,12 @@ def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
 
 
-__all__ = ["PENDING", "get_config", "get_reduced"]
+def all_cells(include_skipped: bool = False):
+    for arch in ARCHS:
+        for shape in SHAPES:
+            if include_skipped or cell_applicable(arch, shape):
+                yield arch, shape
+
+
+__all__ = ["ARCHS", "PENDING", "REDUCED", "SHAPES", "SMOKE_SHAPES",
+           "all_cells", "cell_applicable", "get_config", "get_reduced"]

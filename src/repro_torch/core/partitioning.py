@@ -648,6 +648,11 @@ def batch_split(axes):
         _ACTIVE["batch_axes"] = prev
 
 
+def batch_axes() -> Tuple[str, ...]:
+    """The axes the enclosing :func:`batch_split` split the batch over."""
+    return _ACTIVE["batch_axes"]
+
+
 def batch_replicas() -> int:
     """How many ranks of the (non-manual) mesh hold each row: the
     product of the axes the batch is not split over."""

@@ -43,6 +43,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # off; inside :func:`recording`, a list to which each wrapper appends one
 # record a launch (:func:`note`), beside its ``launches`` count.
 records = None
+# How deep the calls are in a wrapper's plain version (:func:`plain_call`):
+# the op walk (``launch/op_cost.py``) prices the call by its record and
+# leaves the plain version's ATen ops out of the glue.
+plain_depth = 0
 
 
 @contextlib.contextmanager
@@ -58,12 +62,24 @@ def recording():
         records = prev
 
 
+@contextlib.contextmanager
+def plain_call():
+    """Mark the block as a wrapper's plain version, run for a CPU tensor
+    in place of the kernel."""
+    global plain_depth
+    plain_depth += 1
+    try:
+        yield
+    finally:
+        plain_depth -= 1
+
+
 def note(kernel: str, design: str, tensors: dict, launched: bool = True,
          **options) -> None:
     """One launch's record, when recording is on: the shape and dtype of
     each tensor operand (the output included) and the scalar options.
-    A wrapper given CPU tensors notes its plain call with ``launched``
-    False and the design the card would take."""
+    A wrapper given CPU or meta tensors notes its plain call (its empty
+    output) with ``launched`` False and the design the card would take."""
     if records is not None:
         records.append({
             "kernel": kernel, "design": design, "launched": launched,
@@ -157,7 +173,12 @@ def check(err: int, name: str) -> None:
 def check_cuda(name: str, *tensors) -> torch.device:
     """Raise on what no kernel takes: tensors off the current CUDA
     device, or tensors that want a gradient (the kernels have no
-    backward yet). Returns the device."""
+    backward yet). Returns the device.
+
+    ``meta`` tensors pass (shapes alone, the dry run's): the wrapper then
+    runs every check a launch would, notes its record and returns an
+    empty output of the kernel's shape and dtype without launching (no
+    value comes out of a meta tensor)."""
     dev = tensors[0].device
     for t in tensors:
         if t is None:
@@ -166,6 +187,8 @@ def check_cuda(name: str, *tensors) -> torch.device:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if torch.is_grad_enabled() and t.requires_grad:
             raise NotImplementedError(f"{name}: the kernel has no backward")
+    if dev.type == "meta":
+        return dev
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for a tensor on {dev}")
     if dev.index != current_device():

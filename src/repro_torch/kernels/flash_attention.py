@@ -17,7 +17,8 @@ walk many (batch, head, query tile) items, so Swin's 49-token windows
 pack many to a CTA: ``mma`` (bf16, tensor cores: ``mma.sync``) and
 ``ffma`` (fp32, exact FFMA).
 
-For a CPU tensor it runs the plain :func:`ref.attention_ref`.
+For a CPU tensor it runs the plain :func:`ref.attention_ref`; for a
+``meta`` tensor it checks the call and returns the empty output.
 """
 from __future__ import annotations
 
@@ -65,14 +66,22 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_p: bias {tuple(bias.shape)} "
                          f"for q {tuple(q.shape)}, k {tuple(k.shape)}")
     scale = hd ** -0.5 if scale is None else scale
+
+    def note():
+        """The call's record (when recording); ``launched`` False off the
+        card (a CPU or meta tensor)."""
+        _build.note("flash_attention", DESIGNS[q.dtype],
+                    dict(q=q, k=k, v=v, bias=bias, out=out),
+                    launched=out.is_cuda, causal=bool(causal),
+                    window=int(window), q_offset=int(q_offset))
+
     if q.device.type == "cpu":
-        out = ref.attention_ref(q, k, v, causal=causal, window=window,
-                                scale=scale, q_offset=q_offset, bias=bias)
+        with _build.plain_call():
+            out = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale, q_offset=q_offset,
+                                    bias=bias)
         if _build.records is not None and q.dtype in DESIGNS:
-            _build.note("flash_attention", DESIGNS[q.dtype],
-                        dict(q=q, k=k, v=v, bias=bias, out=out),
-                        launched=False, causal=bool(causal),
-                        window=int(window), q_offset=int(q_offset))
+            note()
         return out
 
     dev = _build.check_cuda("flash_attention_p", q, k, v, bias)
@@ -93,7 +102,9 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if bias.dtype not in (torch.float32, torch.bfloat16):
             bias = bias.to(torch.float32)
     out = torch.empty((b, hq, sq, hd), dtype=q.dtype, device=dev)
-    if out.numel():
+    if not out.numel():
+        return out
+    if dev.type == "cuda":
         bias_strides = bias.stride() if bias is not None else (0, 0, 0, 0)
         dims = (b, hq, hkv, sq, skv, nb,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -109,11 +120,10 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mode = mode_of(causal, window, sq, skv)
         flash_attention_p.modes[mode] = flash_attention_p.modes.get(mode,
                                                                     0) + 1
-        if _build.records is not None:
-            _build.note("flash_attention", pick_design(q.dtype),
-                        dict(q=q, k=k, v=v, bias=bias, out=out),
-                        causal=bool(causal), window=int(window),
-                        q_offset=int(q_offset))
+    # a meta tensor (the dry run's shapes) is checked as for a launch and
+    # noted, with no launch
+    if _build.records is not None:
+        note()
     return out
 
 

@@ -2,7 +2,8 @@
 
 LayerNorm / RMSNorm over the channel dim with fp32 statistics whatever
 the input dtype. ``layernorm_p`` launches ``csrc/layernorm.cu`` for a
-CUDA tensor and runs the plain :func:`rownorm` for a CPU tensor. Two
+CUDA tensor and runs the plain :func:`rownorm` for a CPU tensor; a
+``meta`` tensor is checked and gets the empty output. Two
 designs, picked by :func:`pick_design` from M, D and the dtype:
 
 * ``cta`` (M <= :data:`CTA_PICK_M` of the dtype, and every row too wide
@@ -86,13 +87,20 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
     flags = KINDS.get(kind)
     if flags is None:
         raise ValueError(f"kind must be 'layer' or 'rms', not {kind!r}")
+
+    def note():
+        """The call's record (when recording); ``launched`` False off the
+        card (a CPU or meta tensor)."""
+        _build.note("layernorm", pick_design(*x.shape, x.dtype),
+                    dict(x=x, gamma=gamma, beta=beta, out=out),
+                    launched=out.is_cuda)
+
     if x.is_cpu:
-        out = rownorm(x, gamma, beta, kind=kind, eps=eps).to(x.dtype)
+        with _build.plain_call():
+            out = rownorm(x, gamma, beta, kind=kind, eps=eps).to(x.dtype)
         if _build.records is not None and x.dim() == 2 and x.dtype in (
                 torch.float32, torch.bfloat16):
-            _build.note("layernorm", pick_design(*x.shape, x.dtype),
-                        dict(x=x, gamma=gamma, beta=beta, out=out),
-                        launched=False)
+            note()
         return out
     # shape, dtype and gradient first, so that they hold on any device
     shape, sx = x.shape, x.stride()
@@ -109,6 +117,16 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
                                     or (beta is not None
                                         and beta.requires_grad)):
         raise NotImplementedError("layernorm_p: the kernel has no backward")
+    if x.is_meta:
+        # shapes alone: the dry run's call, checked and noted, no launch
+        for t in (gamma, beta):
+            if t is not None and not t.is_meta:
+                raise ValueError(f"layernorm_p: tensors on {t.device} and "
+                                 f"{x.device}")
+        out = torch.empty((m, d), dtype=x.dtype, device="meta")
+        if _build.records is not None and m:
+            note()
+        return out
     if not x.is_cuda:
         raise ValueError(f"layernorm_p: no kernel for a tensor on {x.device}")
     idx = x.get_device()
@@ -144,8 +162,7 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
             _build.check(err, "layernorm_p")
         layernorm_p.launches += 1
         if _build.records is not None:
-            _build.note("layernorm", design,
-                        dict(x=x, gamma=gamma, beta=beta, out=out))
+            note()
     return out
 
 

@@ -19,7 +19,9 @@ picked by :func:`pick_design` from M and the dtype:
   TMA / mbarrier ring;
 * ``ffma`` (fp32, M > 16): exact fp32 FFMA on a register-blocked tile.
 
-For a CPU tensor it runs the plain :func:`ref.pipeline_ref`. Operands
+For a CPU tensor it runs the plain :func:`ref.pipeline_ref`; for a
+``meta`` tensor it checks the call as for a launch and returns the empty
+output (``_build.check_cuda``). Operands
 are taken with their row strides (unit column stride), so the halves of
 a pre-fused weight panel need no copy; biases and norm gains are read in
 the dtype they are stored in (fp32 or bf16).
@@ -31,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.rowwise import H100
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.layernorm import KINDS
 
@@ -208,19 +211,29 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"prologue {prologue!r} needs 'layer' or 'rms' "
                          "and gamma")
     out_dtype = out_dtype or (torch.float32 if int8 else x.dtype)
+
+    def note(design, splits=None):
+        """The call's record (when recording): off the card (a CPU or
+        meta tensor) ``launched`` False and the K splits of an H100."""
+        if splits is None:
+            n, k = w.shape[1], x.shape[1]
+            splits = (skinny_splits(n, k, w_gate is not None, H100.sms)[0]
+                      if design == "skinny" and n and k else 0)
+        _build.note("rowwise_matmul", design, dict(
+            x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
+            residual=residual, gamma=gamma, pbeta=pbeta, x_scale=x_scale,
+            w_scale=w_scale, wg_scale=wg_scale, out=out),
+            launched=out.is_cuda, prologue=prologue, splits=splits)
+
     if x.device.type == "cpu":
-        out = ref.pipeline_ref(
-            x, w, bias=bias, activation=activation, w_gate=w_gate,
-            bias_gate=bias_gate, residual=residual, norm_kind=prologue,
-            gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
-            x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
+        with _build.plain_call():
+            out = ref.pipeline_ref(
+                x, w, bias=bias, activation=activation, w_gate=w_gate,
+                bias_gate=bias_gate, residual=residual, norm_kind=prologue,
+                gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
+                x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
         if _build.records is not None and x.dtype in _DT:
-            _build.note("rowwise_matmul", pick_design(x.shape[0], x.dtype),
-                        dict(x=x, w=w, w_gate=w_gate, bias=bias,
-                             bias_gate=bias_gate, residual=residual,
-                             gamma=gamma, pbeta=pbeta, x_scale=x_scale,
-                             w_scale=w_scale, wg_scale=wg_scale, out=out),
-                        launched=False, prologue=prologue, splits=0)
+            note(pick_design(x.shape[0], x.dtype))
         return out
 
     dev = _build.check_cuda("rowwise_matmul_p", x, w, w_gate, bias,
@@ -259,6 +272,11 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if not (m and n):
         return out
+    if dev.type == "meta":
+        # shapes alone (the dry run's): checked as for a launch, no launch
+        if _build.records is not None:
+            note(design)
+        return out
     splits = kc = 0
     work = counters = None
     if design == "skinny":
@@ -281,11 +299,7 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
     _build.check(err, "rowwise_matmul_p")
     rowwise_matmul_p.launches += 1
     if _build.records is not None:
-        _build.note("rowwise_matmul", design, dict(
-            x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
-            residual=residual, gamma=gamma, pbeta=pbeta, x_scale=x_scale,
-            w_scale=w_scale, wg_scale=wg_scale, out=out),
-            prologue=prologue, splits=splits)
+        note(design, splits)
     return out
 
 

@@ -15,7 +15,8 @@ state ``s0`` (the decode step's cache). Two designs, picked by
 
 For CPU tensors it runs the plain ``models.rwkv6.wkv_chunked`` in fp32
 and casts y back, as the kernel computes in fp32 and writes y in the
-input dtype.
+input dtype. For ``meta`` tensors it checks the call and returns the
+empty outputs (the plain scan's chunk loop would compute nothing there).
 """
 from __future__ import annotations
 
@@ -53,16 +54,23 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (< 0); u: (H, P); s0: (B, H, P, P) fp32 or None (zeros). Returns
     (y (B, S, H, P) in r's dtype, final state (B, H, P, P) fp32). The
     design is :func:`pick_design`'s for S."""
+
+    def note():
+        """The call's record (when recording); ``launched`` False off the
+        card (a CPU or meta tensor)."""
+        _build.note("wkv", pick_design(r.shape[1]),
+                    dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0, y=y, s_fin=s_fin),
+                    launched=y.is_cuda)
+
     if r.device.type == "cpu":
         from repro_torch.models.rwkv6 import wkv_chunked
-        f = [t.to(torch.float32) for t in (r, k, v, lw, u)]
-        y, s_fin = wkv_chunked(*f, chunk=chunk, s0=None if s0 is None
-                               else s0.to(torch.float32))
-        y = y.to(r.dtype)
+        with _build.plain_call():
+            f = [t.to(torch.float32) for t in (r, k, v, lw, u)]
+            y, s_fin = wkv_chunked(*f, chunk=chunk, s0=None if s0 is None
+                                   else s0.to(torch.float32))
+            y = y.to(r.dtype)
         if _build.records is not None:
-            _build.note("wkv", pick_design(r.shape[1]),
-                        dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0, y=y,
-                             s_fin=s_fin), launched=False)
+            note()
         return y, s_fin
     dev = _build.check_cuda("wkv_p", r, k, v, lw, u, s0)
     if chunk != CHUNK:
@@ -101,17 +109,19 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             s_fin.copy_(s0)
         return y, s_fin
-    strides = (ctypes.c_longlong * 12)(*(
-        st for t in (r, k, v, lw) for st in t.stride()[:3]))
-    err = _build.function("rk_wkv", _ARGTYPES)(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        uf.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(),
-        strides, b, s, h, p, dt, DESIGNS[design], _build.stream(dev))
-    _build.check(err, "wkv_p")
-    wkv_p.launches += 1
+    if dev.type == "cuda":
+        strides = (ctypes.c_longlong * 12)(*(
+            st for t in (r, k, v, lw) for st in t.stride()[:3]))
+        err = _build.function("rk_wkv", _ARGTYPES)(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            uf.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(),
+            strides, b, s, h, p, dt, DESIGNS[design], _build.stream(dev))
+        _build.check(err, "wkv_p")
+        wkv_p.launches += 1
+    # a meta tensor (the dry run's shapes) is checked as for a launch and
+    # noted, with no launch
     if _build.records is not None:
-        _build.note("wkv", design, dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0,
-                                        y=y, s_fin=s_fin))
+        note()
     return y, s_fin
 
 

@@ -21,11 +21,29 @@ card could take for it:
         --batch 4 --seq 512 --dtype bf16 [--layers N] [--device cuda]
 
 runs one prefill and one decode step of the arch (random weights from
-``--seed``) under the recording switch and prints each kernel's
-launches, operations, bytes and bound, and the step's roofline. It runs
-on the card unless given ``--device cpu``, where the wrappers take their
-plain versions and the records are of the plain calls (noted
-``launched`` False, with the design the card would take).
+``--seed``) under the op walk (``launch/op_cost.py``) and prints each
+kernel's launches, operations, bytes and bound, the glue's bytes and
+bound, and the call's roofline. It runs on the card unless given
+``--device cpu``, where the wrappers take their plain versions and the
+records are of the plain calls (noted ``launched`` False, with the
+design the card would take), or ``--device meta``: shapes alone, every
+call routed as on the card (the dry walk).
+
+A whole call (:func:`analyze`, from the op walk) adds the glue between
+the launches. Where its terms differ from the JAX package's, it is
+because the port has launch records where JAX has fused HLO:
+``flops_per_device`` is the walk's, in JAX's convention (dot products
+alone; a launch's the dots its plain version runs, attention's over the
+whole Sq x Skv), while ``compute_t`` prices what runs (each launch's
+operations, attention's unmasked pairs and a norm's 7 an element, and
+each glue op's FLOPs, each at its dtype's peak); ``memory_t`` (unfused)
+adds to the launches' least bytes and the glue's the score traffic an
+unfused attention moves (``attn_internal_bytes``), and
+``memory_t_fused`` leaves it out (JAX adds ``flash_min_bytes`` in place
+of the tagged softmax scope: the records already hold the kernel's
+least bytes); ``collective_t`` is on NVLink; the MFU terms take the
+call dtype's peak. :attr:`RooflineReport.call_bound_ms` is the serial
+bound, each launch and glue op one after another.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ import sys
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.rowwise import H100, dtype_name
@@ -81,13 +100,11 @@ def attention_pairs(sq: int, skv: int, *, causal: bool, window: int = 0,
     """The (query, key) pairs an attention call scores: query row i sits
     at position ``q_offset + i``; causal keeps keys at or before it, a
     window the last ``window`` of those (keys after ``pos - window``)."""
-    total = 0
-    for i in range(sq):
-        pos = q_offset + i
-        hi = min(skv - 1, pos) if causal else skv - 1
-        lo = max(0, pos - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv - 1, pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq,
+                                                                 np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def price(record: dict) -> Tuple[int, int, str]:
@@ -165,31 +182,83 @@ def collective_bytes(byte_counts: Optional[Dict[str, int]] = None) \
 @dataclasses.dataclass
 class RooflineReport:
     """The roofline of one call (a prefill, a decode step, a train step)
-    from its launch records. The launches run one after another on a
-    stream, so the call's bound is the sum of the launches' bounds, and
-    the collectives (synchronous on the stream) add theirs."""
+    from its launch records, and, from the op walk (:func:`analyze`),
+    the glue between them. The launches and the glue ops run one after
+    another on a stream, so the call's serial bound (:attr:`call_bound_ms`)
+    is the sum of their bounds, and the collectives (synchronous on the
+    stream) add theirs. The JAX package's terms are kept beside it:
+    :attr:`step_time` is the largest of the three engines' totals."""
 
     arch: str
     shape: str
     launches: List[Priced]
     coll_bytes: Dict[str, int]
+    # the op walk of the call (``launch/op_cost.OpCost``); None in a
+    # report of launches alone
+    cost: Optional[object] = None
+    mesh: str = ""
+    chips: int = 1
+    model_flops: float = 0.0
+    peak_flops: float = PEAK_FLOPS["bf16"]
 
     @property
     def flops(self) -> int:
+        """The operations the launches do."""
         return sum(p.flops for p in self.launches)
 
     @property
     def nbytes(self) -> int:
+        """The launches' least bytes."""
         return sum(p.nbytes for p in self.launches)
+
+    def _walk(self, name: str) -> float:
+        return getattr(self.cost, name) if self.cost is not None else 0.0
+
+    @property
+    def glue_flops(self) -> float:
+        return self._walk("glue_flops")
+
+    @property
+    def glue_bytes(self) -> float:
+        return self._walk("glue_bytes")
+
+    @property
+    def glue_ms(self) -> float:
+        """The glue ops' bounds, summed."""
+        return self._walk("glue_ms")
+
+    @property
+    def attn_internal_bytes(self) -> float:
+        return self._walk("attn_internal_bytes")
+
+    @property
+    def flops_per_device(self) -> float:
+        """The walk's FLOPs, JAX's convention (the launches' operations
+        in a report of launches alone)."""
+        return self.cost.flops if self.cost is not None else self.flops
+
+    @property
+    def bytes_per_device(self) -> float:
+        """Unfused: the launches' and the glue's bytes and the score
+        traffic the fused attention keeps on chip."""
+        return self.nbytes + self.glue_bytes + self.attn_internal_bytes
 
     @property
     def compute_t(self) -> float:
-        """Seconds at the peaks, each launch at its dtype's."""
-        return sum(p.flops / PEAK_FLOPS[p.dtype] for p in self.launches)
+        """Seconds at the peaks, each launch and glue op at its dtype's."""
+        return (sum(p.flops / PEAK_FLOPS[p.dtype] for p in self.launches)
+                + self._walk("glue_compute_s"))
 
     @property
     def memory_t(self) -> float:
-        return self.nbytes / PEAK_BYTES
+        """Unfused (JAX's ``memory_t``): :attr:`bytes_per_device`."""
+        return self.bytes_per_device / PEAK_BYTES
+
+    @property
+    def memory_t_fused(self) -> float:
+        """With the fused attention kernel: the launches' least bytes and
+        the glue's."""
+        return (self.nbytes + self.glue_bytes) / PEAK_BYTES
 
     @property
     def collective_t(self) -> float:
@@ -197,13 +266,74 @@ class RooflineReport:
 
     @property
     def bound_ms(self) -> float:
+        """The launches' bounds, summed."""
         return sum(p.bound_ms for p in self.launches)
 
     @property
+    def call_bound_ms(self) -> float:
+        """The whole call's serial bound: the launches', the glue ops' and
+        the collectives' one after another."""
+        return self.bound_ms + self.glue_ms + self.collective_t * 1e3
+
+    @property
+    def bound(self) -> str:
+        terms = {"compute": self.compute_t, "memory": self.memory_t_fused,
+                 "collective": self.collective_t}
+        return max(terms, key=terms.get)
+
+    @property
     def step_time(self) -> float:
-        """Seconds: the launches' bounds one after another, then the
-        collectives."""
-        return self.bound_ms / 1e3 + self.collective_t
+        """Seconds, JAX's roofline: the largest of the three engines'
+        totals, the memory term the fused one."""
+        return max(self.compute_t, self.memory_t_fused, self.collective_t)
+
+    @property
+    def step_time_unfused(self) -> float:
+        return max(self.compute_t, self.memory_t, self.collective_t)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (chips * the walk's FLOPs): remat and the
+        recomputing backward's share."""
+        total = self.flops_per_device * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def mfu(self) -> float:
+        denom = self.chips * self.peak_flops * self.step_time
+        return self.model_flops / denom if denom else 0.0
+
+    @property
+    def mfu_unfused(self) -> float:
+        denom = self.chips * self.peak_flops * self.step_time_unfused
+        return self.model_flops / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        """JAX's keys, then the port's: the kernels' and the glue's
+        bounds and the serial bound of the call."""
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips,
+            "flops_per_device": self.flops_per_device,
+            "bytes_per_device": self.bytes_per_device,
+            "coll_bytes_per_device": dict(self.coll_bytes),
+            "model_flops": self.model_flops,
+            "attn_internal_bytes": self.attn_internal_bytes,
+            "compute_t": self.compute_t, "memory_t": self.memory_t,
+            "memory_t_fused": self.memory_t_fused,
+            "collective_t": self.collective_t, "bound": self.bound,
+            "step_time": self.step_time,
+            "step_time_unfused": self.step_time_unfused,
+            "mfu": self.mfu, "mfu_unfused": self.mfu_unfused,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "launches": len(self.launches),
+            "kernel_operations": self.flops,
+            "kernel_bytes": self.nbytes,
+            "kernel_bound_ms": self.bound_ms,
+            "glue_flops": self.glue_flops, "glue_bytes": self.glue_bytes,
+            "glue_bound_ms": self.glue_ms,
+            "call_bound_ms": self.call_bound_ms,
+        }
 
     def by_kernel(self) -> Dict[str, dict]:
         """Launches, operations, bytes and bound summed by kernel and
@@ -230,6 +360,23 @@ def report(records, *, arch: str = "", shape: str = "",
     return RooflineReport(arch=arch, shape=shape,
                           launches=price_all(records),
                           coll_bytes=coll_bytes or collective_bytes({}))
+
+
+def analyze(cost, *, arch: str, shape: str, mesh_name: str = "",
+            chips: int = 1, n_active: int = 0, tokens: int = 0,
+            kind: str = "serve", dtype="bf16") -> RooflineReport:
+    """The roofline of a whole call from its op walk
+    (``launch/op_cost.OpCost``), the JAX package's ``analyze`` over the
+    port's walk: the launch records priced as :func:`report` prices
+    them, the glue, the score traffic and the collectives. ``dtype``
+    (the call's) gives the peak of the MFU terms; ``kind`` 'train' or
+    'serve' the model FLOPs (:func:`model_flops`)."""
+    return RooflineReport(
+        arch=arch, shape=shape, launches=price_all(cost.records),
+        coll_bytes={k: int(v) for k, v in cost.coll_bytes.items()},
+        cost=cost, mesh=mesh_name, chips=chips,
+        model_flops=model_flops(n_active, tokens, kind),
+        peak_flops=PEAK_FLOPS[dtype_name(dtype)])
 
 
 def model_flops(n_params_active: int, tokens: int, kind: str) -> float:
@@ -276,7 +423,10 @@ def _lines(rep: RooflineReport, card: str) -> List[str]:
            f"launches, {rep.flops:.4g} operations, {rep.nbytes:.4g} bytes, "
            f"bound {rep.bound_ms:.4f} ms (compute {rep.compute_t * 1e3:.4f}"
            f" ms, memory {rep.memory_t * 1e3:.4f} ms, collectives "
-           f"{rep.collective_t * 1e3:.4f} ms) | {card}"]
+           f"{rep.collective_t * 1e3:.4f} ms); the glue "
+           f"{rep.glue_flops:.4g} FLOPs, {rep.glue_bytes:.4g} bytes, bound "
+           f"{rep.glue_ms:.4f} ms; the whole call {rep.call_bound_ms:.4f} ms"
+           f" | {card}"]
     for key, e in sorted(rep.by_kernel().items()):
         out.append(f"    {key}: {e['launches']} launches, bound "
                    f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
@@ -295,12 +445,14 @@ def main(argv=None) -> int:
                     help="the reduced config")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' (the kernels' launches) or 'cpu' (the "
+                    help="'cuda' (the kernels' launches), 'cpu' (the "
                          "plain calls, priced as the card would launch "
-                         "them)")
+                         "them) or 'meta' (shapes alone, routed as on "
+                         "the card)")
     args = ap.parse_args(argv)
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.core import runtime
+    from repro_torch.launch import op_cost
     from repro_torch.models import lm
 
     dev = runtime.resolve_device(args.device)
@@ -308,29 +460,38 @@ def main(argv=None) -> int:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm.init_lm(cfg, gen, device=dev, dtype=dt)
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.seq),
-                           generator=gen, device=dev)
-    card = "cpu"
+    if dev.type == "meta":
+        params = lm.init_lm(cfg, None, device=dev, dtype=dt)
+        tokens = torch.zeros((args.batch, args.seq), dtype=torch.int64,
+                             device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = lm.init_lm(cfg, gen, device=dev, dtype=dt)
+        tokens = torch.randint(0, cfg.vocab, (args.batch, args.seq),
+                               generator=gen, device=dev)
+    card = dev.type
     if dev.type == "cuda":
         import subprocess
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip().splitlines()[0]
+    extra = None
+    if cfg.encdec:
+        extra = {"frames": torch.zeros((args.batch, cfg.cross_len,
+                                        cfg.d_model), dtype=dt, device=dev)}
     with torch.no_grad():
-        with recording() as pre:
-            _, cache = lm.prefill(params, tokens, cfg,
-                                  alloc=args.seq + 1)
+        (_, cache), pre = op_cost.walk(lm.prefill, params, tokens, cfg,
+                                       alloc=args.seq + 1, extra=extra)
         last = tokens[:, -1:]
         lengths = torch.full((args.batch,), args.seq, dtype=torch.int32,
                              device=dev)
-        with recording() as step:
-            lm.decode_step(params, cache, last, lengths, cfg)
+        _, step = op_cost.walk(lm.decode_step, params, cache, last, lengths,
+                               cfg)
     shape = f"B={args.batch} x {args.seq} {args.dtype}"
-    for rec, what in ((pre, "prefill"), (step, "decode step")):
-        rep = report(rec, arch=cfg.name, shape=f"{what} {shape}")
+    for cost, what in ((pre, "prefill"), (step, "decode step")):
+        rep = analyze(cost, arch=cfg.name, shape=f"{what} {shape}",
+                      dtype=dt)
         for line in _lines(rep, card):
             print(line)
     return 0

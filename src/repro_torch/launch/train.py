@@ -53,7 +53,9 @@ from repro_torch.train import step as tsl
 HOST_MESH = (2, 2, 2)
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """The CLI. ``cfg``: a ``ModelConfig`` to train in place of
+    ``--arch``'s (on one device: a mesh's ranks resolve ``--arch``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--smoke", action="store_true",
@@ -88,6 +90,9 @@ def main(argv=None):
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if cfg is not None and args.mesh != "none":
+        raise ValueError("a config given to main trains on one device: "
+                         "the mesh's ranks resolve --arch")
     if args.compress_pods and args.mesh == "none":
         raise ValueError("--compress-pods reduces the gradients over the "
                          "'pod' axis of a mesh: pass --mesh host")
@@ -119,7 +124,7 @@ def main(argv=None):
         mesh = mesh_lib.make_host_mesh(HOST_MESH)
     lead = args.rank in (None, 0)
     try:
-        return _train(args, _cfg_of(args), device, mesh, lead)
+        return _train(args, cfg or _cfg_of(args), device, mesh, lead)
     finally:
         if mesh is not None:
             dist.barrier()           # no rank leaves while one still sends

@@ -553,12 +553,31 @@ def _decode_seq_sharded(q, k_new, v_new, cache: KVCache, lengths, *,
     rank that owns its position; each rank takes the partial softmax
     (m, l, acc) of its block in fp32, and the ranks combine them with an
     all-reduce MAX of m and one SUM of (acc α, l α), α = exp(m_i - m), so
-    the cache is never gathered. Returns the (B, 1, Hq hd) output in q's
-    dtype; the cache keeps its own."""
+    the cache is never gathered. A cache split over its KV heads too (a
+    ``kv_heads`` rule: the batch-1 cells put the idle ``data`` axis there)
+    holds this rank's block of heads: the rank attends with their query
+    heads alone, and the heads' outputs are gathered over those axes.
+    Returns the (B, 1, Hq hd) output in q's dtype; the cache keeps its
+    own."""
     b, _, hq, hd = q.shape
     hkv = cfg.n_kv_heads
     g = hq // hkv
     s_loc = cache.k.shape[1]
+    head_spec = None
+    if cache.k.shape[2] != hkv:
+        # the cache's spec at its global shape: (batch, kv_seq, kv_heads)
+        n_rows = math.prod(mesh.sizes[a] for a in part.batch_axes())
+        spec = part.resolve(("batch", "kv_seq", "kv_heads"), mesh, shape=(
+            b * n_rows, s_loc * mesh.sizes["model"], hkv))
+        head_spec = spec[2]
+        idx, n = part._block_index(mesh, head_spec)
+        if spec[1] != "model" or hkv != n * cache.k.shape[2]:
+            raise ValueError(f"a KV cache block of {cache.k.shape[2]} of "
+                             f"{hkv} heads does not match the spec {spec}")
+        hkv //= n
+        q = q[:, :, idx * hkv * g:(idx + 1) * hkv * g]
+        k_new = k_new[:, :, idx * hkv:(idx + 1) * hkv]
+        v_new = v_new[:, :, idx * hkv:(idx + 1) * hkv]
     dev = cache.k.device
     base = mesh.coord("model") * s_loc
     pos = lengths.long()
@@ -586,6 +605,9 @@ def _decode_seq_sharded(q, k_new, v_new, cache: KVCache, lengths, *,
     tot = part.all_reduce(torch.cat([acc_i * alpha[..., None],
                                      (l_i * alpha)[..., None]], -1), group)
     out = tot[..., :hd] / torch.clamp(tot[..., hd:], min=1e-30)
+    if head_spec is not None:
+        out = part.full_leaf(out, part.Sharding(mesh, (None, head_spec,
+                                                       None, None)))
     return out.reshape(b, 1, hq * hd).to(q.dtype)
 
 

@@ -616,9 +616,13 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *,
 def cache_logical_specs(cache, cfg: Optional[ModelConfig] = None):
     """Logical names for every leaf of a dense cache (the JAX package's):
     (layers, batch, ...), a 5-dim leaf (layers, batch, kv_seq, kv_heads,
-    head_dim). Paged pools stay engine-local. With ``cfg``, a windowed
-    layer's ring keeps its positions whole (``kv_seq`` dropped): its
-    decode takes the unsharded path under the sequence-sharded rules."""
+    head_dim). Paged pools stay engine-local. With ``cfg``, only a global
+    attention layer's own K/V keeps those names: the port's other
+    readers take their leaf whole, so it is split over nothing but its
+    layers and batch (JAX's GSPMD would gather it where it is read). A
+    windowed layer's ring decodes on the unsharded path; the cross K/V
+    is read whole by cross-attention; a recurrent state (RWKV6's
+    (H, P, P), Mamba2's) by its mixer's step."""
     from repro_torch.core import tree as tree_lib
 
     def spec(leaf):
@@ -633,10 +637,11 @@ def cache_logical_specs(cache, cfg: Optional[ModelConfig] = None):
     specs = tree_lib.tree_map(spec, cache)
     for stage, sc in zip(cfg.stages() if cfg else (), specs):
         for i, blk in enumerate(stage.body):
-            kv = sc.get(str(i), {}).get("kv")
-            if blk.window and kv is not None:
-                sc[str(i)]["kv"] = type(kv)(*(n[:2] + (None,) + n[3:]
-                                              for n in kv))
+            for key, names in list(sc.get(str(i), {}).items()):
+                if key == "kv" and not blk.window:
+                    continue
+                sc[str(i)][key] = part.map_specs(
+                    lambda n: n[:2] + (None,) * (len(n) - 2), names)
     return specs
 
 

@@ -15,9 +15,9 @@ the model calls: ``SingleDevice`` by default, or ``TensorParallel`` for
 one rank of a ``torch.distributed`` group, where every rank builds the
 same engine on its shard and runs this host loop, and the deadline
 sweep decides on rank 0's clock (``placement.agreed``) so that no
-rank's host decisions differ. ``audit_entry_points``, which feeds the
-JAX package's static auditor, is not ported (ROADMAP.md queue 1 item
-10).
+rank's host decisions differ. ``audit_entry_points`` lists the step
+programs for the static auditor (``analysis/dispatch.run_entry_points``
+runs each under its recorder).
 
 vLLM-style paging: a fixed batch of ``n_slots`` sequences decodes in
 lockstep, but attention KV lives in per-layer page *pools* shared by

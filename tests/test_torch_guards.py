@@ -57,7 +57,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
         "repro_torch.analysis.compile_bound, repro_torch.analysis.rules, "
         "repro_torch.analysis.dispatch, repro_torch.core.rowwise, "
         "repro_torch.core.asic_model, repro_torch.launch.roofline, "
-        "repro_torch.launch.specs, repro_torch.configs.shapes\n"
+        "repro_torch.launch.specs, repro_torch.configs.shapes, "
+        "repro_torch.launch.op_cost, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -68,7 +69,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]),
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples").glob("torch_*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text())
@@ -90,6 +92,11 @@ def test_source_scan_covers_the_analysis_package():
     assert {p.name for p in (PORT / "analysis").glob("*.py")} >= {
         "audit.py", "sync.py", "donation.py", "compile_bound.py",
         "smem.py", "rules.py", "dispatch.py", "report.py"}
+    assert {p.name for p in (PORT / "launch").glob("*.py")} >= {
+        "dryrun.py", "op_cost.py"}
+    assert {p.name for p in (ROOT / "examples").glob("torch_*.py")} == {
+        "torch_quickstart.py", "torch_vit_rowwise.py", "torch_serve_lm.py",
+        "torch_train_lm.py"}
 
 
 def test_audit_and_roofline_refuse_to_fall_back_to_cpu():
@@ -214,18 +221,28 @@ def test_wrappers_refuse_what_no_kernel_takes():
         rowwise_matmul_p(xq, wq, w_scale=torch.ones(1, 6))
     with pytest.raises(ValueError, match="activation"):
         rowwise_matmul_p(x, w, activation="tanh")
-    with pytest.raises(ValueError, match="no kernel"):
-        rowwise_matmul_p(x.to("meta"), w.to("meta"))
-    q = torch.randn(1, 2, 4, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_attention_p(q, q, q)
-    with pytest.raises(ValueError, match="no kernel"):
-        layernorm_p(x.to("meta"), torch.ones(8, device="meta"))
     with pytest.raises(ValueError, match="kind"):
         layernorm_p(x, torch.ones(8), kind="group")
+    # a device with no kernel: the wrappers' one check refuses it (a CPU
+    # tensor never reaches it: the wrappers run its plain version first)
+    for t in (x, torch.ones(2, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="no kernel"):
+            _build.check_cuda("wrapper", t)
+    # meta tensors (the dry run's, shapes alone) pass the checks and get
+    # an empty output of the kernel's shape: no launch, no value
+    launches = (rowwise_matmul_p.launches, flash_attention_p.launches,
+                layernorm_p.launches, wkv_p.launches)
+    q = torch.randn(1, 2, 4, 16, device="meta")
     r = torch.randn(1, 5, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))
+    outs = [rowwise_matmul_p(x.to("meta"), w.to("meta")),
+            flash_attention_p(q, q, q),
+            layernorm_p(x.to("meta"), torch.ones(8, device="meta")),
+            *wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))]
+    assert [tuple(o.shape) for o in outs] == [(4, 6), (1, 2, 4, 16), (4, 8),
+                                              (1, 5, 2, 16), (1, 2, 16, 16)]
+    assert all(o.is_meta for o in outs)
+    assert (rowwise_matmul_p.launches, flash_attention_p.launches,
+            layernorm_p.launches, wkv_p.launches) == launches
 
 
 def _meta(*shape, dtype=torch.float32, grad=False):
@@ -252,19 +269,21 @@ def _meta(*shape, dtype=torch.float32, grad=False):
         _meta(4, 8), _meta(8, grad=True))),
     ("beta grad", NotImplementedError, lambda: layernorm_p(
         _meta(4, 8), _meta(8), _meta(8, grad=True))),
-    ("device", ValueError, lambda: layernorm_p(_meta(4, 8), _meta(8))),
+    ("device", ValueError, lambda: layernorm_p(_meta(4, 8), torch.ones(8))),
 ], ids=lambda c: c[0])
 def test_layernorm_wrapper_refuses(case):
     """What the layernorm wrapper raised on before its host cost was cut,
     it raises on still, before any launch (meta tensors reach every check
-    but the CUDA device's own); under no_grad a gradient is no bar."""
+    a launch makes, and past them get an empty output); under no_grad a
+    gradient is no bar."""
     _name, error, call = case
     before = layernorm_p.launches
     with pytest.raises(error):
         call()
     if error is NotImplementedError:
-        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
-            call()
+        with torch.no_grad():
+            out = call()
+        assert out.is_meta and tuple(out.shape) == (4, 8)
     assert layernorm_p.launches == before
 
 
@@ -286,8 +305,9 @@ def test_cpu_path_builds_nothing():
 
 def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch):
     """A CPU int8 call runs the plain version and builds nothing; an int8
-    call on any other device goes to the kernel path (here refused: no
-    kernel for a meta tensor), never to the plain version."""
+    call on any other device goes to the kernel path (here a meta call:
+    checked, answered with an empty output, no launch), never to the
+    plain version."""
     from repro_torch.kernels import ref
     xq = torch.randint(-127, 128, (4, 8), dtype=torch.int8)
     wq = torch.randint(-127, 128, (8, 6), dtype=torch.int8)
@@ -301,9 +321,11 @@ def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch):
     def plain(*args, **kw):
         raise AssertionError("the plain version ran for a non-CPU tensor")
     monkeypatch.setattr(ref, "pipeline_ref", plain)
-    with pytest.raises(ValueError, match="no kernel"):
-        rowwise_matmul_p(xq.to("meta"), wq.to("meta"),
-                         x_scale=xs.to("meta"), w_scale=ws.to("meta"))
+    out = rowwise_matmul_p(xq.to("meta"), wq.to("meta"),
+                           x_scale=xs.to("meta"), w_scale=ws.to("meta"))
+    assert out.is_meta and out.dtype == torch.float32 and out.shape == (4, 6)
+    assert rowwise_matmul_p.launches == before
+    assert _build.library.cache_info().currsize == 0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

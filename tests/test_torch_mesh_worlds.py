@@ -400,6 +400,27 @@ def test_seq_sharded_decode(world):
         assert got["counts"]["all_gather"] == 0
 
 
+def test_seq_and_head_sharded_decode(world):
+    """The same 6 steps with both rows on every rank and the cache split
+    over 16 of its 32 positions (``model``) and 2 of its 4 KV heads
+    (``data``, the batch-1 cells' ``kv_heads`` rule): each rank attends
+    with its heads' queries and the heads' outputs are gathered."""
+    jl, pl = world["oracles"]["decode"]
+    cfg = get_reduced("deepseek-7b")
+    n = harness.DEC_STEPS
+    for r in world["ranks"]:
+        got = r["decode_heads"]
+        assert got["block"] == (cfg.n_layers, harness.DEC_B,
+                                harness.DEC_ALLOC // 2, cfg.n_kv_heads // 2,
+                                cfg.head_dim)
+        np.testing.assert_allclose(got["logits"], jl, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got["logits"], pl, rtol=0, atol=1e-5)
+        # 2 all-reduces over the positions and 1 gather of the heads a
+        # layer and step; the cache itself is never gathered
+        assert got["counts"]["all_reduce"] == 2 * cfg.n_layers * n
+        assert got["counts"]["all_gather"] == cfg.n_layers * n
+
+
 def test_elastic_restore_and_format(world):
     """A (2,2,2) state saved from its blocks and restored onto (4,2)
     equals it bitwise; JAX's ``ckpt.restore`` reads it bitwise."""

@@ -54,7 +54,8 @@ DROP_FACTOR = 0.5
 # the sequence-sharded decode: deepseek-7b reduced, B=2, a 12-token
 # prefill then 6 steps into a cache of 32 positions (JAX's scenario)
 DEC_B, DEC_PROMPT, DEC_STEPS, DEC_ALLOC = 2, 12, 6, 32
-SCENARIOS = ("fsdp", "compress", "moe", "decode", "elastic")
+SCENARIOS = ("fsdp", "compress", "moe", "decode", "decode_heads",
+             "elastic")
 
 
 def tcfg_kw():
@@ -317,6 +318,42 @@ def _decode(inputs, mesh, rank, res):
                      "counts": part.counts()}
 
 
+def _decode_heads(inputs, mesh, rank, res):
+    """The same decode with both rows on every rank (``batch=None``) and
+    the cache split over its positions (``model``) and its KV heads
+    (``data``): the dry run's batch-1 rules."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.convert import from_jax_params
+    from repro_torch.core import partitioning as part
+    from repro_torch.models import lm
+    cfg = get_reduced("deepseek-7b")
+    params = from_jax_params(inputs["decode"]["params"], cfg, device="cpu")
+    tokens = torch.from_numpy(inputs["decode"]["tokens"]).long()
+    rules = {"kv_seq": "model", "kv_heads": "data", "batch": None,
+             "decode_attn": "sharded"}
+    with part.use_mesh(mesh, rules):
+        with torch.no_grad():
+            _, cache = lm.prefill(params, tokens[:, :DEC_PROMPT], cfg,
+                                  alloc=DEC_ALLOC)
+        sh = part.tree_shardings(mesh, lm.cache_logical_specs(cache, cfg),
+                                 like=cache)
+        local = part.shard_tree(cache, sh)
+        lengths = torch.full((DEC_B,), DEC_PROMPT, dtype=torch.int32)
+        logits = []
+        part.reset_counts()
+        with torch.no_grad():
+            for t in range(DEC_PROMPT, DEC_PROMPT + DEC_STEPS):
+                lg, local = lm.decode_step(params, local,
+                                           tokens[:, t:t + 1], lengths, cfg)
+                logits.append(lg.numpy())
+                lengths = lengths + 1
+    res["decode_heads"] = {"logits": np.stack(logits, 1),
+                           "block": tuple(local[0]["0"]["kv"].k.shape),
+                           "counts": part.counts()}
+
+
 def _elastic(tmp, mesh, rank, res):
     """The deepseek-7b state of :func:`_fsdp` saved from (2,2,2) and
     restored onto (4,2) (data, model), then gathered whole."""
@@ -363,6 +400,7 @@ def _rank(rank, store, out_dir):
     _int8_sum(mesh, res)
     _moe(inputs, mesh, rank, res)
     _decode(inputs, mesh, rank, res)
+    _decode_heads(inputs, mesh, rank, res)
     _elastic(out_dir, mesh, rank, res)
     res["seconds"] = time.perf_counter() - t0
     dist.barrier()                   # no rank leaves while one still sends
