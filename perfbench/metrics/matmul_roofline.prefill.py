@@ -1,0 +1,8 @@
+"""The row-wise matmul family in the deepseek-7b prefill cell: the least
+time of the traced batches' projections and head over the family's
+device time."""
+from perfbench import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "matmul", ctx.work.matmul_least_s)
