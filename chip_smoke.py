@@ -1780,33 +1780,45 @@ def run_cases(cases, dtype_name, tol, timed=True):
 # ------------------------------ model phases ----------------------------
 
 
+KERNELS = ("rowwise_matmul", "flash_attention", "layernorm", "wkv")
+# the launch records of the last counted() call (attention_modes)
+_COUNTED_RECORDS: list = []
+
+
 def launches():
-    from repro_torch.kernels.flash_attention import flash_attention_p
-    from repro_torch.kernels.layernorm import layernorm_p
-    from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
-    from repro_torch.kernels.wkv import wkv_p
-    return {"rowwise_matmul": rowwise_matmul_p,
-            "flash_attention": flash_attention_p, "layernorm": layernorm_p,
-            "wkv": wkv_p}
+    """The launches counted so far of each kernel (the port's trace,
+    ``core/trace.py``: they move while it records)."""
+    from repro_torch.core import trace
+    return {k: trace.launches(k) for k in KERNELS}
 
 
 def counted(fn):
-    """Run fn with every launch count (and the attention's counts by
-    mode, :func:`attention_modes`) set to 0 just before; return its
-    result and the counts just after."""
+    """Run fn inside the trace's ``recording()``; return its result and
+    the launches of each kernel it made (its records are kept for
+    :func:`attention_modes`)."""
     import torch
-    for k in launches().values():
-        k.launches = 0
-    launches()["flash_attention"].modes.clear()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {name: k.launches for name, k in launches().items()}
+    from repro_torch.core import trace
+    global _COUNTED_RECORDS
+    with trace.recording() as recs:
+        before = launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: n - before[k] for k, n in launches().items()}
+    _COUNTED_RECORDS = recs
+    return out, counts
 
 
 def attention_modes():
-    """The attention launches by mode (``flash_attention.mode_of``) since
-    the last :func:`counted` began."""
-    return dict(launches()["flash_attention"].modes)
+    """The attention launches of the last :func:`counted` call by mode
+    (``flash_attention.mode_of``), from its launch records."""
+    from repro_torch.kernels.flash_attention import mode_of
+    modes = {}
+    for r in _COUNTED_RECORDS:
+        if r["kernel"] == "flash_attention" and r["launched"]:
+            sq, skv = r["tensors"]["q"][0][2], r["tensors"]["k"][0][2]
+            mode = mode_of(r["causal"], r["window"], sq, skv)
+            modes[mode] = modes.get(mode, 0) + 1
+    return modes
 
 
 def jitter(params, gen):
@@ -2889,6 +2901,7 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
 
     import numpy as np
     import torch
+    from repro_torch.core import trace
     from repro_torch.core.types import PagingConfig
     from repro_torch.serve import engine as engine_mod
     from repro_torch.serve import paging
@@ -2916,11 +2929,11 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
         def call(*args, **kw):
             kind = ENGINE_CALLS[name]
             events.append((kind, eng.device_reads, time.perf_counter()))
-            before = {n: k.launches for n, k in launches().items()}
+            before = launches()
             t = time.perf_counter()
             out = orig(*args, **kw)
             host_s[kind].append(time.perf_counter() - t)
-            got = {n: k.launches - before[n] for n, k in launches().items()}
+            got = {n: k - before[n] for n, k in launches().items()}
             w = want[kind]
             w = w(rows_of[name](args)) if callable(w) else w
             calls[kind].append(got)
@@ -2944,9 +2957,11 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
             rid=rid, prompt=p.cpu().numpy(), max_new=max_new,
             deadline_s=(deadlines or {}).get(rid)))
     torch.cuda.synchronize()
-    for k in launches().values():
-        k.launches = 0
-    with warnings.catch_warnings(record=True) as caught:
+    # the launches are counted while the trace records (the host times
+    # include its records)
+    with warnings.catch_warnings(record=True) as caught, \
+            trace.recording():
+        base = launches()
         warnings.simplefilter("always")
         if sync_check:
             torch.cuda.set_sync_debug_mode("warn")
@@ -2959,7 +2974,7 @@ def serve_engine(phase, model, prompts, oracles, *, want, max_new,
             caught = caught[n0:]
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    totals = {name: k.launches for name, k in launches().items()}
+        totals = {n: k - base[n] for n, k in launches().items()}
     # the reads that followed each call, up to the next call (or the end)
     ends = [e[1] for e in events[1:]] + [eng.device_reads]
     reads = collections.defaultdict(collections.Counter)
@@ -6192,6 +6207,7 @@ def audit_phase(smi):
     the same streams, the same launches."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.analysis import audit as audit_cli
     from repro_torch.analysis import dispatch, donation, smem, sync
     from repro_torch.configs import get_config
@@ -6326,7 +6342,8 @@ def audit_phase(smi):
                                  f"{want} ms within {AUDIT_BOUND_TOL:.1%}")
     del cache
 
-    # (e) an engine run with the recording switch off and on
+    # (e) an engine run with the recording switch off (the trace's
+    # counters under a CUDA profiler session alone) and on
     def serve(record):
         eng = Engine(params, cfg, n_slots=2, max_len=96, eos_id=-1,
                      paging=PagingConfig(page_size=16, prefill_chunk=32),
@@ -6335,11 +6352,13 @@ def audit_phase(smi):
         for i, plen in enumerate((20, 45, 9)):
             eng.submit(Request(rid=i, prompt=rng.integers(
                 0, cfg.vocab, plen).astype(np.int32), max_new=6))
-        before = {k: f.launches for k, f in launches().items()}
-        ctx = roofline.recording() if record else contextlib.nullcontext([])
+        ctx = (roofline.recording() if record else profile(
+            activities=[ProfilerActivity.CUDA]))
         with ctx as recs:
+            before = launches()
             done = eng.run()
-        counts = {k: f.launches - before[k] for k, f in launches().items()}
+            counts = {k: n - before[k] for k, n in launches().items()}
+        recs = recs if record else []
         return ({c.rid: list(c.tokens) for c in done}, counts,
                 sum(r["launched"] for r in recs))
     off, on = serve(False), serve(True)

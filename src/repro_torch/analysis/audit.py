@@ -242,6 +242,7 @@ def card_smem(device) -> PassResult:
     library's query of every kernel, its constants, and the K = 16384
     stress matmul launched and held to its plan."""
     from repro_torch.analysis.report import Diagnostic
+    from repro_torch.core import trace
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
     lib = _build.library()
@@ -253,7 +254,7 @@ def card_smem(device) -> PassResult:
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(m, k, generator=gen, device=device)
     w = torch.randn(k, n, generator=gen, device=device) * k ** -0.5
-    with _build.recording() as recs:
+    with trace.recording() as recs:
         out = rowwise_matmul_p(x, w)
     want = ref.pipeline_ref(x, w)
     err = (out - want).abs().max().item()

@@ -18,7 +18,6 @@ library is written under the checkout's ``build/``. A wheel ships no
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -38,54 +37,6 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-# The launch records (``launch/roofline.py``): None while recording is
-# off; inside :func:`recording`, a list to which each wrapper appends one
-# record a launch (:func:`note`), beside its ``launches`` count.
-records = None
-# How deep the calls are in a wrapper's plain version (:func:`plain_call`):
-# the op walk (``launch/op_cost.py``) prices the call by its record and
-# leaves the plain version's ATen ops out of the glue.
-plain_depth = 0
-
-
-@contextlib.contextmanager
-def recording():
-    """Record every kernel launch in the block: yields the list of
-    records, each ``{"kernel", "design", "tensors": {name: (shape,
-    dtype)}, **options}``."""
-    global records
-    prev, records = records, []
-    try:
-        yield records
-    finally:
-        records = prev
-
-
-@contextlib.contextmanager
-def plain_call():
-    """Mark the block as a wrapper's plain version, run for a CPU tensor
-    in place of the kernel."""
-    global plain_depth
-    plain_depth += 1
-    try:
-        yield
-    finally:
-        plain_depth -= 1
-
-
-def note(kernel: str, design: str, tensors: dict, launched: bool = True,
-         **options) -> None:
-    """One launch's record, when recording is on: the shape and dtype of
-    each tensor operand (the output included) and the scalar options.
-    A wrapper given CPU or meta tensors notes its plain call (its empty
-    output) with ``launched`` False and the design the card would take."""
-    if records is not None:
-        records.append({
-            "kernel": kernel, "design": design, "launched": launched,
-            "tensors": {name: (tuple(t.shape), t.dtype)
-                        for name, t in tensors.items() if t is not None},
-            **options})
 
 
 def nvcc() -> str:
@@ -176,9 +127,9 @@ def check_cuda(name: str, *tensors) -> torch.device:
     backward yet). Returns the device.
 
     ``meta`` tensors pass (shapes alone, the dry run's): the wrapper then
-    runs every check a launch would, notes its record and returns an
-    empty output of the kernel's shape and dtype without launching (no
-    value comes out of a meta tensor)."""
+    runs every check a launch would, notes the call (``core/trace.py``)
+    and returns an empty output of the kernel's shape and dtype without
+    launching (no value comes out of a meta tensor)."""
     dev = tensors[0].device
     for t in tensors:
         if t is None:

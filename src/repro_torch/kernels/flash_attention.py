@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -45,6 +46,7 @@ def pick_design(dtype: torch.dtype) -> str:
     return DESIGNS[dtype]
 
 
+@trace.traced("kernel.flash_attention")
 def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       scale: Optional[float] = None,
@@ -68,19 +70,18 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = hd ** -0.5 if scale is None else scale
 
     def note():
-        """The call's record (when recording); ``launched`` False off the
-        card (a CPU or meta tensor)."""
-        _build.note("flash_attention", DESIGNS[q.dtype],
-                    dict(q=q, k=k, v=v, bias=bias, out=out),
-                    launched=out.is_cuda, causal=bool(causal),
-                    window=int(window), q_offset=int(q_offset))
+        """The call's record and counts (``trace.note``)."""
+        trace.note("flash_attention", DESIGNS[q.dtype],
+                   dict(q=q, k=k, v=v, bias=bias, out=out), out.device,
+                   causal=bool(causal), window=int(window),
+                   q_offset=int(q_offset))
 
     if q.device.type == "cpu":
-        with _build.plain_call():
+        with trace.plain_call():
             out = ref.attention_ref(q, k, v, causal=causal, window=window,
                                     scale=scale, q_offset=q_offset,
                                     bias=bias)
-        if _build.records is not None and q.dtype in DESIGNS:
+        if trace.records is not None and q.dtype in DESIGNS:
             note()
         return out
 
@@ -116,25 +117,16 @@ def flash_attention_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ctypes.addressof(arr), scale, int(causal), window, q_offset, dt,
             _build.stream(dev))
         _build.check(err, "flash_attention_p")
-        flash_attention_p.launches += 1
-        mode = mode_of(causal, window, sq, skv)
-        flash_attention_p.modes[mode] = flash_attention_p.modes.get(mode,
-                                                                    0) + 1
     # a meta tensor (the dry run's shapes) is checked as for a launch and
     # noted, with no launch
-    if _build.records is not None:
+    if trace.active():
         note()
     return out
 
 
-flash_attention_p.launches = 0
-# the launches by mode (:func:`mode_of`), counted with ``launches``
-flash_attention_p.modes = {}
-
-
 def mode_of(causal: bool, window: int, sq: int, skv: int) -> str:
-    """The mode a launch is counted under in ``flash_attention_p.modes``:
-    'causal' or 'full', '+window' with a window, ' Sq!=Skv' where the
-    queries and keys differ in length (cross-attention)."""
+    """A launch's mode: 'causal' or 'full', '+window' with a window,
+    ' Sq!=Skv' where the queries and keys differ in length
+    (cross-attention)."""
     return (("causal" if causal else "full") + ("+window" if window else "")
             + ("" if sq == skv else " Sq!=Skv"))

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import _build
 
 KINDS = {"layer": 1, "rms": 2}
@@ -78,6 +79,7 @@ def rownorm(x, gamma, beta=None, *, kind: str, eps: float):
     return y
 
 
+@trace.traced("kernel.layernorm")
 def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
                 beta: torch.Tensor = None, *, eps: float = 1e-6,
                 kind: str = "layer") -> torch.Tensor:
@@ -89,16 +91,14 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"kind must be 'layer' or 'rms', not {kind!r}")
 
     def note():
-        """The call's record (when recording); ``launched`` False off the
-        card (a CPU or meta tensor)."""
-        _build.note("layernorm", pick_design(*x.shape, x.dtype),
-                    dict(x=x, gamma=gamma, beta=beta, out=out),
-                    launched=out.is_cuda)
+        """The call's record and counts (``trace.note``)."""
+        trace.note("layernorm", pick_design(*x.shape, x.dtype),
+                   dict(x=x, gamma=gamma, beta=beta, out=out), out.device)
 
     if x.is_cpu:
-        with _build.plain_call():
+        with trace.plain_call():
             out = rownorm(x, gamma, beta, kind=kind, eps=eps).to(x.dtype)
-        if _build.records is not None and x.dim() == 2 and x.dtype in (
+        if trace.records is not None and x.dim() == 2 and x.dtype in (
                 torch.float32, torch.bfloat16):
             note()
         return out
@@ -124,7 +124,7 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
                 raise ValueError(f"layernorm_p: tensors on {t.device} and "
                                  f"{x.device}")
         out = torch.empty((m, d), dtype=x.dtype, device="meta")
-        if _build.records is not None and m:
+        if m and trace.active():
             note()
         return out
     if not x.is_cuda:
@@ -160,10 +160,6 @@ def layernorm_p(x: torch.Tensor, gamma: torch.Tensor,
                       _build.raw_stream(idx))
         if err:
             _build.check(err, "layernorm_p")
-        layernorm_p.launches += 1
-        if _build.records is not None:
+        if trace.active():
             note()
     return out
-
-
-layernorm_p.launches = 0

@@ -21,7 +21,9 @@ picked by :func:`pick_design` from M and the dtype:
 
 For a CPU tensor it runs the plain :func:`ref.pipeline_ref`; for a
 ``meta`` tensor it checks the call as for a launch and returns the empty
-output (``_build.check_cuda``). Operands
+output (``_build.check_cuda``). Each call is the span
+``kernel.rowwise_matmul`` of the port's trace (``core/trace.py``),
+noted there with its design. Operands
 are taken with their row strides (unit column stride), so the halves of
 a pre-fused weight panel need no copy; biases and norm gains are read in
 the dtype they are stored in (fp32 or bf16).
@@ -33,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.rowwise import H100
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.layernorm import KINDS
@@ -95,6 +98,19 @@ def norm_prologue_fits(m: int, k: int, dtype: torch.dtype) -> bool:
     """Whether a call of M rows of K in ``dtype`` keeps its norm in the
     kernel's prologue: the skinny design, up to :data:`SKINNY_NORM_MAX_K`."""
     return pick_design(m, dtype) == "skinny" and k <= SKINNY_NORM_MAX_K
+
+
+def tma_masked(x: torch.Tensor, w: torch.Tensor,
+               w_gate: Optional[torch.Tensor] = None) -> bool:
+    """Whether the wgmma design loads an operand of this call by masked
+    copies: TMA takes an operand whose base and row stride are 16-byte
+    aligned (``encode`` in ``csrc/rowwise_matmul_wgmma.cu``), x in every
+    dtype, w and w_gate in bf16 (an int8 w is transposed on the way in,
+    never by TMA)."""
+    operands = (x,) if x.dtype == torch.int8 else (x, w, w_gate)
+    return any(t is not None and (t.data_ptr() % 16 or
+                                  t.stride(0) * t.element_size() % 16)
+               for t in operands)
 
 
 def _rows(name, t, shape):
@@ -174,6 +190,7 @@ def _skinny_plan(dev, m, n, k, gated):
     return splits, kc, work, counters
 
 
+@trace.traced("kernel.rowwise_matmul")
 def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                      bias: Optional[torch.Tensor] = None,
                      x_scale: Optional[torch.Tensor] = None,
@@ -212,27 +229,27 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                          "and gamma")
     out_dtype = out_dtype or (torch.float32 if int8 else x.dtype)
 
-    def note(design, splits=None):
-        """The call's record (when recording): off the card (a CPU or
-        meta tensor) ``launched`` False and the K splits of an H100."""
+    def note(design, splits=None, masked=False):
+        """The call's record and counts (``trace.note``): off the card (a
+        CPU or meta tensor) the K splits of an H100."""
         if splits is None:
             n, k = w.shape[1], x.shape[1]
             splits = (skinny_splits(n, k, w_gate is not None, H100.sms)[0]
                       if design == "skinny" and n and k else 0)
-        _build.note("rowwise_matmul", design, dict(
+        trace.note("rowwise_matmul", design, dict(
             x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
             residual=residual, gamma=gamma, pbeta=pbeta, x_scale=x_scale,
             w_scale=w_scale, wg_scale=wg_scale, out=out),
-            launched=out.is_cuda, prologue=prologue, splits=splits)
+            out.device, masked=masked, prologue=prologue, splits=splits)
 
     if x.device.type == "cpu":
-        with _build.plain_call():
+        with trace.plain_call():
             out = ref.pipeline_ref(
                 x, w, bias=bias, activation=activation, w_gate=w_gate,
                 bias_gate=bias_gate, residual=residual, norm_kind=prologue,
                 gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
                 x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
-        if _build.records is not None and x.dtype in _DT:
+        if trace.records is not None and x.dtype in _DT:
             note(pick_design(x.shape[0], x.dtype))
         return out
 
@@ -274,7 +291,7 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
         return out
     if dev.type == "meta":
         # shapes alone (the dry run's): checked as for a launch, no launch
-        if _build.records is not None:
+        if trace.active():
             note(design)
         return out
     splits = kc = 0
@@ -297,10 +314,6 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
         _DT[out_dtype], vec_bits, splits, kc, eps, DESIGNS[design],
         _build.stream(dev))
     _build.check(err, "rowwise_matmul_p")
-    rowwise_matmul_p.launches += 1
-    if _build.records is not None:
-        note(design, splits)
+    if trace.active():
+        note(design, splits, design == "wgmma" and tma_masked(x, w, w_gate))
     return out
-
-
-rowwise_matmul_p.launches = 0

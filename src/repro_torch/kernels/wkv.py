@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import _build
 
 CHUNK = 16
@@ -47,6 +48,7 @@ def pick_design(s: int) -> str:
     return "step" if s <= STEP_PICK_S else "chunk"
 
 
+@trace.traced("kernel.wkv")
 def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           lw: torch.Tensor, u: torch.Tensor, *,
           s0: Optional[torch.Tensor] = None, chunk: int = CHUNK):
@@ -56,20 +58,19 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     design is :func:`pick_design`'s for S."""
 
     def note():
-        """The call's record (when recording); ``launched`` False off the
-        card (a CPU or meta tensor)."""
-        _build.note("wkv", pick_design(r.shape[1]),
-                    dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0, y=y, s_fin=s_fin),
-                    launched=y.is_cuda)
+        """The call's record and counts (``trace.note``)."""
+        trace.note("wkv", pick_design(r.shape[1]),
+                   dict(r=r, k=k, v=v, lw=lw, u=u, s0=s0, y=y, s_fin=s_fin),
+                   y.device)
 
     if r.device.type == "cpu":
         from repro_torch.models.rwkv6 import wkv_chunked
-        with _build.plain_call():
+        with trace.plain_call():
             f = [t.to(torch.float32) for t in (r, k, v, lw, u)]
             y, s_fin = wkv_chunked(*f, chunk=chunk, s0=None if s0 is None
                                    else s0.to(torch.float32))
             y = y.to(r.dtype)
-        if _build.records is not None:
+        if trace.records is not None:
             note()
         return y, s_fin
     dev = _build.check_cuda("wkv_p", r, k, v, lw, u, s0)
@@ -117,12 +118,8 @@ def wkv_p(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             uf.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(),
             strides, b, s, h, p, dt, DESIGNS[design], _build.stream(dev))
         _build.check(err, "wkv_p")
-        wkv_p.launches += 1
     # a meta tensor (the dry run's shapes) is checked as for a launch and
     # noted, with no launch
-    if _build.records is not None:
+    if trace.active():
         note()
     return y, s_fin
-
-
-wkv_p.launches = 0

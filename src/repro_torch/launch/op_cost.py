@@ -7,7 +7,7 @@ The JAX package walks the compiled HLO. The port has none: it runs the
 call once under a ``TorchDispatchMode`` (the machinery of
 ``analysis/dispatch.py``) that sees every ATen op the call dispatches,
 on any device (``cuda``, ``cpu``, or ``meta`` for the dry run), and the
-kernel wrappers' launch records (``_build.recording``). It keeps the
+kernel wrappers' launch records (``trace.recording``). It keeps the
 fields of JAX's ``HLOCost``:
 
   * ``flops`` — JAX's HLO convention: every dot product counted
@@ -36,7 +36,7 @@ fields of JAX's ``HLOCost``:
     memory terms (``roofline.analyze``).
 
 On the CPU a wrapper runs its plain version as ATen ops: they are the
-kernel's (``_build.plain_call``), priced by its record, and left out of
+kernel's (``trace.plain_call``), priced by its record, and left out of
 the glue. On the card a launch makes no ATen op; on ``meta`` the wrapper
 returns an empty output. So the three devices give one walk of one call.
 
@@ -67,7 +67,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.kernels import _build
+from repro_torch.core import trace
 from repro_torch.launch import roofline
 
 COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -241,7 +241,7 @@ class OpWalk(TorchDispatchMode):
     def __enter__(self):
         from repro_torch.core import partitioning
         self._coll0 = partitioning.byte_counts()
-        self._rec_ctx = _build.recording()
+        self._rec_ctx = trace.recording()
         self.records = self._rec_ctx.__enter__()
         return super().__enter__()
 
@@ -307,7 +307,7 @@ class OpWalk(TorchDispatchMode):
         if fresh:
             self._track(fresh)
         name = func.overloadpacket.__name__
-        if (_build.plain_depth or name in FREE_OPS
+        if (trace.plain_depth or name in FREE_OPS
                 or func.namespace in _COLLECTIVE_NS):
             return out
         if any(r.alias_info is not None and not r.alias_info.is_write

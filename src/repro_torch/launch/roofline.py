@@ -78,8 +78,8 @@ def bound(flops: float, nbytes: float, dtype) -> Tuple[float, str]:
 def recording():
     """Record every kernel launch in the block (``with recording() as
     records:``); each record is priced by :func:`price`."""
-    from repro_torch.kernels import _build
-    return _build.recording()
+    from repro_torch.core import trace
+    return trace.recording()
 
 
 def _numel(shape) -> int:

@@ -45,6 +45,10 @@ the embedding, the head and the final norms where they are read), and
 :func:`loss_fn` reduces over the mesh; :func:`logical_specs` and
 :func:`cache_logical_specs` name every leaf's logical axes, the trees
 the JAX package's ``init_lm`` returns beside its parameters.
+
+:func:`prefill` is an entry point of the port's trace (``core/trace.py``):
+under it, the spans ``lm.embed``, ``lm.layer`` (one a block),
+``lm.unembed`` and ``lm.states_to_cache``.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import partitioning as part
-from repro_torch.core import quant, runtime
+from repro_torch.core import quant, runtime, trace
 from repro_torch.core.params import ParamTree, randn
 from repro_torch.core.types import ModelConfig, Stage
 from repro_torch.kernels import ops
@@ -321,11 +325,12 @@ def _run_stage(stage: Stage, sp, x, *, cfg: ModelConfig, mode: str,
                                                    shared[key]))
             csl = (_tree_map(lambda a, r=rep: a[r], cache[key])
                    if cache and key in cache else None)
-            x, io = blocks.apply_block(
-                blk, bp, x, cfg=cfg, mode=mode, positions=positions,
-                lengths=lengths, cache=csl, enc_out=enc_out, pages=pages,
-                chunk_len=chunk_len, targets=targets,
-                window_override=None if causal else 0)
+            with trace.span("lm.layer"):
+                x, io = blocks.apply_block(
+                    blk, bp, x, cfg=cfg, mode=mode, positions=positions,
+                    lengths=lengths, cache=csl, enc_out=enc_out,
+                    pages=pages, chunk_len=chunk_len, targets=targets,
+                    window_override=None if causal else 0)
             aux = aux + io.aux
             state = (io.new_cache if mode in ("decode", "chunk")
                      else io.prefill_state)
@@ -370,6 +375,7 @@ def _run_stages(stage_params, stages, x, *, cache=None, **kw):
 # ----------------------------------------------------------------------
 
 
+@trace.traced("lm.embed")
 def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
     """The token rows of the table; a vision arch's ``extra["vis_embeds"]``
     (B, n_patches, d) over the first ``n_patches`` rows, in the table's
@@ -388,6 +394,7 @@ def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
     return x
 
 
+@trace.traced("lm.unembed")
 def unembed(params, x, cfg: ModelConfig):
     fn = _tree_map(part.gathered, params["final_norm"])
     x = ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
@@ -656,6 +663,7 @@ def _ring_from_prefill(k, window):
     return k[:, :, p[torch.argsort(p % window)]]
 
 
+@trace.traced("lm.states_to_cache")
 def states_to_cache(cfg: ModelConfig, all_states, alloc: int):
     """Prefill states -> decode cache: a global layer's KV padded with
     zeros to ``alloc`` positions, a windowed layer's as its ring of
@@ -723,6 +731,7 @@ def prefill_states(params, tokens, cfg: ModelConfig, *,
     return logits[:, 0], states
 
 
+@trace.traced("lm.prefill", is_entry=True)
 def prefill(params, tokens, cfg: ModelConfig, *,
             extra: Optional[dict] = None, alloc: Optional[int] = None):
     """Full-sequence prefill -> (last-position logits, dense cache of

@@ -12,6 +12,10 @@ mask) as an additive score operand. With fusion off, the per-op
 composition runs: separate norm kernels, dense 49x49 window scores in
 plain torch, residual adds outside the kernels.
 
+``swin_forward`` is an entry point of the port's trace
+(``core/trace.py``): under it, the spans ``vision.stage``,
+``vision.block``, ``vision.merge`` and ``vision.head``.
+
 The functional forwards take a parameter tree of nested dicts and lists
 of tensors, the same tree as the JAX package's (``from_jax_params``
 converts one); the ``nn.Module`` wrappers hold such a tree as
@@ -26,7 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.swin_t import CONFIG, VIT_CONFIG, SwinConfig, ViTConfig
-from repro_torch.core import runtime
+from repro_torch.core import runtime, trace
 from repro_torch.core.params import ParamTree
 from repro_torch.kernels import ops
 
@@ -204,45 +208,52 @@ def _swin_block_fused(blk, x, heads, w, shift, rel_idx, mask):
                       residual=xf).reshape(x.shape)
 
 
+def _swin_block(blk, x, heads, w, shift, rel_idx, mask):
+    """One Swin block as the per-op composition (fusion off)."""
+    c = x.shape[-1]
+    res = x
+    xn = ops.layernorm(x.reshape(-1, c), blk["ln1_g"],
+                       blk["ln1_b"]).reshape(x.shape)
+    x = res + _wmsa(blk, xn, heads, w, shift, rel_idx, mask)
+    res = x
+    xn = ops.layernorm(x.reshape(-1, c), blk["ln2_g"],
+                       blk["ln2_b"]).reshape(x.shape)
+    hdn = ops.matmul(xn, blk["mlp1"], bias=blk["mlp1_b"], activation="gelu")
+    return res + ops.matmul(hdn, blk["mlp2"], bias=blk["mlp2_b"])
+
+
+@trace.traced("vision.swin_forward", is_entry=True)
 def swin_forward(params, images, cfg: SwinConfig):
     """images: (B, H, W, 3) -> logits (B, classes), fp32."""
     w = cfg.window
     x = ops.patch_embed(images, params["patch_w"], params["patch_b"],
                         patch=cfg.patch)          # (B, H/4, W/4, D)
     rel_idx = _rel_pos_index(w, x.device)
-    fuse = runtime.pipeline_fusion()
+    block = (_swin_block_fused if runtime.pipeline_fusion()
+             else _swin_block)
     for si, (_depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
         stage = params["stages"][si]
-        b, h, wd, c = x.shape
-        mask = _shift_mask(h, wd, w, w // 2, x.device) if h > w else None
-        for bi, blk in enumerate(stage["blocks"]):
-            shift = (w // 2) if (bi % 2 == 1 and h > w) else 0
-            if fuse:
-                x = _swin_block_fused(blk, x, heads, w, shift, rel_idx,
-                                      mask)
-                continue
-            res = x
-            xn = ops.layernorm(x.reshape(-1, c), blk["ln1_g"],
-                               blk["ln1_b"]).reshape(x.shape)
-            x = res + _wmsa(blk, xn, heads, w, shift, rel_idx, mask)
-            res = x
-            xn = ops.layernorm(x.reshape(-1, c), blk["ln2_g"],
-                               blk["ln2_b"]).reshape(x.shape)
-            hdn = ops.matmul(xn, blk["mlp1"], bias=blk["mlp1_b"],
-                             activation="gelu")
-            x = res + ops.matmul(hdn, blk["mlp2"], bias=blk["mlp2_b"])
-        if "merge" in stage:
+        with trace.span("vision.stage"):
             b, h, wd, c = x.shape
-            x = x.reshape(b, h // 2, 2, wd // 2, 2, c)
-            x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, wd // 2,
-                                                    4 * c)
-            x = ops.matmul(x, stage["merge"])
-    b, h, wd, c = x.shape
-    x = ops.layernorm(x.reshape(-1, c), params["norm_g"],
-                      params["norm_b"]).reshape(b, h * wd, c)
-    x = torch.mean(x, dim=1)
-    return ops.matmul(x, params["head"], bias=params["head_b"],
-                      out_dtype=torch.float32)
+            mask = _shift_mask(h, wd, w, w // 2, x.device) if h > w else None
+            for bi, blk in enumerate(stage["blocks"]):
+                shift = (w // 2) if (bi % 2 == 1 and h > w) else 0
+                with trace.span("vision.block"):
+                    x = block(blk, x, heads, w, shift, rel_idx, mask)
+            if "merge" in stage:
+                with trace.span("vision.merge"):
+                    b, h, wd, c = x.shape
+                    x = x.reshape(b, h // 2, 2, wd // 2, 2, c)
+                    x = x.permute(0, 1, 3, 2, 4, 5).reshape(
+                        b, h // 2, wd // 2, 4 * c)
+                    x = ops.matmul(x, stage["merge"])
+    with trace.span("vision.head"):
+        b, h, wd, c = x.shape
+        x = ops.layernorm(x.reshape(-1, c), params["norm_g"],
+                          params["norm_b"]).reshape(b, h * wd, c)
+        x = torch.mean(x, dim=1)
+        return ops.matmul(x, params["head"], bias=params["head_b"],
+                          out_dtype=torch.float32)
 
 
 # ------------------------------- ViT ----------------------------------

@@ -46,6 +46,16 @@ def rng():
     return np.random.default_rng(0)
 
 
+@pytest.fixture
+def trace_on():
+    """The test runs inside the port's ``trace.recording()``, so every
+    kernel call it makes is recorded and its launch counters move;
+    yields the records."""
+    from repro_torch.core import trace
+    with trace.recording() as records:
+        yield records
+
+
 def manual_greedy(params, cfg, prompt, n_new, max_len):
     """Dense-cache greedy decode: the serving engines' parity oracle."""
     logits, cache = lm.prefill(params, prompt[None], cfg, alloc=max_len)

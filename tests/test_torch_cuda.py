@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
-from repro_torch.core import quant, runtime
+from repro_torch.core import quant, runtime, trace
 from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
@@ -32,12 +32,30 @@ from repro_torch.models import lm, rwkv6, vision
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _recording():
+    """Every test runs inside the port's trace.recording(): the launch
+    counters the tests read move."""
+    with trace.recording():
+        yield
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _counts(kernels):
+    """The launches counted of each kernel."""
+    return [trace.launches(k) for k in kernels]
+
+
+def _since(kernels, before):
+    """The launches of each kernel since ``before`` (:func:`_counts`)."""
+    return [trace.launches(k) - b for k, b in zip(kernels, before)]
 
 
 def _close(got, want, tol=1e-4):
@@ -69,9 +87,9 @@ def test_matmul_kernel(dev, mode, shape):
     if mode.pop("residual", False):
         kw["residual"] = r(m, n)
     x, w = r(m, k), r(k, n, scale=k ** -0.5)
-    before = rowwise_matmul_p.launches
+    before = trace.launches("rowwise_matmul")
     got = rowwise_matmul_p(x, w, **kw)
-    assert rowwise_matmul_p.launches == before + 1
+    assert trace.launches("rowwise_matmul") == before + 1
     want = ref.pipeline_ref(x, w, norm_kind=kw.pop("prologue"),
                             beta=kw.pop("pbeta", None), **kw)
     _close(got, want)
@@ -171,9 +189,9 @@ def test_matmul_designs(dev, dtype, shape, mode):
     if dtype == torch.int8 and "prologue" in mode:
         pytest.skip("the int8 mode has no norm prologue (JAX asserts it)")
     x, w, kw, want = _matmul_case(dev, m, k, n, dtype, mode)
-    before = rowwise_matmul_p.launches
+    before = trace.launches("rowwise_matmul")
     got = rowwise_matmul_p(x, w, **kw)
-    assert rowwise_matmul_p.launches == before + 1
+    assert trace.launches("rowwise_matmul") == before + 1
     _close(got, want, TOLS[dtype])
 
 
@@ -277,10 +295,10 @@ def test_norm_prologue_either_side(dev, monkeypatch, dtype, m, kind):
         for fn in (lambda: ops.matmul(x, w, norm=norm),
                    lambda: ops.gate_up_proj(x, wgi, activation="gelu",
                                             norm=norm)):
-            before = (rowwise_matmul_p.launches, layernorm_p.launches)
+            before = _counts(("rowwise_matmul", "layernorm"))
             got = fn()
-            assert (rowwise_matmul_p.launches - before[0],
-                    layernorm_p.launches - before[1]) == (1, splits)
+            assert _since(("rowwise_matmul", "layernorm"), before) == [
+                1, splits]
             with runtime.use_impl("ref"):
                 want = fn()
             _close(got, want, TOLS[dtype])
@@ -389,9 +407,10 @@ def test_attention_kernel(dev, name, dtype):
     v = torch.randn(b, hkv, skv, hd, generator=g).to(dev, dtype)
     bias = (torch.randn(nb, hq, sq, skv, generator=g).to(dev, bias_dtype)
             if nb else None)
-    before = flash_attention_p.launches
+    before = trace.launches("flash_attention")
     got = flash_attention_p(q, k, v, bias=bias, **case)
-    assert flash_attention_p.launches == before + 1 and got.dtype == dtype
+    assert trace.launches("flash_attention") == before + 1
+    assert got.dtype == dtype
     want = ref.attention_ref(q.float(), k.float(), v.float(), bias=bias,
                              **case)
     _close(got, want, TOLS[dtype])
@@ -536,9 +555,9 @@ def test_layernorm_designs(dev, monkeypatch, design, dtype, shape):
     assert ln.pick_design(m, d, dtype) == (
         "cta" if design == "cta" or d > ln.ROWS_MAX_D[dtype] else "rows")
     for kind, with_beta, vec in LN_MODES:
-        before = layernorm_p.launches
+        before = trace.launches("layernorm")
         _ln_check(*_ln_inputs(dev, m, d, dtype, vec, with_beta), kind)
-        assert layernorm_p.launches == before + 2
+        assert trace.launches("layernorm") == before + 2
 
 
 @pytest.mark.parametrize("design", ["cta", "rows"])
@@ -611,9 +630,9 @@ def _wkv_inputs(dev, shape, dtype, with_s0, seed=4):
 
 def _wkv_check(dev, shape, dtype, with_s0):
     r, k, v, lw, u, s0 = _wkv_inputs(dev, shape, dtype, with_s0)
-    before = wkv_p.launches
+    before = trace.launches("wkv")
     y, s_fin = wkv_p(r, k, v, lw, u, s0=s0)
-    assert wkv_p.launches == before + 1
+    assert trace.launches("wkv") == before + 1
     assert y.dtype == dtype and s_fin.dtype == torch.float32
     want_y, want_s = rwkv6.wkv_chunked(*(t.float() for t in (r, k, v, lw)),
                                        u, s0=s0)
@@ -691,9 +710,9 @@ def test_rwkv_prefill_and_decode_on_kernels(dev):
         _close(got, want, 1e-3)
         lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
         for t in range(21, 24):
-            before = wkv_p.launches
+            before = trace.launches("wkv")
             got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
-            assert wkv_p.launches == before + cfg.n_layers
+            assert trace.launches("wkv") == before + cfg.n_layers
             with runtime.use_impl("ref"):
                 want, want_cache = model.decode_step(
                     want_cache, toks[:, t:t + 1], lengths)
@@ -730,20 +749,20 @@ def test_dense_prefill_and_decode_on_kernels(dev, arch):
             for t in norm.values():
                 t.add_(0.1 * torch.randn(t.shape, generator=g).to(dev))
     toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
-    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    counts = ("rowwise_matmul", "flash_attention", "layernorm")
     with torch.no_grad():
-        before = [k.launches for k in counts]
+        before = _counts(counts)
         got, cache = model.prefill(toks[:, :21], alloc=24)
-        assert [k.launches - b for k, b in zip(counts, before)] == [
+        assert _since(counts, before) == [
             4 * cfg.n_layers + 1, cfg.n_layers, 1 + 2 * cfg.n_layers]
         with runtime.use_impl("ref"):
             want, want_cache = model.prefill(toks[:, :21], alloc=24)
         _close(got, want, 1e-3)
         lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
         for t in range(21, 24):
-            before = [k.launches for k in counts]
+            before = _counts(counts)
             got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
-            assert [k.launches - b for k, b in zip(counts, before)] == [
+            assert _since(counts, before) == [
                 4 * cfg.n_layers + 1, 0, 1]
             with runtime.use_impl("ref"):
                 want, want_cache = model.decode_step(
@@ -784,7 +803,7 @@ def test_hybrid_and_moe_on_kernels(dev, arch):
                 for t in vecs:
                     t.add_(0.3 * torch.randn(t.shape, generator=g).to(dev))
     toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
-    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    counts = ("rowwise_matmul", "flash_attention", "layernorm")
     d, L = cfg.d_model, cfg.n_layers
 
     def want(rows, prefill):
@@ -797,18 +816,18 @@ def test_hybrid_and_moe_on_kernels(dev, arch):
         return [2 * mamba + 4 * attn + 1, attn if prefill else 0,
                 2 * mamba + 2 * split * attn + 1]
     with torch.no_grad():
-        before = [k.launches for k in counts]
+        before = _counts(counts)
         got, cache = model.prefill(toks[:, :21], alloc=24)
-        assert [k.launches - b for k, b in zip(counts, before)] == want(
+        assert _since(counts, before) == want(
             42, True)
         with runtime.use_impl("ref"):
             want_lg, want_cache = model.prefill(toks[:, :21], alloc=24)
         _close(got, want_lg, 1e-3)
         lengths = torch.full((2,), 21, dtype=torch.int32, device=dev)
         for t in range(21, 24):
-            before = [k.launches for k in counts]
+            before = _counts(counts)
             got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
-            assert [k.launches - b for k, b in zip(counts, before)] == want(
+            assert _since(counts, before) == want(
                 2, False)
             with runtime.use_impl("ref"):
                 want_lg, want_cache = model.decode_step(
@@ -858,20 +877,20 @@ def test_window_and_encdec_on_kernels(dev, arch):
     else:
         pre = [4 * L + 1, L, 1 + 2 * L]
         step = [4 * L + 1, 0, 1]
-    counts = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    counts = ("rowwise_matmul", "flash_attention", "layernorm")
     with torch.no_grad():
-        before = [k.launches for k in counts]
+        before = _counts(counts)
         got, cache = model.prefill(toks[:, :s], alloc=s + steps, extra=extra)
-        assert [k.launches - n for k, n in zip(counts, before)] == pre
+        assert _since(counts, before) == pre
         with runtime.use_impl("ref"):
             want, want_cache = model.prefill(toks[:, :s], alloc=s + steps,
                                              extra=extra)
         _close(got, want, 1e-3)
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         for t in range(s, s + steps):
-            before = [k.launches for k in counts]
+            before = _counts(counts)
             got, cache = model.decode_step(cache, toks[:, t:t + 1], lengths)
-            assert [k.launches - n for k, n in zip(counts, before)] == step
+            assert _since(counts, before) == step
             with runtime.use_impl("ref"):
                 want, want_cache = model.decode_step(
                     want_cache, toks[:, t:t + 1], lengths)
@@ -903,15 +922,14 @@ def _paged_schedule(model, toks, dev):
     cache = lm.init_paged_cache(cfg, 2, 64, page_size=ps, n_pages=40,
                                 dtype=torch.float32, device=dev)
     tables = torch.arange(32, dtype=torch.int32, device=dev).reshape(2, 16)
-    kernels = (rowwise_matmul_p, flash_attention_p, layernorm_p)
+    kernels = ("rowwise_matmul", "flash_attention", "layernorm")
     out, counts = [], []
 
     def run(kind, fn):
-        before = [k.launches for k in kernels]
+        before = _counts(kernels)
         lg, cache = fn()
         torch.cuda.synchronize()
-        counts.append((kind, [k.launches - b for k, b in zip(kernels,
-                                                            before)]))
+        counts.append((kind, _since(kernels, before)))
         out.append(lg)
         return cache
 
@@ -1082,7 +1100,7 @@ def test_matmul_grads_on_kernels(dev, dtype, k):
         dev, dtype, 0, (2, 3, k), (k, 96), (96,), (2, 3, 96), (k,),
         (k, 192), (192,))
     norm = ops.NormSpec("rms", gamma)
-    before = rowwise_matmul_p.launches
+    before = trace.launches("rowwise_matmul")
     for call, ins in (
             (lambda: ops.matmul(x, w, bias=bias, residual=res, norm=norm),
              [x, w, bias, res, gamma]),
@@ -1094,7 +1112,7 @@ def test_matmul_grads_on_kernels(dev, dtype, k):
         want = _grads(call, ins, "ref")
         for a, b in zip(got, want):
             _close(a, b, tol)
-    assert rowwise_matmul_p.launches == before + 3
+    assert trace.launches("rowwise_matmul") == before + 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1108,11 +1126,11 @@ def test_attention_group6_on_kernels(dev, dtype, window):
     tol = TOLS[dtype]
     q, k, v = _leaves_on(dev, dtype, 1, (2, 12, 333, 128), (2, 2, 333, 128),
                          (2, 2, 333, 128), scale=1.0)
-    before = flash_attention_p.launches
+    before = trace.launches("flash_attention")
     with torch.no_grad():
         got = flash_attention_p(q, k, v, causal=True, window=window)
         want = ref.attention_ref(q, k, v, causal=True, window=window)
-    assert flash_attention_p.launches == before + 1
+    assert trace.launches("flash_attention") == before + 1
     _close(got, want, tol)
 
     def call():
@@ -1141,9 +1159,9 @@ def test_layernorm_and_wkv_grads_on_kernels(dev, dtype):
                             (2, 40, 4, 64), (4, 64))
     lw = (-torch.rand(2, 40, 4, 64, device=dev) - 0.1).to(dtype) \
         .requires_grad_(True)
-    before = wkv_p.launches
+    before = trace.launches("wkv")
     got = _grads(lambda: ops.wkv(r, k, v, lw, u), [r, k, v, lw, u], "auto")
-    assert wkv_p.launches == before + 1
+    assert trace.launches("wkv") == before + 1
     want = _grads(lambda: ops.wkv(r.float(), k.float(), v.float(),
                                   lw.float(), u.float()),
                   [r, k, v, lw, u], "ref")

@@ -35,11 +35,8 @@ from repro.models import mlp as jmlp
 from repro.models import rope as jrope
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import from_jax_params
-from repro_torch.core import runtime
+from repro_torch.core import runtime, trace
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_p
-from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.models import attention, blocks, lm, mlp, rope
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -65,8 +62,8 @@ def _close(port, want, tol=TOL):
 
 
 def _counts():
-    return (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches)
+    return (trace.launches("rowwise_matmul"),
+            trace.launches("flash_attention"), trace.launches("layernorm"))
 
 
 def _tokens(seed, shape, vocab=256):
@@ -278,7 +275,7 @@ def test_forward_matches_jax(arch):
 
 @pytest.mark.parametrize("jimpl", ["ref", "interpret"])
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_prefill_and_decode_match_jax(arch, jimpl):
+def test_prefill_and_decode_match_jax(arch, jimpl, trace_on):
     """Prefill of 21 tokens into a cache of alloc=24, then three decode
     steps: logits and every cache leaf (k and v, padding included),
     held against JAX's plain path and, for the prefill, its Pallas

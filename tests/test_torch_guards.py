@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.configs.swin_t import reduced
-from repro_torch.core import runtime
+from repro_torch.core import runtime, trace
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
@@ -229,20 +229,26 @@ def test_wrappers_refuse_what_no_kernel_takes():
         with pytest.raises(ValueError, match="no kernel"):
             _build.check_cuda("wrapper", t)
     # meta tensors (the dry run's, shapes alone) pass the checks and get
-    # an empty output of the kernel's shape: no launch, no value
-    launches = (rowwise_matmul_p.launches, flash_attention_p.launches,
-                layernorm_p.launches, wkv_p.launches)
+    # an empty output of the kernel's shape: no launch and no value, each
+    # call counted once as the card's launch it stands for
     q = torch.randn(1, 2, 4, 16, device="meta")
     r = torch.randn(1, 5, 2, 16, device="meta")
-    outs = [rowwise_matmul_p(x.to("meta"), w.to("meta")),
-            flash_attention_p(q, q, q),
-            layernorm_p(x.to("meta"), torch.ones(8, device="meta")),
-            *wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))]
+    with trace.recording() as recs:
+        launches = _launch_counts()
+        outs = [rowwise_matmul_p(x.to("meta"), w.to("meta")),
+                flash_attention_p(q, q, q),
+                layernorm_p(x.to("meta"), torch.ones(8, device="meta")),
+                *wkv_p(r, r, r, r, torch.ones(2, 16, device="meta"))]
+        assert _launch_counts() == tuple(n + 1 for n in launches)
     assert [tuple(o.shape) for o in outs] == [(4, 6), (1, 2, 4, 16), (4, 8),
                                               (1, 5, 2, 16), (1, 2, 16, 16)]
     assert all(o.is_meta for o in outs)
-    assert (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches, wkv_p.launches) == launches
+    assert len(recs) == 4 and not any(r["launched"] for r in recs)
+
+
+def _launch_counts():
+    return tuple(trace.launches(k) for k in (
+        "rowwise_matmul", "flash_attention", "layernorm", "wkv"))
 
 
 def _meta(*shape, dtype=torch.float32, grad=False):
@@ -277,45 +283,45 @@ def test_layernorm_wrapper_refuses(case):
     a launch makes, and past them get an empty output); under no_grad a
     gradient is no bar."""
     _name, error, call = case
-    before = layernorm_p.launches
-    with pytest.raises(error):
-        call()
-    if error is NotImplementedError:
-        with torch.no_grad():
-            out = call()
-        assert out.is_meta and tuple(out.shape) == (4, 8)
-    assert layernorm_p.launches == before
+    with trace.recording():
+        before = trace.launches("layernorm")
+        with pytest.raises(error):
+            call()
+        assert trace.launches("layernorm") == before
+        if error is NotImplementedError:
+            with torch.no_grad():
+                out = call()
+            assert out.is_meta and tuple(out.shape) == (4, 8)
+            # counted as the launch the meta call stands for
+            assert trace.launches("layernorm") == before + 1
 
 
-def test_cpu_path_builds_nothing():
-    def counts():
-        return (rowwise_matmul_p.launches, flash_attention_p.launches,
-                layernorm_p.launches, wkv_p.launches)
-
-    before = counts()
+def test_cpu_path_builds_nothing(trace_on):
+    before = _launch_counts()
     rowwise_matmul_p(torch.randn(4, 8), torch.randn(8, 6))
     q = torch.randn(1, 2, 4, 16)
     flash_attention_p(q, q, q)
     layernorm_p(torch.randn(4, 8), torch.ones(8))
     r = -torch.rand(1, 5, 2, 16)
     wkv_p(r, r, r, r, torch.ones(2, 16))
-    assert counts() == before
+    assert _launch_counts() == before
     assert _build.library.cache_info().currsize == 0
 
 
-def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch):
+def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch,
+                                                      trace_on):
     """A CPU int8 call runs the plain version and builds nothing; an int8
     call on any other device goes to the kernel path (here a meta call:
-    checked, answered with an empty output, no launch), never to the
-    plain version."""
+    checked, answered with an empty output, no launch, counted as the
+    launch it stands for), never to the plain version."""
     from repro_torch.kernels import ref
     xq = torch.randint(-127, 128, (4, 8), dtype=torch.int8)
     wq = torch.randint(-127, 128, (8, 6), dtype=torch.int8)
     xs, ws = torch.rand(4, 1), torch.rand(1, 6)
-    before = rowwise_matmul_p.launches
+    before = trace.launches("rowwise_matmul")
     out = rowwise_matmul_p(xq, wq, x_scale=xs, w_scale=ws)
     assert out.dtype == torch.float32 and out.shape == (4, 6)
-    assert rowwise_matmul_p.launches == before
+    assert trace.launches("rowwise_matmul") == before
     assert _build.library.cache_info().currsize == 0
 
     def plain(*args, **kw):
@@ -324,7 +330,8 @@ def test_int8_takes_the_plain_version_only_on_the_cpu(monkeypatch):
     out = rowwise_matmul_p(xq.to("meta"), wq.to("meta"),
                            x_scale=xs.to("meta"), w_scale=ws.to("meta"))
     assert out.is_meta and out.dtype == torch.float32 and out.shape == (4, 6)
-    assert rowwise_matmul_p.launches == before
+    # counted as the launch the meta call stands for
+    assert trace.launches("rowwise_matmul") == before + 1
     assert _build.library.cache_info().currsize == 0
 
 

@@ -31,8 +31,7 @@ from repro.models import lm as jlm
 from repro.models import mamba2 as jmamba2
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import from_jax_params
-from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+from repro_torch.core import trace
 from repro_torch.models import lm, mamba2
 
 ARCH = "zamba2-1.2b"
@@ -106,7 +105,7 @@ def model():
 
 
 def _counts():
-    return rowwise_matmul_p.launches, layernorm_p.launches
+    return trace.launches("rowwise_matmul"), trace.launches("layernorm")
 
 
 # ------------------------------- SSD ----------------------------------
@@ -249,7 +248,7 @@ def test_forward_matches_jax(model):
 
 
 @pytest.mark.parametrize("jimpl", ["ref", "interpret"])
-def test_prefill_and_decode_match_jax(model, jimpl):
+def test_prefill_and_decode_match_jax(model, jimpl, trace_on):
     """Prefill at S = 21 into a cache of 24, then three decode steps:
     the logits and every cache leaf (each Mamba layer's ``conv`` and
     ``ssm``, the shared block's KV per repeat), held against JAX's

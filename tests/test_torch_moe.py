@@ -36,11 +36,8 @@ from repro.models import lm as jlm
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import from_jax_params
-from repro_torch.core import quant
+from repro_torch.core import quant, trace
 from repro_torch.core.types import ModelConfig, MoEConfig
-from repro_torch.kernels.flash_attention import flash_attention_p
-from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.models import lm, moe
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -289,14 +286,13 @@ def test_quantized_expert_tree():
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_forward_prefill_decode_match_jax(arch):
+def test_forward_prefill_decode_match_jax(arch, trace_on):
     """Forward (logits and the aux loss), then prefill at S = 13 into a
     cache of 16 and three decode steps: logits and every KV leaf. CPU
     tensors launch no kernel."""
     jcfg, tcfg, jparams, tparams, _ = _model(arch)
     toks = _tokens(9, (2, 16))
-    before = (rowwise_matmul_p.launches, flash_attention_p.launches,
-              layernorm_p.launches)
+    before = trace.launches()
     with jruntime.use_impl("ref"):
         want, jaux = jlm.forward(jparams, jnp.asarray(toks), jcfg,
                                  remat=False)
@@ -325,8 +321,7 @@ def test_forward_prefill_decode_match_jax(arch):
                                 jax.tree_util.tree_leaves(jcache)):
             _close(tleaf, jleaf)
         jlen, tlen = jlen + 1, tlen + 1
-    assert (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches) == before
+    assert trace.launches() == before
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

@@ -34,6 +34,7 @@ from repro.models import lm as jlm
 from repro.train import step as jstep
 from repro_torch.configs import get_reduced
 from repro_torch.convert import from_jax_params
+from repro_torch.core import trace
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
@@ -328,34 +329,37 @@ def _wrapper_cases():
 
 
 def _launches():
-    return (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches, wkv_p.launches)
+    return tuple(trace.launches(k) for k in (
+        "rowwise_matmul", "flash_attention", "layernorm", "wkv"))
 
 
 @pytest.mark.parametrize("name", list(_wrapper_cases()))
 def test_meta_branch_notes_the_cpu_record(name, monkeypatch):
     call, tensors = _wrapper_cases()[name]
-    before = _launches()
     out, cpu, mout, mrec = _cpu_and_meta(call, *tensors)
     assert mrec == cpu and len(cpu) == 1 and not cpu[0]["launched"]
     outs = out if isinstance(out, tuple) else (out,)
     mouts = mout if isinstance(mout, tuple) else (mout,)
     for a, m in zip(outs, mouts):
         assert m.is_meta and m.shape == a.shape and m.dtype == a.dtype
-    # no plain version runs for a meta tensor, and nothing launches
+    # no plain version runs for a meta tensor, and nothing is built: the
+    # call is counted once, as the card's launch it stands for
     def plain(*args, **kw):
         raise AssertionError("a plain version ran for a meta tensor")
     for mod, fn in ((ref, "pipeline_ref"), (ref, "attention_ref"),
                     (rwkv6, "wkv_chunked")):
         monkeypatch.setattr(mod, fn, plain)
     monkeypatch.setattr("repro_torch.kernels.layernorm.rownorm", plain)
-    call(*[t.to("meta") for t in tensors])
-    assert _launches() == before
+    with trace.recording():
+        before = trace.launches(cpu[0]["kernel"])
+        call(*[t.to("meta") for t in tensors])
+        assert trace.launches(cpu[0]["kernel"]) == before + 1
     assert _build.library.cache_info().currsize == 0
 
 
 @pytest.mark.parametrize("name", list(_wrapper_cases()))
-def test_a_cuda_tensor_still_takes_the_launch_path(name, monkeypatch):
+def test_a_cuda_tensor_still_takes_the_launch_path(name, monkeypatch,
+                                                  trace_on):
     """A (fake) CUDA tensor goes to the launch path and raises on this
     machine, which has no card; it never takes the plain version."""
     if torch.cuda.is_available():

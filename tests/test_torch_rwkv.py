@@ -33,10 +33,8 @@ from repro.models import rope as jrope
 from repro.models import rwkv6 as jrwkv6
 from repro_torch.configs import PENDING, get_config, get_reduced
 from repro_torch.convert import from_jax_params
-from repro_torch.core import runtime
+from repro_torch.core import runtime, trace
 from repro_torch.kernels import ops
-from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.kernels.wkv import wkv_p
 from repro_torch.models import lm, mlp, rope, rwkv6
 
@@ -62,7 +60,8 @@ def _close(port, want, tol=TOL):
 
 
 def _counts():
-    return (rowwise_matmul_p.launches, layernorm_p.launches, wkv_p.launches)
+    return (trace.launches("rowwise_matmul"), trace.launches("layernorm"),
+            trace.launches("wkv"))
 
 
 def jitter(tree, seed):
@@ -153,7 +152,7 @@ def test_wkv_with_state_matches_jax(s):
     _close(ts, rs.numpy(), WKV_TOL)
 
 
-def test_wkv_wrappers_take_the_plain_version_on_cpu():
+def test_wkv_wrappers_take_the_plain_version_on_cpu(trace_on):
     """On CPU tensors ``wkv_p`` runs the chunked scan in fp32 and returns
     y in the input dtype (as the kernel does), launching nothing;
     ``ops.wkv`` is the chunked scan under either impl."""
@@ -244,7 +243,7 @@ def test_forward_matches_jax(model):
 
 
 @pytest.mark.parametrize("jimpl", ["ref", "interpret"])
-def test_prefill_and_decode_match_jax(model, jimpl):
+def test_prefill_and_decode_match_jax(model, jimpl, trace_on):
     """Prefill at a ragged length (S=21: one full chunk and a tail), then
     three decode steps: logits and every cache leaf, held against JAX's
     plain path and, for the prefill, its Pallas kernels in interpret

@@ -47,7 +47,7 @@ from repro.optim import adamw as jadamw
 from repro.train import step as jstep
 from repro_torch.configs import get_reduced
 from repro_torch.convert import from_jax_params
-from repro_torch.core import runtime
+from repro_torch.core import runtime, trace
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops, ref
@@ -238,20 +238,20 @@ def test_chunked_attention_grads_match_jax(hq, hkv, window):
 def kernel_branch(monkeypatch):
     """The kernel branch forced on CPU tensors: ``ops.kernel_path`` true,
     each launcher replaced by a fake that refuses a tensor wanting a
-    gradient (as the real one does), runs its plain version and counts
-    a launch on the real launcher (restored afterwards)."""
+    gradient (as the real one does), runs its plain version and notes a
+    launch of its kernel in the port's trace, which records throughout."""
     monkeypatch.setattr(ops, "kernel_path", lambda x: True)
     monkeypatch.setattr(ops, "norm_prologue_fits",
                         lambda m, k, dt: k <= 32)
 
-    def fake(real, plain):
+    def fake(kernel, plain):
         def run(*args, **kw):
             tensors = [a for a in (*args, *kw.values())
                        if isinstance(a, torch.Tensor)]
             if torch.is_grad_enabled() and any(t.requires_grad
                                                for t in tensors):
                 raise NotImplementedError("the kernel has no backward")
-            real.launches += 1
+            trace.note(kernel, "fake", {}, torch.device("cuda"))
             return plain(*args, **kw)
         return run
 
@@ -262,17 +262,18 @@ def kernel_branch(monkeypatch):
         y, s_fin = rwkv6.wkv_chunked(r, k, v, lw, u, chunk=chunk, s0=s0)
         return y.to(r.dtype), s_fin
     monkeypatch.setattr(ops, "rowwise_matmul_p",
-                        fake(rowwise_matmul_p, plain_matmul))
+                        fake("rowwise_matmul", plain_matmul))
     monkeypatch.setattr(ops, "layernorm_p",
-                        fake(layernorm_p, ref.layernorm_ref))
+                        fake("layernorm", ref.layernorm_ref))
     monkeypatch.setattr(ops, "flash_attention_p",
-                        fake(flash_attention_p, ref.attention_ref))
-    monkeypatch.setattr(ops, "wkv_p", fake(wkv_p, plain_wkv))
-    kernels = (rowwise_matmul_p, flash_attention_p, layernorm_p, wkv_p)
-    before = [k.launches for k in kernels]
-    yield
-    for k, b in zip(kernels, before):
-        k.launches = b
+                        fake("flash_attention", ref.attention_ref))
+    monkeypatch.setattr(ops, "wkv_p", fake("wkv", plain_wkv))
+    with trace.recording():
+        yield
+
+
+def _counts():
+    return trace.launches("rowwise_matmul"), trace.launches("layernorm")
 
 
 def _leaves_grad(seed, *shapes, scale=0.3):
@@ -312,11 +313,10 @@ def test_function_matmul_grads(kernel_branch, kind, k):
     beta = beta if kind == "layer" else None
     norm = ops.NormSpec(kind, gamma, beta)
     ins = [t for t in (x, w, bias, res, gamma, beta) if t is not None]
-    before = (rowwise_matmul_p.launches, layernorm_p.launches)
+    before = _counts()
     got, want = _grads_both_ways(
         lambda: ops.matmul(x, w, bias=bias, residual=res, norm=norm), ins)
-    assert (rowwise_matmul_p.launches, layernorm_p.launches) == (
-        before[0] + 1, before[1] + (k > 32))
+    assert _counts() == (before[0] + 1, before[1] + (k > 32))
     for g, wnt in zip(got, want):
         torch.testing.assert_close(g, wnt, rtol=0, atol=0)
     assert all(float(g.abs().max()) > 0 for g in got)
@@ -336,19 +336,18 @@ def test_function_counts_launches(kernel_branch):
     """Each op through the Function launches its kernel once in the
     forward (the norm too where it splits) and none in the backward."""
     x, w, gamma = _leaves_grad(1, (4, 48), (48, 8), (48,))
-    before = (rowwise_matmul_p.launches, layernorm_p.launches)
+    before = _counts()
     out = ops.matmul(x, w, norm=ops.NormSpec("rms", gamma))
-    mid = (rowwise_matmul_p.launches, layernorm_p.launches)
+    mid = _counts()
     out.sum().backward()
-    after = (rowwise_matmul_p.launches, layernorm_p.launches)
+    after = _counts()
     assert mid == (before[0] + 1, before[1] + 1)
     assert after == mid
     assert all(t.grad is not None for t in (x, w, gamma))
     # without a gradient the launch path is the plain call's
     with torch.no_grad():
         ops.matmul(x, w, norm=ops.NormSpec("rms", gamma))
-    assert (rowwise_matmul_p.launches, layernorm_p.launches) == (
-        mid[0] + 1, mid[1] + 1)
+    assert _counts() == (mid[0] + 1, mid[1] + 1)
 
 
 @pytest.mark.parametrize("bias", [False, True], ids=["flash", "bias"])
@@ -360,10 +359,10 @@ def test_function_attention_grads(kernel_branch, bias):
     q, k, v, b = _leaves_grad(2, (2, 6, 40, 16), (2, 1, 40, 16),
                               (2, 1, 40, 16), (1, 6, 40, 40))
     ins = [q, k, v] + ([b] if bias else [])
-    before = flash_attention_p.launches
+    before = trace.launches("flash_attention")
     got, want = _grads_both_ways(lambda: ops.attention(
         q, k, v, causal=True, window=9, bias=b if bias else None), ins)
-    assert flash_attention_p.launches == before + 1
+    assert trace.launches("flash_attention") == before + 1
     for g, wnt in zip(got, want):
         if bias:
             torch.testing.assert_close(g, wnt, rtol=0, atol=0)
@@ -384,11 +383,11 @@ def test_function_layernorm_and_wkv_grads(kernel_branch):
                                   (2, 20, 2, 16), (2, 16), (2, 2, 16, 16))
     lw = (-torch.rand(2, 20, 2, 16, generator=torch.Generator()
                       .manual_seed(5)) - 0.1).requires_grad_(True)
-    before = wkv_p.launches
+    before = trace.launches("wkv")
     ins = [r, k, v, lw, u, s0]
     got, want = _grads_both_ways(lambda: ops.wkv(r, k, v, lw, u, s0=s0),
                                  ins)
-    assert wkv_p.launches == before + 1
+    assert trace.launches("wkv") == before + 1
     for g, wnt in zip(got, want):
         torch.testing.assert_close(g, wnt, rtol=0, atol=0)
         assert float(g.abs().max()) > 0

@@ -18,10 +18,7 @@ from repro.core import runtime as jruntime
 from repro.models import vision as jvision
 from repro_torch.configs import swin_t as tcfg
 from repro_torch.convert import from_jax_params
-from repro_torch.core import runtime
-from repro_torch.kernels.flash_attention import flash_attention_p
-from repro_torch.kernels.layernorm import layernorm_p
-from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
+from repro_torch.core import runtime, trace
 from repro_torch.models import vision
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -80,13 +77,13 @@ def _jax_logits(forward, params, images, cfg, fuse):
 
 
 def _counts():
-    return (rowwise_matmul_p.launches, flash_attention_p.launches,
-            layernorm_p.launches)
+    return (trace.launches("rowwise_matmul"),
+            trace.launches("flash_attention"), trace.launches("layernorm"))
 
 
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
 @pytest.mark.parametrize("impl", ["auto", "ref"])
-def test_swin_forward_matches_jax(swin, fuse, impl):
+def test_swin_forward_matches_jax(swin, fuse, impl, trace_on):
     jc, tc, params, images = swin
     want = _jax_logits(jvision.swin_forward, params, images, jc, fuse)
     tp = from_jax_params(params, tc, device="cpu")
