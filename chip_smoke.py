@@ -17,8 +17,8 @@ Phases, each printing its lines:
    its tolerance, kernel / plain / library ms (CUDA events, after
    warm-up; calls of M <= 16 rows rotate copies of their weights past
    the 50 MB L2, so each reads its weights from HBM as the model does),
-   the bound, and the design the call took (matmul: skinny, wgmma or
-   ffma; attention: mma or ffma; WKV: chunk or step; layernorm: cta or
+   the bound, and the design the call took (matmul: skinny, wgmma,
+   persistent or ffma; attention: mma or ffma; WKV: chunk or step; layernorm: cta or
    rows, each layernorm case with its own and ``F.layer_norm``'s device
    ms from the profiler beside the event ms); the attention of
    ViT-B/16 (B=8) and of a Swin-T forward at B=64; every kernel call of
@@ -232,7 +232,7 @@ Phases, each printing its lines:
    registers an SM, no spill, and a seeded over-budget kernel firing
    RWA401; (c) the roofline (``launch/roofline.py``) of the launch
    records of one deepseek-7b bf16 prefill (B=4 x 512) and decode step
-   (B=4) against PERF.md's bounds (25.14 ms for the 120 wgmma launches,
+   (B=4) against PERF.md's bounds (25.14 ms for the 120 persistent launches,
    3.88 ms for the 121 skinny ones, within 0.5%), each kernel's share of
    its bound beside its device ms; (d) ``core/rowwise.py``'s tile
    constants against the library's; (e) a deepseek-7b bf16 engine run
@@ -245,7 +245,7 @@ Phases, each printing its lines:
    beside the profiler: the whole call's bound (kernels and glue) beside
    its busy ms, the glue's bound beside the "other" device ms, the
    walk's FLOPs equal to the same call's dry walk on ``meta`` tensors,
-   and the 120 wgmma launches' bound PERF.md's 25.1444 ms within 0.5%;
+   and the 120 persistent launches' bound PERF.md's 25.1444 ms within 0.5%;
    (b) the dry-run CLI (``launch/dryrun.py``, on the CPU: a fake world)
    for deepseek-7b train_4k on the multipod mesh and gemma3-27b
    decode_32k on the pod mesh, exit 0 and every key in each JSON, and
@@ -264,7 +264,11 @@ Phases, each printing its lines:
    prologue's boundary (a ``threshold`` line, device µs from the
    profiler): each matmul design's norm prologue against the standalone
    norm and a prologue-free matmul at K = 64 .. 8192, each design's
-   boundary beside the rule's. The other pickers' sweeps
+   boundary beside the rule's; and the bf16 route's sweep (``persistent``
+   lines, :func:`persistent_readings`): the wgmma and persistent designs'
+   device µs at every projection shape of the benchmark's two cells,
+   beside the bound, the library's ms and the route's pick. The other
+   pickers' sweeps
    (:func:`threshold_readings`, :func:`wkv_threshold_readings`,
    :func:`layernorm_threshold_readings`), the zamba2 / qwen2-moe
    profiles (:func:`lm_profile`) and the ``SKINNY_NORM_MAX_K`` ABBA
@@ -430,8 +434,8 @@ def launch_overheads(device):
         "rowwise_matmul": (host_us(lambda: rowwise_matmul_p(
             x, w, bias=b, residual=x)), host_us(
             lambda: torch.addmm(b, x, w) + x)),
-        # the wgmma design encodes its TMA maps per call
-        "rowwise_matmul wgmma bf16": (host_us(lambda: rowwise_matmul_p(
+        # the persistent design (M = 64) encodes its TMA maps per call
+        "rowwise_matmul persistent bf16": (host_us(lambda: rowwise_matmul_p(
             xb, wb, bias=bb, residual=xb)), host_us(
             lambda: torch.addmm(bb, xb, wb) + xb)),
         # the skinny design allocates its split-K workspace per call
@@ -624,7 +628,7 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
     import torch.nn.functional as F
     from repro_torch.core import quant
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rowwise_matmul import (pick_design,
+    from repro_torch.kernels.rowwise_matmul import (call_design,
                                                     rowwise_matmul_p)
 
     int8 = dtype == torch.int8
@@ -725,7 +729,7 @@ def matmul_case(name, m, k, n, dtype, gen, device, *, bias=True, act=None,
         library if has_library else None, 2 * m * n * k * (2 if gated else 1),
         nbytes(x, w, wg, b, bg, res, g, be, *scales.values(),
                out=(m * n, out_dtype)),
-        design=pick_design(m, dtype), **counts)
+        design=call_design(x, w, wg, norm), **counts)
     case.op = dict(x=x, w=w, wg=wg, ops=ops, out_dtype=out_dtype)
     return case
 
@@ -1604,7 +1608,7 @@ def prologue_threshold_readings(device):
         for k in PROLOGUE_KS:
             g = 1 + _rand(gen, (k,), dt, device, 0.1)
             for width, n, gated, m in _prologue_panels(k, m_lm, batch):
-                assert rm.pick_design(m, dt) == design
+                assert rm.pick_design(m, dt, n, k, prologue=True) == design
                 x = _rand(gen, (m, k), dt, device)
                 size = k * n * (2 if gated else 1) * x.element_size()
                 copies = (int(-(-COLD_BYTES // size)) + 1
@@ -1666,6 +1670,104 @@ def prologue_threshold_readings(device):
                              "keeps it there")
     return {"readings": out, "prologue_holds_up_to_k": fits,
             "rule_max_k": rule}
+
+
+# the bf16 route's sweep: deepseek-7b's prefill at the benchmark mix's
+# least, a middle and its largest rows (B=4 x 407, 1771, 4096 tokens),
+# its projections at few rows (decode steps and verify panels of 8 to 32
+# slots: the route's boundary in M) and Swin-T's forward at the
+# benchmark's batch
+PERSISTENT_LM_M = (1628, 7084, 16384)
+PERSISTENT_FEW_M = (8, 16, 32)
+PERSISTENT_SWIN_BATCH = 64
+
+
+def persistent_shapes(swin, dense):
+    """(name, M, K, N, matmul_case options) of every projection of the
+    benchmark's two cells: deepseek-7b's qkv, wo with its residual, the
+    gated gate|up panel (SwiGLU) and down with its residual at each M of
+    :data:`PERSISTENT_LM_M` (and of :data:`PERSISTENT_FEW_M`, off the
+    cells); Swin-T's patch embedding, each stage's qkv,
+    mlp1 (GELU), proj and mlp2 with their residuals, the merges and the
+    head (fp32 out), at B = :data:`PERSISTENT_SWIN_BATCH`."""
+    d, f = dense.d_model, dense.d_ff
+    out = []
+    for m in PERSISTENT_LM_M + PERSISTENT_FEW_M:
+        out += [("deepseek qkv", m, d, 3 * d, dict(bias=False)),
+                ("deepseek wo+res", m, d, d, dict(bias=False,
+                                                  residual=True)),
+                ("deepseek gate|up+silu", m, d, f, dict(
+                    bias=False, act="silu", gated=True, panel=(2 * f, 0))),
+                ("deepseek down+res", m, f, d, dict(bias=False,
+                                                    residual=True))]
+    b, res, c = PERSISTENT_SWIN_BATCH, swin.img_size // swin.patch, \
+        swin.embed_dim
+    out.append(("swin patch", b * res * res, swin.patch ** 2 *
+                swin.in_chans, c, {}))
+    for si in range(len(swin.depths)):
+        m, s = b * res * res, f"swin s{si + 1}"
+        out += [(f"{s}.qkv", m, c, 3 * c, {}),
+                (f"{s}.mlp1+gelu", m, c, 4 * c, dict(act="gelu")),
+                (f"{s}.proj+res", m, c, c, dict(residual=True)),
+                (f"{s}.mlp2+res", m, 4 * c, c, dict(residual=True))]
+        if si < len(swin.depths) - 1:
+            out.append((f"{s}.merge", m // 4, 4 * c, 2 * c,
+                        dict(bias=False)))
+            res, c = res // 2, c * 2
+    out.append(("swin head", b, c, swin.num_classes, dict(out_f32=True)))
+    return out
+
+
+def persistent_readings(device):
+    """Device µs per call of the wgmma and persistent designs (the route
+    forced each way) at every shape of :func:`persistent_shapes`, each
+    output held against the plain version in fp32, beside the bound,
+    the library's event ms (``torch.addmm`` and the epilogue in torch)
+    and the design the route picks: the measurement behind
+    ``rowwise_matmul.persistent_fits``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.swin_t import CONFIG
+    from repro_torch.kernels import rowwise_matmul as rm
+    from repro_torch.launch.profile import kernel_us
+    gen = torch.Generator(device=device).manual_seed(10)
+    route = rm.persistent_fits
+    out = {}
+    try:
+        for name, m, k, n, kw in persistent_shapes(
+                CONFIG, get_config("deepseek-7b")):
+            case = matmul_case(name, m, k, n, torch.bfloat16, gen, device,
+                               **kw)
+            want = case.check()
+            row = {"m": m, "k": k, "n": n, "route": case.design}
+            calls = 3 if case.flops > 2e11 else 10
+            for design in ("wgmma", "persistent"):
+                rm.persistent_fits = (lambda m_, n_, k_, d=design:
+                                      d == "persistent")
+                err, ok = err_ok(case.run(), want, BF16_TOL)
+                if not ok:
+                    raise AssertionError(f"persistent sweep {case.name} "
+                                         f"{design}: max abs err {err}")
+                row[f"{design}_us"] = kernel_us(
+                    case.run, f"rowwise_matmul_kernel_{design}", calls)
+            rm.persistent_fits = route
+            b_ms, b_by = bound(case.flops, case.nbytes, "bf16")
+            row.update(bound_us=b_ms * 1e3, bound_by=b_by,
+                       library_ms=cuda_time(case.library))
+            out[case.name] = row
+            faster = ("persistent" if row["persistent_us"] < row["wgmma_us"]
+                      else "wgmma")
+            say("persistent", f"{case.name}: wgmma {row['wgmma_us']:.2f} "
+                f"µs, persistent {row['persistent_us']:.2f} µs "
+                f"({row['wgmma_us'] / row['persistent_us']:.2f}x), bound "
+                f"{row['bound_us']:.2f} µs ({b_by}; "
+                f"{row['bound_us'] / row['persistent_us']:.1%} of it), "
+                f"library {row['library_ms']:.4f} ms; the route takes "
+                f"{row['route']}, the faster is {faster}")
+            del case, want
+    finally:
+        rm.persistent_fits = route
+    return out
 
 
 def readings_apart(name, call):
@@ -6176,16 +6278,16 @@ def mesh_phase(smi):
 
 # ------------------------------ the auditor ------------------------------
 
-# the roofline's prices of two calls, PERF.md section 6: the 120 wgmma
-# launches of a deepseek-7b bf16 prefill at B=4 x 512 (row 1b, the
-# operations bound) and the 121 skinny launches of its bf16 decode step
-# at B=4 (row 1c, the bytes bound), both from chip_smoke.py's cases
-AUDIT_BOUNDS = {"prefill": ("rowwise_matmul wgmma", 120, 25.14),
+# the roofline's prices of two calls, PERF.md section 6: the 120
+# persistent launches of a deepseek-7b bf16 prefill at B=4 x 512 (row 1b,
+# the operations bound) and the 121 skinny launches of its bf16 decode
+# step at B=4 (row 1c, the bytes bound), both from chip_smoke.py's cases
+AUDIT_BOUNDS = {"prefill": ("rowwise_matmul persistent", 120, 25.14),
                 "decode": ("rowwise_matmul skinny", 121, 3.88)}
 AUDIT_BOUND_TOL = 0.005
-# the 120 wgmma launches of a deepseek-7b bf16 prefill (B=4 x 512), as
-# the audit phase prices them (PERF.md section 6)
-TOOLING_WGMMA_MS = 25.1444
+# the 120 persistent launches of a deepseek-7b bf16 prefill (B=4 x 512),
+# as the audit phase prices them (PERF.md section 6)
+TOOLING_PREFILL_MS = 25.1444
 # seconds a process of the tooling phase (a dry-run cell, an example)
 # may take
 TOOLING_CLI_S = 300
@@ -6527,11 +6629,11 @@ def tooling_phase(smi):
                 key_, n_, ms_ = AUDIT_BOUNDS["prefill"]
                 got = by.get(key_, {})
                 if got.get("launches") != n_ or abs(
-                        got["bound_ms"] - TOOLING_WGMMA_MS) > \
-                        AUDIT_BOUND_TOL * TOOLING_WGMMA_MS:
+                        got["bound_ms"] - TOOLING_PREFILL_MS) > \
+                        AUDIT_BOUND_TOL * TOOLING_PREFILL_MS:
                     raise AssertionError(f"tooling-a: {key_} priced {got}, "
                                          f"want {n_} launches at "
-                                         f"{TOOLING_WGMMA_MS} ms")
+                                         f"{TOOLING_PREFILL_MS} ms")
             del params, mparams, tokens, cost, dry
             gc.collect()
             torch.cuda.empty_cache()
@@ -6774,9 +6876,9 @@ def main() -> int:
     # held at the end, so that a run with a spilling kernel still reports
     # every phase
     build_faults = [f"kernels spill registers: {spills}"] if spills else []
-    if not all(mma[k] for k in mma if "wgmma" in k):
-        build_faults.append("a wgmma kernel holds no tensor-core "
-                            "instruction")
+    if not all(mma[k] for k in mma if "wgmma" in k or "persistent" in k):
+        build_faults.append("a wgmma or persistent kernel holds no "
+                            "tensor-core instruction")
     if not [k for k in mma if "attention_kernel_mma" in k] or not all(
             mma[k].get("HMMA") for k in mma if "attention_kernel_mma" in k):
         build_faults.append("a bf16 attention kernel holds no HMMA")
@@ -7074,6 +7176,8 @@ def main() -> int:
     profiles = threshold = threshold_wkv = threshold_ln = None
     threshold_prologue = readings_apart(
         "prologue_threshold", "prologue_threshold_readings('cuda')")
+    sweep_persistent = readings_apart(
+        "persistent_sweep", "persistent_readings('cuda')")
     designs = design_tables(rows)
 
     clock("phase 19")
@@ -7226,6 +7330,7 @@ def main() -> int:
                                "audit": audit, "tooling": tooling,
                                "profiles": profiles,
                                "prologue_threshold_us": threshold_prologue,
+                               "persistent_sweep_us": sweep_persistent,
                                "design_tables": designs,
                                "int8_path_device_ms": i8_device_ms,
                                "skinny_threshold_us": threshold,

@@ -123,6 +123,13 @@ def kernel_models() -> List[KernelModel]:
                 f"rowwise_matmul_kernel_wgmma<{dt},{str(gated).lower()}>",
                 "rowwise_matmul_wgmma.cu", rowwise.WGMMA_THREADS, 1,
                 rowwise.wgmma_smem_bytes(2 if gated else 1), 0))
+    for gated, bn in ((False, rowwise.PERSISTENT_BN),
+                      (False, rowwise.PERSISTENT_BN_NARROW),
+                      (True, rowwise.PERSISTENT_BN_NARROW)):
+        out.append(KernelModel(
+            f"rowwise_matmul_kernel_persistent<{str(gated).lower()},{bn}>",
+            "rowwise_matmul_persistent.cu", rowwise.PERSISTENT_THREADS, 1,
+            rowwise.persistent_smem_bytes(), 0))
     for gated in (False, True):
         out.append(KernelModel(
             f"rowwise_matmul_kernel<{str(gated).lower()}>",
@@ -190,6 +197,9 @@ def model_of(plan, n_weights: int = 1, dtype: str = "bf16") -> KernelModel:
     gated = str(n_weights > 1).lower()
     if plan.design == "wgmma":
         return by_name[f"rowwise_matmul_kernel_wgmma<{dtype},{gated}>"]
+    if plan.design == "persistent":
+        return by_name[
+            f"rowwise_matmul_kernel_persistent<{gated},{plan.bn}>"]
     if plan.design == "ffma":
         return by_name[f"rowwise_matmul_kernel<{gated}>"]
     maxm = rowwise.skinny_maxm(plan.bm)
@@ -280,6 +290,7 @@ def spills(entries: List[PtxasEntry]) -> List[tuple]:
 
 # the library's query functions (rk_query_*), by source file
 QUERIES = {"rowwise_matmul_wgmma.cu": "rk_query_wgmma",
+           "rowwise_matmul_persistent.cu": "rk_query_persistent",
            "rowwise_matmul.cu": "rk_query_ffma",
            "rowwise_matmul_skinny.cu": "rk_query_skinny",
            "flash_attention.cu": "rk_query_attention",
@@ -349,6 +360,14 @@ PLAN_CONSTANTS = {
         "BN_GATED": rowwise.WGMMA_BN_GATED,
         "WTHREADS": rowwise.WGMMA_THREADS,
         "SMEM_BYTES": rowwise.wgmma_smem_bytes()},
+    "rowwise_matmul_persistent.cu": {
+        "TM": rowwise.PERSISTENT_TM, "KB": rowwise.PERSISTENT_KB,
+        "STAGES": rowwise.PERSISTENT_STAGES, "BN": rowwise.PERSISTENT_BN,
+        "BN_NARROW": rowwise.PERSISTENT_BN_NARROW,
+        "GROUP": rowwise.PERSISTENT_GROUP,
+        "CLUSTER": rowwise.PERSISTENT_CLUSTER,
+        "PTHREADS": rowwise.PERSISTENT_THREADS,
+        "SMEM_BYTES": rowwise.persistent_smem_bytes()},
     "rowwise_matmul.cu": {"FT": rowwise.FFMA_FT, "FK": rowwise.FFMA_FK,
                           "FTHREADS": rowwise.FFMA_THREADS},
     "rowwise_matmul_skinny.cu": {"STHREADS": rowwise.SKINNY_THREADS,

@@ -2,11 +2,12 @@
 
 The paper decomposes every dense op into one dot-product primitive on a
 PE array whose weights are broadcast down its rows; the port runs that
-primitive as ``rowwise_matmul_p``, three hand-written designs behind one
+primitive as ``rowwise_matmul_p``, four hand-written designs behind one
 C entry point (``kernels/rowwise_matmul.py::pick_design``). This module
 is the port's counterpart of the JAX package's ``core/rowwise.py``:
 :func:`plan_matmul` returns, for ``x (M, K) @ w (K, N)``, the plan of the
-design the wrapper really takes (skinny, wgmma or ffma): its tile, grid,
+design the wrapper really takes (skinny, wgmma, persistent or ffma): its
+tile, grid,
 padded dims, the utilization of the tiles it occupies (useful MACs over
 the MACs of occupied tiles, the paper's utilization analysis), the waves
 over the H100's 132 SMs, its shared memory, flops and modeled HBM bytes.
@@ -21,7 +22,7 @@ peaks), not measurements.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -45,7 +46,7 @@ class HopperGeometry:
 H100 = HopperGeometry()
 
 # The wgmma design (bf16 and int8 above the skinny rows):
-# csrc/rowwise_matmul_wgmma.cu:47-53 (TM, KB, STAGES, WTHREADS) and :377
+# csrc/rowwise_matmul_wgmma.cu:50-56 (TM, KB, STAGES, WTHREADS) and :59
 # (BN, 64 when gated).
 WGMMA_TM = 128                 # tile rows
 WGMMA_KB = 128                 # bytes of K a stage
@@ -54,6 +55,18 @@ WGMMA_BN = 128                 # tile columns
 WGMMA_BN_GATED = 64            # gated: two weights' tiles a stage
 WGMMA_THREADS = 384            # a producer and two consumer warpgroups
 WGMMA_ALIGN = 1024             # the ring is aligned up to 1024 bytes
+# The persistent design (the bf16 calls the route sends it):
+# csrc/rowwise_matmul_persistent.cu:50-66.
+PERSISTENT_TM = 128            # tile rows
+PERSISTENT_KB = 128            # bytes of K a stage (64 bf16)
+PERSISTENT_STAGES = 4          # the TMA / mbarrier ring
+PERSISTENT_BN = 256            # tile columns where N % 256 == 0
+PERSISTENT_BN_NARROW = 128     # else, and gated (w's and wg's tiles)
+PERSISTENT_GROUP = 16          # row panels a group of the walk, at most
+PERSISTENT_CLUSTER = 2         # blocks of a cluster: adjacent row panels,
+                               # one weight tile (TMA multicast)
+PERSISTENT_EPI_BYTES = 64 * 64 * 4   # a consumer's epilogue buffer
+PERSISTENT_THREADS = 384       # a producer and two consumer warpgroups
 # The ffma design (fp32 above the skinny rows): csrc/rowwise_matmul.cu:44
 # (FT, FK, FTHREADS) and :84 (launch bounds: 2 blocks an SM gated, else
 # 3).
@@ -111,6 +124,49 @@ def wgmma_smem_bytes(n_weights: int = 1) -> int:
             + WGMMA_TM * ROW_STATS_BYTES)
 
 
+def persistent_smem_bytes() -> int:
+    """The persistent launcher's dynamic shared-memory request: the
+    alignment slack, the ring (an x tile of TM rows and 256 columns of
+    weights a stage, KB bytes of K each), both consumers' epilogue
+    buffers, and a full and an empty mbarrier a stage."""
+    stage = (PERSISTENT_TM + PERSISTENT_BN) * PERSISTENT_KB
+    return (WGMMA_ALIGN + PERSISTENT_STAGES * stage
+            + 2 * PERSISTENT_EPI_BYTES + 2 * PERSISTENT_STAGES * 8)
+
+
+def persistent_bn(n: int, gated: bool) -> int:
+    """The persistent design's tile columns: 256 where N is a multiple
+    of 256, else (and gated) 128."""
+    return (PERSISTENT_BN if not gated and n % PERSISTENT_BN == 0
+            else PERSISTENT_BN_NARROW)
+
+
+def persistent_group(row_panels: int) -> int:
+    """Units along M a group of the persistent walk holds: a unit is
+    ``PERSISTENT_CLUSTER`` row panels, one a block of a cluster; up to
+    ``PERSISTENT_GROUP`` row panels a group."""
+    units = _cdiv(row_panels, PERSISTENT_CLUSTER)
+    return min(units, PERSISTENT_GROUP // PERSISTENT_CLUSTER)
+
+
+def persistent_walk(row_panels: int, col_panels: int,
+                    group: int) -> List[Tuple[int, int]]:
+    """(unit along M, column panel) of each unit index of the persistent
+    walk (``origin`` in ``csrc/rowwise_matmul_persistent.cu``): groups of
+    ``group`` units along M, each walked down its units, then along N;
+    cluster c takes indices c, c + clusters, ..., and its block r the
+    row panel ``PERSISTENT_CLUSTER`` x unit + r (none past the last)."""
+    units = _cdiv(row_panels, PERSISTENT_CLUSTER)
+    per_group = group * col_panels
+    out = []
+    for u in range(units * col_panels):
+        g, within = divmod(u, per_group)
+        first = g * group
+        rows = min(group, units - first)
+        out.append((first + within % rows, within // rows))
+    return out
+
+
 def ffma_smem_bytes(gated: bool) -> int:
     """The ffma kernel's static shared memory: the transposed x tile
     (padded by 4), the w tile and, gated, the gate's, double-buffered,
@@ -143,23 +199,30 @@ class TilePlan:
     """The launch of one (M, K, N) matmul on the design the wrapper
     picks."""
 
-    design: str             # 'skinny' | 'wgmma' | 'ffma'
-    bm: int                 # rows a block
+    design: str             # 'skinny' | 'wgmma' | 'persistent' | 'ffma'
+    bm: int                 # rows a tile
     bk: int                 # K a stage (skinny: a split's rows, kc)
-    bn: int                 # columns a block
+    bn: int                 # columns a tile
     k_splits: int           # skinny's split-K; 1 elsewhere
-    grid: Tuple[int, int, int]  # (column tiles, row tiles or splits, z)
+    # (column tiles, row tiles or splits, z); persistent: (blocks, 1, 1),
+    # one an SM in clusters of PERSISTENT_CLUSTER, walking units of that
+    # many row panels in groups of ``group`` units along M
+    grid: Tuple[int, int, int]
     m_pad: int
     k_pad: int
     n_pad: int
     utilization: float      # useful MACs / MACs of the occupied tiles
     blocks_per_sm: int      # resident blocks an SM the plan assumes
-    waves: int              # ceil(blocks / (SMs x blocks_per_sm))
+    # ceil(blocks / (SMs x blocks_per_sm)); persistent: the rounds of its
+    # clusters over the walk's units
+    waves: int
     threads: int
+    stages: int             # K stages a block holds (ring, buffers)
     smem_dynamic: int       # the launcher's dynamic shared memory
     smem_static: int        # the kernel's static shared memory
     flops: int
     bytes_moved: int        # modeled HBM bytes, re-reads per tile included
+    group: int = 0          # persistent: units along M a group of the walk
 
     @property
     def blocks(self) -> int:
@@ -174,10 +237,12 @@ class TilePlan:
         return self.flops / max(self.bytes_moved, 1)
 
 
-def pick(m: int, dtype) -> str:
-    """The design ``rowwise_matmul_p`` takes for M rows in ``dtype``."""
+def pick(m: int, k: int, n: int, dtype, prologue: bool = False) -> str:
+    """The design ``rowwise_matmul_p`` takes for ``x (M, K) @ w (K, N)``
+    in ``dtype`` with operands TMA takes."""
     from repro_torch.kernels.rowwise_matmul import pick_design
-    return pick_design(m, _TORCH[dtype_name(dtype)])
+    return pick_design(m, _TORCH[dtype_name(dtype)], n, k,
+                       prologue=prologue)
 
 
 def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
@@ -186,7 +251,8 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
                 geom: HopperGeometry = H100,
                 design: Optional[str] = None) -> TilePlan:
     """The plan of ``x (M, K) @ w (K, N)`` on the design
-    :func:`pick` gives (or ``design``).
+    :func:`pick` gives (or ``design``), its operands taken as TMA takes
+    them.
 
     ``n_weights`` 2 is the gated gate|up call (two weight panels, one x);
     ``residual`` an (M, N) operand read once in the epilogue (priced at
@@ -194,7 +260,7 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
     gamma and beta rows. ``out_dtype`` defaults to the input's (fp32 for
     int8).
 
-    Modeled HBM bytes follow the grid: a block reads its x rows and its
+    Modeled HBM bytes follow the tiles: a tile reads its x rows and its
     weight columns, so x is read once per column tile and the weights
     once per row tile (skinny: once, split over K, plus each split's
     fp32 or int32 partial sums written and read back when there are
@@ -207,8 +273,9 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
         else (4 if dt == "int8" else db)
     rb = DTYPE_BYTES[dtype_name(res_dtype)] if res_dtype is not None \
         else ob
-    design = design or pick(m, dt)
+    design = design or pick(m, k, n, dt, prologue)
     gated = n_weights > 1
+    group = 0
     if design == "wgmma":
         if dt == "fp32":
             raise ValueError("the wgmma design takes bf16 and int8")
@@ -219,8 +286,24 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
         m_pad, n_pad, k_pad = _round_up(m, bm), _round_up(n, bn), \
             _round_up(k, bk)
         grid = (n_pad // bn, m_pad // bm, 1)
-        per_sm, threads = 1, WGMMA_THREADS
+        per_sm, threads, stages = 1, WGMMA_THREADS, WGMMA_STAGES
         dyn, static = wgmma_smem_bytes(n_weights), 0
+    elif design == "persistent":
+        if dt != "bf16" or prologue:
+            raise ValueError("the persistent design takes bf16 with no "
+                             "norm prologue")
+        bm, bn = PERSISTENT_TM, persistent_bn(n, gated)
+        bk = PERSISTENT_KB // db
+        splits, z = 1, 1
+        m_pad, n_pad, k_pad = _round_up(m, bm), _round_up(n, bn), \
+            _round_up(k, bk)
+        group = persistent_group(m_pad // bm)
+        units = _cdiv(m_pad // bm, PERSISTENT_CLUSTER) * (n_pad // bn)
+        clusters = geom.sms // PERSISTENT_CLUSTER
+        grid = (PERSISTENT_CLUSTER * min(units, clusters), 1, 1)
+        per_sm, threads = 1, PERSISTENT_THREADS
+        stages = PERSISTENT_STAGES
+        dyn, static = persistent_smem_bytes(), 0
     elif design == "ffma":
         if dt != "fp32":
             raise ValueError("the ffma design takes fp32")
@@ -231,6 +314,7 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
             _round_up(k, bk)
         grid = (n_pad // bn, m_pad // bm, 1)
         per_sm, threads = FFMA_MIN_BLOCKS[gated], FFMA_THREADS
+        stages = 2
         dyn, static = 0, ffma_smem_bytes(gated)
     elif design == "skinny":
         from repro_torch.kernels.rowwise_matmul import skinny_splits
@@ -245,6 +329,7 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
         n_pad, k_pad = _round_up(n, bn), splits * kc
         grid = (n_pad // bn, splits, z)
         per_sm, threads = SKINNY_BLOCKS_PER_SM, SKINNY_THREADS
+        stages = 1
         dyn, static = 0, skinny_smem_bytes(maxm, dt)
     else:
         raise ValueError(f"unknown matmul design {design!r}")
@@ -267,14 +352,17 @@ def plan_matmul(m: int, k: int, n: int, *, dtype="bf16",
         nbytes += m * n * rb
     if prologue:
         nbytes += 2 * k * 4
-    blocks = grid[0] * grid[1] * grid[2]
+    if design == "persistent":
+        waves = _cdiv(units, clusters)
+    else:
+        waves = _cdiv(grid[0] * grid[1] * grid[2], geom.sms * per_sm)
     return TilePlan(
         design=design, bm=bm, bk=bk, bn=bn, k_splits=splits, grid=grid,
         m_pad=m_pad, k_pad=k_pad, n_pad=n_pad,
         utilization=useful / occupied, blocks_per_sm=per_sm,
-        waves=_cdiv(blocks, geom.sms * per_sm), threads=threads,
-        smem_dynamic=dyn, smem_static=static, flops=flops,
-        bytes_moved=nbytes)
+        waves=waves, threads=threads,
+        stages=stages, smem_dynamic=dyn, smem_static=static, flops=flops,
+        bytes_moved=nbytes, group=group)
 
 
 # ----------------------------------------------------------------------

@@ -7,14 +7,15 @@
 // x(M,K) @ w(K,N) accumulated in fp32 (int32 for int8 W8A8), then int8
 // dequant -> bias -> activation (or the gated act(x@wg + bg) *
 // (x@w + b)) -> residual -> cast to the output dtype. The wrapper
-// (kernels/rowwise_matmul.py) picks one of three designs by M and dtype
-// (rowwise_matmul.cuh); each call is one launch.
+// (kernels/rowwise_matmul.py) picks one of four designs by M, the dtype
+// and, in bf16, the shape and the operands (rowwise_matmul.cuh); each
+// call is one launch.
 //
-// What all three do against what the TPU kernel relied on:
+// What all four do against what the TPU kernel relied on:
 //  * The TPU carried the accumulator across its innermost k grid axis.
-//    Here a block loops over K itself (ffma, wgmma), or the K splits of
-//    a column tile are summed by the last block to finish, in a fixed
-//    order (skinny), so the epilogue runs once per element.
+//    Here a block loops over K itself (ffma, wgmma, persistent), or the
+//    K splits of a column tile are summed by the last block to finish,
+//    in a fixed order (skinny), so the epilogue runs once per element.
 //  * The TPU norm prologue held a full-K row panel in VMEM. Here a
 //    block first takes its rows' statistics in fp32 (rk::row_stats, one
 //    warp per row, rows read through L2), then normalizes each x
@@ -185,7 +186,7 @@ void rk_launch_ffma(const rk::MatmulArgs& a, cudaStream_t stream) {
 }
 
 // Designs, as the wrapper numbers them.
-enum Design { FFMA = 0, SKINNY = 1, WGMMA = 2 };
+enum Design { FFMA = 0, SKINNY = 1, WGMMA = 2, PERSISTENT = 3 };
 
 extern "C" int rk_rowwise_matmul(
     const void* x, const void* w, const void* wg, const void* bias,
@@ -234,6 +235,11 @@ extern "C" int rk_rowwise_matmul(
       break;
     case WGMMA: {
       const int err = rk_launch_wgmma(a, s);
+      if (err) return err;
+      break;
+    }
+    case PERSISTENT: {
+      const int err = rk_launch_persistent(a, s);
       if (err) return err;
       break;
     }

@@ -8,7 +8,11 @@
 //           blocks, the last block of a column tile reduces the splits
 //           in a fixed order.
 //   wgmma   (rowwise_matmul_wgmma.cu)   bf16 and int8 above that: tensor
-//           cores fed by a TMA / mbarrier ring.
+//           cores fed by a TMA / mbarrier ring, one tile a block; int8,
+//           the norm prologue and operands TMA cannot take.
+//   persistent (rowwise_matmul_persistent.cu)  the other bf16 calls
+//           where the route sends them: a block an SM walking grouped
+//           128 x 256 tiles, the epilogue beside the next tile's loads.
 //   ffma    (rowwise_matmul.cu)         fp32 above that: exact fp32 FFMA
 //           on a register-blocked 64 x 64 tile, double-buffered.
 #pragma once
@@ -102,7 +106,8 @@ __device__ __forceinline__ float norm_elem(float v, RowStats s, Gain g) {
 }  // namespace rk
 
 // The launchers. Errors of a launch are left to cudaGetLastError;
-// rk_launch_wgmma returns those of its set-up.
+// rk_launch_wgmma and rk_launch_persistent return those of their set-up.
 void rk_launch_ffma(const rk::MatmulArgs& a, cudaStream_t stream);
 void rk_launch_skinny(const rk::MatmulArgs& a, cudaStream_t stream);
 int rk_launch_wgmma(const rk::MatmulArgs& a, cudaStream_t stream);
+int rk_launch_persistent(const rk::MatmulArgs& a, cudaStream_t stream);

@@ -41,8 +41,11 @@
 #include <type_traits>
 
 #include "rowwise_matmul.cuh"
+#include "tma.cuh"
 
 namespace {
+
+using namespace rk::sm90;
 
 constexpr int TM = 128;                    // tile rows
 constexpr int KB = 128;                    // bytes of K per stage
@@ -63,108 +66,10 @@ struct Loads {
   int tma_b;  // bf16 w (and wg) through TMA, else masked copies
 };
 
-__device__ __forceinline__ uint32_t su32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // byte b of row r of a tile of 128-byte rows in the 128-byte swizzle
 // (16-byte chunk c of row r sits at chunk c ^ (r % 8)), as TMA writes it
 __device__ __forceinline__ int swz(int r, int b) {
   return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(su32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(su32(b))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          su32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that lasts
-// beyond ~20 s of SM clock traps (the launch fails with an error) rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(su32(b)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > 40000000000ll) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(su32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(su32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving the epilogue's accumulator reads above
-// the last wgmma wait (only there: an instruction that defines an
-// accumulator while a wgmma is in flight serializes the wgmmas)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The wgmma calls: bf16 with fp32 accumulators and B N-major (the
@@ -601,54 +506,6 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     for (int j = 0; j < 4; ++j)
       if (n0 + c + j < a.n) rk::finish(a, row, n0 + c + j, h[j]);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda entry point, reached through the
-// runtime so that the library needs no link to libcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A TMA map of a (rows, inner) operand with row stride ld elements and a
-// (box_rows, box_inner) box in the 128-byte swizzle; false where TMA
-// cannot take it (base or row stride not 16-byte aligned).
-bool encode(CUtensorMap* map, const void* base, CUtensorMapDataType dt,
-            int es, long long inner, long long rows, long long ld,
-            int box_inner, int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (!fn || (reinterpret_cast<size_t>(base) & 15) || ((ld * es) & 15))
-    return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * es)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, dt, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, bool GATED>

@@ -8,15 +8,20 @@ fp32 (int32 in the int8 W8A8 mode), then the post-processing epilogue —
 int8 dequant, bias, activation or the gated ``act(x@wg + bg) *
 (x@w + b)``, residual add, cast to ``out_dtype``.
 
-Three designs behind one C entry point (``csrc/rowwise_matmul*.cu``),
-picked by :func:`pick_design` from M and the dtype:
+Four designs behind one C entry point (``csrc/rowwise_matmul*.cu``),
+picked by :func:`pick_design` from M and the dtype and, in bf16, the
+shape and the operands (:func:`call_design`):
 
 * ``skinny`` (M <= 16 fp32, M <= 4 bf16 and int8:
   :data:`SKINNY_PICK_M`): bytes-bound, split-K over about one wave of
   blocks, the splits summed in a fixed order by the last block of each
   column tile;
-* ``wgmma`` (bf16 and int8 above that): Hopper tensor cores fed by a
-  TMA / mbarrier ring;
+* ``persistent`` (bf16 from :data:`PERSISTENT_MIN_M` rows, no norm
+  prologue, operands TMA takes): clusters of two blocks, one an SM,
+  walking 128 x 256 tiles in groups of row panels, the weights' tile
+  multicast to both, the epilogue beside the next tile's loads;
+* ``wgmma`` (the other bf16 calls above the skinny rows, and int8):
+  Hopper tensor cores fed by a TMA / mbarrier ring, one tile a block;
 * ``ffma`` (fp32, M > 16): exact fp32 FFMA on a register-blocked tile.
 
 For a CPU tensor it runs the plain :func:`ref.pipeline_ref`; for a
@@ -62,7 +67,17 @@ SKINNY_PICK_M = {torch.float32: 16, torch.bfloat16: 4, torch.int8: 4}
 # 8192 (deepseek-7b, gemma3-27b; the decode A/B lines) differed by less
 # than the host-bound steps' spread from run to run
 SKINNY_NORM_MAX_K = 1024
-DESIGNS = {"ffma": 0, "skinny": 1, "wgmma": 2}
+# pick_design sends the persistent design the bf16 calls of at least
+# PERSISTENT_MIN_M rows (with no norm prologue and operands TMA takes), at
+# every N and K: on an NVIDIA H100 80GB HBM3 at 700 W it beat the wgmma
+# design at every projection of the benchmark's cells, deepseek-7b's
+# prefill at M = 1628 .. 16384 (1.72-2.29x) and Swin-T's B=64 forward at
+# K = 48 .. 3072, N = 96 .. 3072, M = 64 .. 200704 (1.81-4.35x); at
+# deepseek-7b's projections of 8, 16 and 32 rows the two split
+# (0.89-1.33x), so fewer than 64 rows keep wgmma (chip_smoke.py's
+# persistent lines; PERF.md)
+PERSISTENT_MIN_M = 64
+DESIGNS = {"ffma": 0, "skinny": 1, "wgmma": 2, "persistent": 3}
 # the skinny design's columns per block, the blocks it aims for per SM
 # (one wave at two blocks per SM), and the fewest K rows of a split
 _SKINNY_COLS = 64
@@ -87,30 +102,59 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pick_design(m: int, dtype: torch.dtype) -> str:
-    """The design a call of M rows in ``dtype`` takes."""
+def persistent_fits(m: int, n: int, k: int) -> bool:
+    """Whether the route sends a bf16 call of M rows of (K, N) to the
+    persistent design (when it has no norm prologue and TMA takes its
+    operands): M of at least PERSISTENT_MIN_M, any N and K."""
+    return m >= PERSISTENT_MIN_M
+
+
+def pick_design(m: int, dtype: torch.dtype, n: int, k: int, *,
+                masked: bool = False, prologue: bool = False) -> str:
+    """The design a call of M rows of (K, N) in ``dtype`` takes;
+    ``masked``: an operand TMA cannot take (:func:`tma_masked`);
+    ``prologue``: a norm in the kernel's prologue."""
     if m <= SKINNY_PICK_M[dtype]:
         return "skinny"
-    return "ffma" if dtype == torch.float32 else "wgmma"
+    if dtype == torch.float32:
+        return "ffma"
+    if (dtype == torch.bfloat16 and not masked and not prologue
+            and persistent_fits(m, n, k)):
+        return "persistent"
+    return "wgmma"
 
 
 def norm_prologue_fits(m: int, k: int, dtype: torch.dtype) -> bool:
     """Whether a call of M rows of K in ``dtype`` keeps its norm in the
     kernel's prologue: the skinny design, up to :data:`SKINNY_NORM_MAX_K`."""
-    return pick_design(m, dtype) == "skinny" and k <= SKINNY_NORM_MAX_K
+    return m <= SKINNY_PICK_M[dtype] and k <= SKINNY_NORM_MAX_K
 
 
 def tma_masked(x: torch.Tensor, w: torch.Tensor,
                w_gate: Optional[torch.Tensor] = None) -> bool:
-    """Whether the wgmma design loads an operand of this call by masked
-    copies: TMA takes an operand whose base and row stride are 16-byte
-    aligned (``encode`` in ``csrc/rowwise_matmul_wgmma.cu``), x in every
-    dtype, w and w_gate in bf16 (an int8 w is transposed on the way in,
-    never by TMA)."""
+    """Whether an operand of this call is one TMA cannot take, which the
+    wgmma design then loads by masked copies: TMA takes an operand whose
+    base and row stride are 16-byte aligned (``encode`` in
+    ``csrc/tma.cuh``), x in every dtype, w and w_gate in bf16 (an int8 w
+    is transposed on the way in, never by TMA). A ``meta`` tensor's base
+    is its offset into an aligned storage."""
+    def base(t):
+        return (t.storage_offset() * t.element_size() if t.is_meta
+                else t.data_ptr())
     operands = (x,) if x.dtype == torch.int8 else (x, w, w_gate)
-    return any(t is not None and (t.data_ptr() % 16 or
+    return any(t is not None and (base(t) % 16 or
                                   t.stride(0) * t.element_size() % 16)
                for t in operands)
+
+
+def call_design(x: torch.Tensor, w: torch.Tensor,
+                w_gate: Optional[torch.Tensor] = None,
+                prologue: Optional[str] = None) -> str:
+    """The design :func:`rowwise_matmul_p` takes for these operands."""
+    m, k = x.shape
+    masked = x.dtype == torch.bfloat16 and tma_masked(x, w, w_gate)
+    return pick_design(m, x.dtype, w.shape[1], k, masked=masked,
+                       prologue=prologue is not None)
 
 
 def _rows(name, t, shape):
@@ -214,7 +258,7 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
     residual: (M, N) added after activation/gating, before the cast.
     prologue: 'layer' | 'rms' — normalize the x rows in-kernel
     (gamma/pbeta: (K,)); float mode only.
-    The design is :func:`pick_design`'s for M and the dtype.
+    The design is :func:`call_design`'s.
     """
     int8 = any(s is not None for s in (x_scale, w_scale, wg_scale))
     if int8:
@@ -250,7 +294,7 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                 gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
                 x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
         if trace.records is not None and x.dtype in _DT:
-            note(pick_design(x.shape[0], x.dtype))
+            note(call_design(x, w, w_gate, prologue))
         return out
 
     dev = _build.check_cuda("rowwise_matmul_p", x, w, w_gate, bias,
@@ -274,7 +318,7 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
         raise TypeError(f"rowwise_matmul_p: residual is {residual.dtype}")
     if out_dtype not in floats:
         raise TypeError(f"rowwise_matmul_p: out_dtype {out_dtype}")
-    design = pick_design(m, x.dtype)
+    design = call_design(x, w, w_gate, prologue)
     if k == 0:
         raise ValueError("rowwise_matmul_p: K = 0")
 

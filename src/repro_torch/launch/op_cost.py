@@ -179,7 +179,7 @@ class OpCost:
     # the launch records (``roofline.analyze`` prices them)
     records: List[dict] = dataclasses.field(default_factory=list)
     # by ATen op ('aten.mm') or kernel design ('kernel rowwise_matmul
-    # wgmma'): [bytes, flops, calls]
+    # persistent'): [bytes, flops, calls]
     by_op: Dict[str, List[float]] = dataclasses.field(
         default_factory=lambda: defaultdict(lambda: [0.0, 0.0, 0]))
     # by site (op, operand shapes and dtypes): [bytes, flops, calls]
@@ -382,7 +382,7 @@ def per_op_breakdown(cost: OpCost):
     """-> (by_op {op: [bytes, flops]}, rows [(bytes, calls, op, shapes,
     '')] of the heaviest sites, heaviest first): JAX's
     ``profile.per_op_breakdown`` over the walk. A kernel design is one
-    op ('kernel rowwise_matmul wgmma') and one site."""
+    op ('kernel rowwise_matmul persistent') and one site."""
     by_op = {op: [b, f] for op, (b, f, _n) in cost.by_op.items()}
     rows = [(b, n, op, sig, "") for (op, sig), (b, _f, n)
             in cost.sites.items()]

@@ -9,8 +9,8 @@ gemma3-27b in fp32; ``--unfused`` turns the pipeline fusion off), under
 ``torch.profiler``
 and reports, per call: wall time (host clock around synchronised calls),
 device busy time, the device's idle share, and device time by kernel
-name and by design (the matmul's skinny / wgmma / ffma, attention's
-mma / ffma, WKV's chunk / step, layernorm's cta / rows).
+name and by design (the matmul's skinny / wgmma / persistent / ffma,
+attention's mma / ffma, WKV's chunk / step, layernorm's cta / rows).
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --batch 8 64 --dtype fp32 bf16 --impl auto ref --out chiprun_out/profile.json
@@ -79,6 +79,7 @@ OWN = {"rowwise_matmul_kernel": "rowwise_matmul",
 # each kernel's designs by kernel name (the first stem that matches)
 DESIGNS = {"rowwise_matmul_kernel_skinny": "rowwise_matmul skinny",
            "rowwise_matmul_kernel_wgmma": "rowwise_matmul wgmma",
+           "rowwise_matmul_kernel_persistent": "rowwise_matmul persistent",
            "rowwise_matmul_kernel": "rowwise_matmul ffma",
            "attention_kernel_mma": "flash_attention mma",
            "attention_kernel_ffma": "flash_attention ffma",

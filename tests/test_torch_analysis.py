@@ -12,6 +12,7 @@ same input. The engine's parameters come from JAX's initializer through
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -458,10 +459,10 @@ def test_operand_audit_fires_on_hidden_host_copies(engine):
 
 def test_every_kernel_fits_the_h100():
     models = smem.kernel_models()
-    assert len(models) == 47
-    assert len({m.name for m in models}) == 47
+    assert len(models) == 50
+    assert len({m.name for m in models}) == 50
     res = smem.audit_models(models)
-    assert res.ok and res.checked == 47
+    assert res.ok and res.checked == 50
     biggest = max(models, key=lambda m: m.smem)
     assert biggest.name == "layernorm_kernel_cta_wide<fp32,true>"
     assert biggest.smem == 227 * 1024 - 1024 + 256 <= smem.BUDGET
@@ -476,7 +477,8 @@ def test_overbudget_kernel_fires():
 @pytest.mark.parametrize("case", [
     (4, 4096, 12288, "bf16", 1), (2048, 4096, 11008, "bf16", 2),
     (2048, 4096, 4096, "fp32", 1), (16, 4096, 11008, "fp32", 2),
-    (2048, 4096, 4096, "int8", 1), smem.STRESS + ("fp32", 1)], ids=str)
+    (2048, 4096, 4096, "int8", 1), smem.STRESS + ("fp32", 1),
+    (1628, 11008, 4096, "bf16", 1), (200, 1024, 1000, "bf16", 1)], ids=str)
 def test_plans_cover_their_kernels(case):
     m, k, n, dt, nw = case
     plan = rowwise.plan_matmul(m, k, n, dtype=dt, n_weights=nw)
@@ -487,6 +489,37 @@ def test_plans_cover_their_kernels(case):
     forged = dataclasses.replace(plan, smem_dynamic=model.dynamic - 1,
                                  smem_static=model.static - 1)
     assert "RWA402" in _codes(smem.crosscheck_plan(forged, model))
+
+
+def _source_constants(name):
+    """The file-scope ``constexpr int`` constants of a ``csrc`` file,
+    evaluated in order (integer arithmetic)."""
+    text = (Path(rowwise.__file__).parent.parent / "csrc" / name).read_text()
+    found = {}
+    for key, expr in re.findall(r"^constexpr int (\w+) =\s*([^;]+);", text,
+                                re.M):
+        found[key] = eval(expr.split("//")[0], {}, dict(found))
+    return found
+
+
+def test_persistent_constants_match_the_source():
+    """RWA402 on the CPU: the plan's persistent constants and its shared
+    memory are the ``.cu`` file's, read from its source (the card holds
+    them against the built library's query); the plan of the prefill's
+    shapes covers the kernel's request and fits a block."""
+    src = _source_constants("rowwise_matmul_persistent.cu")
+    want = smem.PLAN_CONSTANTS["rowwise_matmul_persistent.cu"]
+    got = {**src, "BN": src["BN_WIDE"]}
+    assert {k: got[k] for k in want} == want
+    assert src["SMEM_BYTES"] == rowwise.persistent_smem_bytes() <= smem.BUDGET
+    assert smem.check_constants({**smem.PLAN_CONSTANTS}).ok
+    for m, k, n, nw in ((1628, 4096, 12288, 1), (16384, 4096, 11008, 2),
+                        (7084, 11008, 4096, 1), (3136, 3072, 768, 1)):
+        plan = rowwise.plan_matmul(m, k, n, dtype="bf16", n_weights=nw)
+        model = smem.model_of(plan, nw, "bf16")
+        assert plan.design == "persistent"
+        assert model.name.startswith("rowwise_matmul_kernel_persistent")
+        assert smem.crosscheck_plan(plan, model).ok
 
 
 PTXAS = """== wkv.cu
@@ -528,7 +561,7 @@ def test_audit_build_clean_and_seeded():
     ptxas = [smem.PtxasEntry(m.source, f"k{i}", 32, m.static)
              for i, m in enumerate(models)]
     res = smem.audit_build(built, ptxas)
-    assert res.ok and res.checked == 2 * 47 + len(smem.QUERIES)
+    assert res.ok and res.checked == 2 * 50 + len(smem.QUERIES)
     wg = models[0]
     for seeded, code in (
             (_built(wg, dynamic=wg.dynamic + 8), "RWA402"),

@@ -52,12 +52,23 @@ def test_plan_takes_the_wrappers_design(m, dtype):
     for nw in (1, 2):
         plan = rowwise.plan_matmul(m, 4096, 11008, dtype=dtype,
                                    n_weights=nw)
-        assert plan.design == rm.pick_design(m, tdt)
+        assert plan.design == rm.pick_design(m, tdt, 11008, 4096)
         if plan.design == "wgmma":
             assert (plan.bm, plan.bn, plan.bk) == (
                 128, 64 if nw == 2 else 128, 128 // {"bf16": 2,
                                                       "int8": 1}[dtype])
             assert plan.smem_dynamic == 165968 and plan.blocks_per_sm == 1
+            assert plan.stages == 5
+        elif plan.design == "persistent":
+            # N = 11008 = 43 x 256: the wide tile, 128 gated
+            assert (plan.bm, plan.bn, plan.bk) == (
+                128, 128 if nw == 2 else 256, 64)
+            assert plan.smem_dynamic == 230464 and plan.blocks_per_sm == 1
+            assert plan.stages == 4 and plan.threads == 384
+            units = -(-m // 256) * plan.n_pad // plan.bn
+            assert plan.grid == (2 * min(units, 66), 1, 1)
+            assert plan.waves == -(-units // 66)
+            assert plan.group == min(-(-m // 256), 8)
         elif plan.design == "ffma":
             assert (plan.bm, plan.bn, plan.bk) == (64, 64, 16)
             assert plan.blocks_per_sm == (2 if nw == 2 else 3)
@@ -65,11 +76,63 @@ def test_plan_takes_the_wrappers_design(m, dtype):
             splits, kc = rm.skinny_splits(11008, 4096, nw == 2, 132)
             assert (plan.k_splits, plan.bk, plan.bn) == (splits, kc, 64)
             assert plan.grid == (172, splits, nw)
-        assert plan.waves == math.ceil(
-            plan.blocks / (132 * plan.blocks_per_sm))
+        if plan.design != "persistent":
+            assert plan.waves == math.ceil(
+                plan.blocks / (132 * plan.blocks_per_sm))
         assert plan.flops == 2 * m * 4096 * 11008 * nw
         assert plan.utilization == pytest.approx(
             m * 4096 * 11008 / (plan.m_pad * plan.k_pad * plan.n_pad))
+
+
+# (M, N, gated): ragged M and N, fewer tiles than SMs, N a multiple of
+# 256 (the wide tile) and not, gated; the deepseek-7b prefill's shapes
+WALK_SHAPES = [(1, 256, False), (130, 200, False), (1628, 12288, False),
+               (7084, 4096, False), (16384, 11008, True), (257, 1000, True),
+               (2047, 768, False)]
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=str)
+def test_persistent_walk_visits_every_tile_once(shape):
+    """The persistent plan's walk, as its clusters take it (cluster c the
+    unit indices c, c + clusters, ...; its block r the unit's row panel
+    r), visits every output tile exactly once, at the group the rule
+    picks and at every group it can pick; past the last row panel only
+    the odd panel count's spare block."""
+    m, n, gated = shape
+    c = rowwise.PERSISTENT_CLUSTER
+    plan = rowwise.plan_matmul(m, 4096, n, dtype="bf16",
+                               n_weights=2 if gated else 1,
+                               design="persistent")
+    mt, nt = plan.m_pad // plan.bm, plan.n_pad // plan.bn
+    units = -(-mt // c) * nt
+    assert plan.bn == (128 if gated or n % 256 else 256)
+    assert plan.grid == (c * min(units, 132 // c), 1, 1)
+    assert plan.waves == -(-units // (132 // c))
+    assert plan.group == rowwise.persistent_group(mt) == min(
+        -(-mt // c), rowwise.PERSISTENT_GROUP // c)
+    every = sorted((r, col) for r in range(mt) for col in range(nt))
+    clusters = plan.grid[0] // c
+    for group in range(1, rowwise.PERSISTENT_GROUP // c + 1):
+        if group > -(-mt // c):
+            break
+        walk = rowwise.persistent_walk(mt, nt, group)
+        assert len(walk) == units
+        taken = [(u * c + r, col) for cl in range(clusters)
+                 for i in range(cl, units, clusters)
+                 for u, col in [walk[i]] for r in range(c)]
+        assert sorted(t for t in taken if t[0] < mt) == every, group
+        assert all(r == mt for r, _ in taken if r >= mt)
+    # a wave of the rule's walk spans the group's row panels
+    first = rowwise.persistent_walk(mt, nt, plan.group)[:clusters]
+    assert {u for u, _ in first} == set(range(min(plan.group,
+                                                  -(-mt // c))))
+
+
+def test_persistent_plan_refuses_what_it_cannot_take():
+    for kw in (dict(dtype="int8"), dict(dtype="fp32"),
+               dict(dtype="bf16", prologue=True)):
+        with pytest.raises(ValueError, match="persistent"):
+            rowwise.plan_matmul(2048, 4096, 4096, design="persistent", **kw)
 
 
 def _port_bytes(m, k, n, db, *, bm, bn, n_w=1, residual=False,
@@ -106,7 +169,8 @@ def test_plan_bytes_against_the_jax_package(mkn, kw):
     plan = rowwise.plan_matmul(m, k, n, dtype="bf16", **kw)
     jplan = jrw.plan_matmul(m, k, n, dtype_bytes=2, out_bytes=2, **kw)
     assert plan.flops == jplan.flops
-    assert plan.bytes_moved == _port_bytes(m, k, n, 2, bm=128, bn=128, **kw)
+    assert plan.bytes_moved == _port_bytes(m, k, n, 2, bm=plan.bm,
+                                           bn=plan.bn, **kw)
     assert jplan.bytes_moved == _jax_bytes(jplan, 2, **kw)
     # operands that divide both tiles and a plan with no re-read: the
     # same reads, the same bytes
@@ -199,7 +263,14 @@ def test_swin_block_traffic(stage, fused, shifted, db):
             # a matmul: the port's re-reads per tile against the JAX
             # package's pad to its TPU tile
             k, n, kw = mm[name]
-            assert b == _port_bytes(m, k, n, db, bm=bm, bn=bn, **kw), name
+            # the tile of the design the call takes (bf16's persistent
+            # one is 256 wide where N is a multiple of 256)
+            plan = rowwise.plan_matmul(m, k, n, dtype={2: "bf16",
+                                                        4: "fp32"}[db],
+                                       prologue=kw.get("prologue", False))
+            assert (plan.bm, plan.bn) in ((bm, bn), (bm, 256)), name
+            assert b == _port_bytes(m, k, n, db, bm=plan.bm, bn=plan.bn,
+                                    **kw), name
             jkw = dict(kw, wide_n=name.startswith("ln"))
             jplan = jrw.plan_matmul(m, k, n, dtype_bytes=db, out_bytes=db,
                                     **jkw)

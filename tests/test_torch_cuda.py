@@ -265,6 +265,159 @@ def test_matmul_split_k_repeats_bitwise(dev, dtype):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
+def _design(before):
+    """The one design the matmul launches since ``before`` (a length of
+    ``trace.records``) took."""
+    designs = {r["design"] for r in trace.records[before:]
+               if r["kernel"] == "rowwise_matmul"}
+    assert len(designs) == 1, designs
+    return designs.pop()
+
+
+# deepseek-7b's prefill projections (K, N, mode): qkv, wo and down with
+# a bf16 residual, gate|up gated with SiLU over the halves of its panel
+LM_PROJECTIONS = {
+    "qkv": (4096, 12288, dict()),
+    "wo+res": (4096, 4096, dict(residual=True)),
+    "gate|up+silu": (4096, 11008, dict(activation="silu", gated=True)),
+    "down+res": (11008, 4096, dict(residual=True))}
+
+
+@pytest.mark.parametrize("proj", list(LM_PROJECTIONS))
+@pytest.mark.parametrize("m", [1628, 7084])
+def test_matmul_persistent_lm(dev, m, proj):
+    """The persistent design at every deepseek-7b prefill projection at
+    ragged M (B=4 x 407 and x 1771 tokens: the last row panel part
+    full), where the route sends them, against the plain version."""
+    k, n, mode = LM_PROJECTIONS[proj]
+    x, w, kw, want = _matmul_case(dev, m, k, n, torch.bfloat16, mode,
+                                  strided=True, seed=5)
+    before = len(trace.records)
+    got = rowwise_matmul_p(x, w, **kw)
+    assert _design(before) == "persistent"
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOLS[torch.bfloat16])
+
+
+# Swin-T's projections the route sends to the persistent design, at
+# B=8: (M, K, N, mode)
+SWIN_PERSISTENT = [(392, 3072, 768, dict(residual=True)),
+                   (392, 1536, 768, dict())]
+
+
+@pytest.mark.parametrize("shape", SWIN_PERSISTENT, ids=str)
+def test_matmul_persistent_swin(dev, shape):
+    """A Swin-T shape the route sends to the persistent design (stage 4's
+    mlp2 with its residual, stage 3's merge), against the plain
+    version."""
+    m, k, n, mode = shape
+    assert rm.pick_design(m, torch.bfloat16, n, k) == "persistent"
+    x, w, kw, want = _matmul_case(dev, m, k, n, torch.bfloat16, mode)
+    before = len(trace.records)
+    got = rowwise_matmul_p(x, w, **kw)
+    assert _design(before) == "persistent"
+    _close(got, want, TOLS[torch.bfloat16])
+
+
+# (M, K, N): fewer tiles than SMs, M and N off the tiles (N = 300: the
+# output's rows off 16-byte alignment), K off the 64 of a stage; N a
+# multiple of 256 (the wide tile); one row
+EDGE_SHAPES = [(130, 1000, 200), (300, 1000, 300), (257, 200, 512),
+               (1, 1024, 256), (5, 64, 1000)]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(activation="gelu"), dict(activation="silu", gated=True),
+    dict(activation="relu2", residual=True)], ids=str)
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("route", ["persistent", "wgmma"])
+def test_matmul_persistent_either_side(dev, monkeypatch, route, shape,
+                                       mode):
+    """The persistent and wgmma designs at one shape (the route forced
+    either way, the skinny rows moved below M), the weights N-column
+    views of panels whose rows TMA takes, against the plain version;
+    twice: the outputs repeat bitwise (each element summed in K order by
+    one block)."""
+    m, k, n = shape
+    monkeypatch.setattr(rm, "persistent_fits",
+                        lambda m_, n_, k_: route == "persistent")
+    monkeypatch.setitem(rm.SKINNY_PICK_M, torch.bfloat16, 0)
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dev, torch.bfloat16)
+
+    def weight():
+        return r(k, -(-n // 8) * 8, scale=k ** -0.5)[:, :n]
+    x, kw = r(m, k), dict(bias=r(n, scale=0.1),
+                          activation=mode.get("activation"))
+    w = weight()
+    if mode.get("gated"):
+        kw.update(w_gate=weight(), bias_gate=r(n, scale=0.1))
+    if mode.get("residual"):
+        kw["residual"] = r(m, n)
+    before = len(trace.records)
+    got = rowwise_matmul_p(x, w, **kw)
+    again = rowwise_matmul_p(x, w, **kw)
+    assert _design(before) == route
+    _close(got, ref.pipeline_ref(x, w, out_dtype=torch.float32, **kw),
+           TOLS[torch.bfloat16])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32-res", "bf16-res"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32-out", "bf16-out"])
+def test_matmul_persistent_dtypes(dev, out_dtype, res_dtype):
+    """The persistent design's epilogue in every output and residual
+    dtype the wrapper takes with bf16 operands, at a wide tile, a bias
+    in fp32."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    m, k, n = 333, 1536, 768
+    x = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(dev, torch.bfloat16)
+    b = (torch.randn(n, generator=g) * 0.1).to(dev)
+    res = torch.randn(m, n, generator=g).to(dev, res_dtype)
+    before = len(trace.records)
+    got = rowwise_matmul_p(x, w, bias=b, activation="gelu", residual=res,
+                           out_dtype=out_dtype)
+    assert _design(before) == "persistent" and got.dtype == out_dtype
+    want = ref.pipeline_ref(x, w, bias=b, activation="gelu", residual=res,
+                            out_dtype=torch.float32)
+    _close(got, want, TOLS[torch.bfloat16])
+
+
+def test_matmul_persistent_keeps_off(dev, monkeypatch):
+    """What the wgmma design keeps at a shape the route sends to the
+    persistent one: an operand TMA cannot take (x's rows off 16 bytes),
+    a norm prologue, and int8; each against the plain version."""
+    monkeypatch.setattr(rm, "persistent_fits", lambda m_, n_, k_: True)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    m, k, n = 300, 1032, 512
+    wide = torch.randn(m, k + 1, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, n, generator=g) * k ** -0.5).to(dev, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(k, generator=g)).to(dev, torch.bfloat16)
+    x = wide[:, :k].contiguous()
+    assert rm.call_design(x, w) == "persistent"
+    for xin, kw in ((wide[:, :k], {}),
+                    (x, dict(prologue="rms", gamma=gamma))):
+        before = len(trace.records)
+        got = rowwise_matmul_p(xin, w, **kw)
+        assert _design(before) == "wgmma"
+        want = ref.pipeline_ref(xin, w, norm_kind=kw.get("prologue"),
+                                gamma=kw.get("gamma"),
+                                out_dtype=torch.float32)
+        _close(got, want, TOLS[torch.bfloat16])
+    xq, xs = quant.quantize_per_row(x.float())
+    wq, ws = quant.quantize_per_channel(w.float())
+    before = len(trace.records)
+    got = rowwise_matmul_p(xq, wq, x_scale=xs, w_scale=ws)
+    assert _design(before) == "wgmma"
+    _close(got, ref.pipeline_ref(xq, wq, x_scale=xs, w_scale=ws),
+           TOLS[torch.int8])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8], ids=str)
 @pytest.mark.parametrize("m", [2, 8, 130])
@@ -279,7 +432,7 @@ def test_norm_prologue_either_side(dev, monkeypatch, dtype, m, kind):
     if dtype == torch.int8:
         pytest.skip("the int8 mode has no norm prologue (JAX asserts it)")
     k, n = 700, 300
-    design = rm.pick_design(2 * m, dtype)
+    design = rm.pick_design(2 * m, dtype, n, k)
     g = torch.Generator(device="cpu").manual_seed(11)
 
     def r(*s, scale=1.0):

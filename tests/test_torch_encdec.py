@@ -327,7 +327,7 @@ def test_norm_prologue_thresholds():
     designs of many rows, whose prologue lost to the split at every K
     measured (PERF.md), never keep it."""
     for design, dtype, rows in DESIGNS:
-        assert rm.pick_design(rows, dtype) == design
+        assert rm.pick_design(rows, dtype, 24, 96, prologue=True) == design
         for k in (1, rm.SKINNY_NORM_MAX_K):
             assert rm.norm_prologue_fits(rows, k, dtype) == (
                 design == "skinny")

@@ -308,10 +308,73 @@ def test_attention_pick_design_refuses_other_dtypes(dtype):
                                    torch.int8], ids=str)
 @pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 2048])
 def test_matmul_pick_design(m, dtype):
-    """Up to SKINNY_PICK_M rows the skinny design; above, wgmma for bf16
-    and int8, ffma for fp32."""
+    """Up to SKINNY_PICK_M rows the skinny design; above, ffma for fp32,
+    wgmma for int8, and for bf16 persistent from PERSISTENT_MIN_M rows
+    (operands TMA takes, no prologue), wgmma below."""
     if m <= rm.SKINNY_PICK_M[dtype]:
         want = "skinny"
+    elif dtype == torch.float32:
+        want = "ffma"
+    elif dtype == torch.bfloat16 and m >= rm.PERSISTENT_MIN_M:
+        want = "persistent"
     else:
-        want = "ffma" if dtype == torch.float32 else "wgmma"
-    assert rm.pick_design(m, dtype) == want
+        want = "wgmma"
+    assert rm.pick_design(m, dtype, 288, 96) == want
+
+
+# (M, dtype, N, K, masked, prologue, design): every projection of the
+# benchmark's cells takes the persistent design in bf16 (deepseek-7b's
+# prefill, Swin-T's first qkv and its head at B=64), and only with
+# operands TMA takes and no norm prologue; int8 keeps wgmma, fp32 ffma,
+# the skinny rows stay skinny
+ROUTE_CASES = [
+    (1628, torch.bfloat16, 12288, 4096, False, False, "persistent"),
+    (7084, torch.bfloat16, 4096, 4096, False, False, "persistent"),
+    (16384, torch.bfloat16, 11008, 4096, False, False, "persistent"),
+    (1628, torch.bfloat16, 4096, 11008, False, False, "persistent"),
+    (3136, torch.bfloat16, 768, 3072, False, False, "persistent"),
+    (200704, torch.bfloat16, 288, 96, False, False, "persistent"),
+    (64, torch.bfloat16, 1000, 768, False, False, "persistent"),
+    (1628, torch.bfloat16, 12288, 4096, True, False, "wgmma"),
+    (1628, torch.bfloat16, 12288, 4096, False, True, "wgmma"),
+    (1628, torch.int8, 12288, 4096, False, False, "wgmma"),
+    (1628, torch.float32, 12288, 4096, False, False, "ffma"),
+    (4, torch.bfloat16, 12288, 4096, False, False, "skinny")]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=str)
+def test_matmul_route(case):
+    """The bf16 route by shape, operands and prologue
+    (:func:`rm.persistent_fits`)."""
+    m, dtype, n, k, masked, prologue, want = case
+    assert rm.pick_design(m, dtype, n, k, masked=masked,
+                          prologue=prologue) == want
+
+
+@pytest.mark.parametrize("m", [5, 32, 63, 64, 65, 2048])
+def test_matmul_route_follows_m(m):
+    """The route's boundary: M of at least PERSISTENT_MIN_M, whatever N
+    and K."""
+    for n, k in ((96, 48), (1000, 768), (12288, 4096), (4096, 11008)):
+        assert rm.persistent_fits(m, n, k) == (m >= rm.PERSISTENT_MIN_M)
+        assert rm.pick_design(m, torch.bfloat16, n, k) == (
+            "persistent" if m >= rm.PERSISTENT_MIN_M else "wgmma")
+
+
+def test_matmul_call_design_reads_the_operands():
+    """``call_design`` sees what TMA cannot take (x's rows off 16 bytes,
+    a gate panel's half off 16 bytes) and a prologue; a meta tensor's
+    base is its storage offset."""
+    k, n = 4096, 1024
+    for device in ("cpu", "meta"):
+        x = torch.zeros(64, k + 8, dtype=torch.bfloat16, device=device)
+        w = torch.zeros(k, 2 * n, dtype=torch.bfloat16, device=device)
+        assert rm.call_design(x[:, :k], w[:, :n]) == "persistent"
+        assert rm.call_design(x[:, 1:k + 1], w[:, :n]) == "wgmma"
+        assert rm.call_design(x[:, :k], w[:, 4:n + 4]) == "wgmma"
+        assert rm.call_design(x[:, :k], w[:, n:], w[:, :n]) == "persistent"
+        assert rm.call_design(x[:, :k], w[:, :n], prologue="rms") == \
+            "wgmma"
+        assert rm.call_design(x[:4, :k], w[:, :n]) == "skinny"
+        assert rm.call_design(x[:8, :k], w[:, :n]) == (
+            "persistent" if 8 >= rm.PERSISTENT_MIN_M else "wgmma")

@@ -17,7 +17,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.swin_t import reduced
 from repro_torch.core import trace
 from repro_torch.kernels import rowwise_matmul as rm
@@ -210,12 +210,32 @@ def test_take_inside_a_span_raises():
     assert [s.name for s in spans] == ["outer"]
 
 
+def test_meta_prefill_takes_the_persistent_design():
+    """deepseek-7b's prefill of B=4 x 407 tokens (the benchmark mix's
+    least) on meta tensors, routed as the card routes it: its 120
+    projections on the persistent design and none on wgmma, 212
+    launches in all."""
+    cfg = get_config("deepseek-7b")
+    params = lm.init_lm(cfg, None, device="meta", dtype=torch.bfloat16)
+    tok = torch.zeros((4, 407), dtype=torch.int32, device="meta")
+    with torch.no_grad(), trace.recording():
+        trace.take()
+        lm.prefill(params, tok, cfg)
+        _, counters = trace.take()
+    assert counters["launch.rowwise_matmul.persistent"] == 4 * cfg.n_layers
+    assert "launch.rowwise_matmul.wgmma" not in counters
+    assert trace.MASKED not in counters
+    assert sum(n for k, n in counters.items()
+               if k.startswith("launch.")) == 212
+
+
 @pytest.mark.cuda
 def test_cuda_profiler_session_counts_launches():
     """On the card, under a CUDA-activity profiler session alone (as the
-    benchmark's traced run opens): each bf16 wgmma launch counts, one
-    with x 8 bytes off its alignment counts as masked too, and each
-    call is a kernel span."""
+    benchmark's traced run opens): each bf16 launch counts under its
+    design (the persistent one; the wgmma one for x 8 bytes off its
+    alignment, which counts as masked too), and each call is a kernel
+    span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -232,8 +252,8 @@ def test_cuda_profiler_session_counts_launches():
         b = rm.rowwise_matmul_p(off, w)
         torch.cuda.synchronize()
     spans, counters = trace.take()
-    assert counters == {"launch.rowwise_matmul.wgmma": 2,
-                        trace.MASKED: 1}
+    assert counters == {"launch.rowwise_matmul.persistent": 1,
+                        "launch.rowwise_matmul.wgmma": 1, trace.MASKED: 1}
     assert [s.name for s in spans] == ["kernel.rowwise_matmul"] * 2
     want = (off.float() @ w.float())
     assert (b.float() - want).abs().max() <= 0.05 * want.abs().max()
