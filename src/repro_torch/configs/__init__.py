@@ -2,15 +2,18 @@
 ``ARCHS``, in the JAX package's order, with its shape cells.
 
 The JAX package's registry names ten architectures; the port runs all
-ten. ``PENDING`` names any architecture a later item of ``ROADMAP.md``
+ten. ``PORT_ONLY`` names the architectures the port runs beyond them
+(outside ``ARCHS``, which the dry run walks over JAX's shape cells):
+``get_config`` and ``get_reduced`` resolve them too. ``PENDING`` names any architecture a later item of ``ROADMAP.md``
 may add before its slice lands: asked for, it raises with a pointer to
 that item.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_20b,
-                                 internlm2_20b, phi35_moe, qwen2_moe,
-                                 qwen2_vl, rwkv6_3b, whisper_base, zamba2)
+from repro_torch.configs import (deepseek_7b, gemma3_27b, granite_4_h_small,
+                                 granite_20b, internlm2_20b, phi35_moe,
+                                 qwen2_moe, qwen2_vl, rwkv6_3b, whisper_base,
+                                 zamba2)
 from repro_torch.configs.shapes import SHAPES, SMOKE_SHAPES
 from repro_torch.core.types import ModelConfig
 
@@ -28,6 +31,9 @@ _MODULES = {
 }
 
 ARCHS = {name: mod.CONFIG for name, mod in _MODULES.items()}
+
+# the port's own architectures (the JAX package has no counterpart)
+PORT_ONLY = {"granite-4.0-h-small": granite_4_h_small}
 REDUCED = {name: mod.reduced for name, mod in _MODULES.items()}
 
 # architectures not ported yet, with the ROADMAP item that ports each
@@ -48,11 +54,13 @@ def cell_applicable(arch: str, shape: str) -> bool:
 def _module(arch: str):
     if arch in _MODULES:
         return _MODULES[arch]
+    if arch in PORT_ONLY:
+        return PORT_ONLY[arch]
     if arch in PENDING:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: ROADMAP.md {PENDING[arch]}")
     raise KeyError(f"unknown arch {arch!r}; known: "
-                   f"{sorted([*_MODULES, *PENDING])}")
+                   f"{sorted([*_MODULES, *PORT_ONLY, *PENDING])}")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -70,5 +78,5 @@ def all_cells(include_skipped: bool = False):
                 yield arch, shape
 
 
-__all__ = ["ARCHS", "PENDING", "REDUCED", "SHAPES", "SMOKE_SHAPES",
+__all__ = ["ARCHS", "PENDING", "PORT_ONLY", "REDUCED", "SHAPES", "SMOKE_SHAPES",
            "all_cells", "cell_applicable", "get_config", "get_reduced"]

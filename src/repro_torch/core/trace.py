@@ -19,14 +19,17 @@ under it carries that unit's id (None outside every unit). The port
 opens spans at its entry points (``vision.swin_forward``,
 ``lm.prefill``), at its structure (``vision.stage`` / ``block`` /
 ``merge`` / ``head``, ``lm.embed`` / ``layer`` / ``unembed`` /
-``states_to_cache``) and around each raw kernel wrapper
+``states_to_cache``), inside the layers whose work is torch ops
+(``mamba.conv`` / ``scan``; the dropless expert layer's ``moe.route`` /
+``dispatch`` / ``experts`` / ``combine`` / ``shared``) and around each
+raw kernel wrapper
 (``kernel.<name>``, from entry to return: its checks, the design pick,
 the output's allocation and the launch). A span's self time, its length
 less its children's, is the host time of its own layer: its work, or a
 wait on the card. At most :data:`LIMIT` spans are kept; the rest are counted under
 ``trace.dropped_spans``.
 
-**Counters**, moved by :func:`note`:
+**Counters**, moved by :func:`note` and :func:`count`:
 
 * ``launch.<kernel>.<design>``: each wrapper call that launches on the
   card, and each shape-only call on ``meta`` tensors (the dry run's,
@@ -34,7 +37,10 @@ wait on the card. At most :data:`LIMIT` spans are kept; the rest are counted und
   nothing;
 * ``launch.masked_operand``: matmul launches whose operand TMA cannot
   take, which the wgmma design then loads by masked copies
-  (``rowwise_matmul.tma_masked``).
+  (``rowwise_matmul.tma_masked``);
+* ``moe.rows_routed`` (tokens x top-k), ``moe.rows_held`` (the rows the
+  held experts computed) and ``moe.expert_calls`` (the matmul calls they
+  made), by the dropless expert layer.
 
 :func:`take` hands over the spans and counters and clears them.
 """
@@ -132,6 +138,14 @@ def note(kernel: str, design: str, tensors: dict, device, *,
         _counters[key] = _counters.get(key, 0) + 1
         if masked:
             _counters[MASKED] = _counters.get(MASKED, 0) + 1
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while the trace records (as
+    :func:`note` moves the launch counters)."""
+    if records is None and not _profiler._is_profiler_enabled:
+        return
+    _counters[name] = _counters.get(name, 0) + int(n)
 
 
 def _open(name: str, entry: bool) -> list:

@@ -26,6 +26,28 @@ class MoEConfig:
     n_shared: int = 0              # always-on shared experts (qwen2-moe)
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # The port's own fields (the JAX package's MoEConfig lacks them):
+    # dropless routing over every expert, of which this device holds the
+    # contiguous range ``held`` = (first, stop) ((0, 0): all of them),
+    # with an ungated shared expert (granite's); the shared expert's
+    # width (0: d_ff * n_shared).
+    dropless: bool = False
+    held: Tuple[int, int] = (0, 0)
+    shared_d_ff: int = 0
+
+    @property
+    def held_range(self) -> Tuple[int, int]:
+        """(first, stop) of the experts this device computes."""
+        return self.held if self.held != (0, 0) else (0, self.n_experts)
+
+    @property
+    def n_held(self) -> int:
+        first, stop = self.held_range
+        return stop - first
+
+    @property
+    def shared_width(self) -> int:
+        return self.shared_d_ff or self.d_ff * self.n_shared
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +175,7 @@ class ModelConfig:
     head_dim: int = 0              # 0 => d_model // n_heads
     act: str = "silu"              # silu => SwiGLU MLP; gelu => GELU MLP
     norm: str = "rms"              # rms | layer
-    rope: str = "default"          # default | mrope | none
+    rope: str = "default"          # default | mrope | none | nope
     rope_theta: float = 10_000.0
     # sliding-window pattern: e.g. gemma3 is 5 local : 1 global
     pattern_local: int = 0         # local layers per pattern group
@@ -174,6 +196,23 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # long-context capability flag
     subquadratic: bool = False
+    # The port's own fields (the JAX package's ModelConfig lacks them;
+    # their defaults keep its behaviour). ``layer_pattern``: a period of
+    # mixers, "M" Mamba2 and "A" attention, repeated to ``n_layers``,
+    # every block with the model's FFN and its own weights (granite's
+    # hybrid; ``hybrid_period`` is zamba2's). ``norm_eps``: every
+    # norm's. The muP scalars as published: the embedding rows times
+    # ``embedding_multiplier`` as read; ``residual_multiplier`` on every
+    # mixer and FFN output, ``attention_multiplier`` the softmax scale
+    # (0: head_dim ** -0.5) and the logits over ``logits_scaling``,
+    # which :func:`repro_torch.models.lm.fold_multipliers` folds into
+    # the weights (the out-projections, the q columns, the final norm).
+    layer_pattern: str = ""
+    norm_eps: float = 1e-6
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -187,6 +226,16 @@ class ModelConfig:
         if self.family == "ssm" and self.rwkv is not None:
             blk = BlockDef(mixer="rwkv6", ffn="rwkv6_cmix")
             return (Stage(self.n_layers, (blk,)),)
+
+        if self.family == "hybrid" and self.layer_pattern:
+            kinds = {"M": "mamba2", "A": "attn"}
+            ffn = "moe" if self.moe is not None else "mlp"
+            body = tuple(BlockDef(mixer=kinds[c], ffn=ffn)
+                         for c in self.layer_pattern)
+            if self.n_layers % len(body):
+                raise ValueError(f"{self.name}: {self.n_layers} layers are "
+                                 f"no whole number of {self.layer_pattern!r}")
+            return (Stage(self.n_layers // len(body), body),)
 
         if self.family == "hybrid":
             period = self.hybrid_period or 6
@@ -265,9 +314,10 @@ class ModelConfig:
                 elif blk.ffn == "moe":
                     mo = self.moe
                     e = mlp_params(mo.d_ff)
-                    p += mo.n_experts * e + d * mo.n_experts + d
-                    p += mo.n_shared * mlp_params(mo.d_ff)
-                    a += (mo.top_k + mo.n_shared) * e + d * mo.n_experts + d
+                    shared = (mlp_params(mo.shared_width)
+                              if mo.n_shared else 0)
+                    p += mo.n_held * e + d * mo.n_experts + d + shared
+                    a += mo.top_k * e + d * mo.n_experts + d + shared
                 elif blk.ffn == "rwkv6_cmix":
                     m = int(2 * d * self.d_ff) + d
                     p += m
@@ -287,6 +337,29 @@ class ModelConfig:
                     total += stage.repeat * p
                     active += stage.repeat * p
         return {"total": total, "active": active}
+
+
+# The port's own fields of each config type, which the JAX package's lack
+PORT_FIELDS = {
+    "ModelConfig": ("layer_pattern", "norm_eps", "embedding_multiplier",
+                    "residual_multiplier", "attention_multiplier",
+                    "logits_scaling"),
+    "MoEConfig": ("dropless", "held", "shared_d_ff"),
+}
+
+
+def jax_fields(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port's own fields where
+    they hold their defaults, so that it compares with the asdict of
+    the JAX package's config: a port field set otherwise stays in."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if (f.name in PORT_FIELDS.get(type(cfg).__name__, ())
+                and v == f.default):
+            continue
+        out[f.name] = jax_fields(v) if dataclasses.is_dataclass(v) else v
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -49,6 +49,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import (norm_prologue_fits,
+                                                rowwise_matmul_groups_p,
                                                 rowwise_matmul_p)
 from repro_torch.kernels.wkv import wkv_p
 
@@ -221,6 +222,38 @@ def gate_up_proj(x: torch.Tensor, w, *, activation: str,
                     activation=activation, w_gate=w_gate,
                     bias_gate=bias_gate)
     return out.reshape(*lead, f)
+
+
+def matmul_groups(x: torch.Tensor, w: torch.Tensor, sizes: Sequence[int], *,
+                  activation: Optional[str] = None, gated: bool = False,
+                  out: Optional[torch.Tensor] = None,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """Consecutive row groups of ``x`` (R, K), each times its own
+    weight: group g, its ``sizes[g]`` rows, @ ``w[g]`` (w: (G, K, N));
+    with ``gated`` each ``w[g]`` is a [gate | up] panel (K, 2F) and the
+    rows get ``act(x wg) * (x wi)``, as in :func:`gate_up_proj`. ->
+    (R, N or F) (``out`` when given), one launch a non-empty group, each
+    writing its rows of the output in place. The dispatch is decided
+    once for all the groups: the dropless expert layer's calls, whose
+    host time bounds the layer."""
+    impl = impl or runtime.resolve_impl()
+    f = w.shape[-1] // 2 if gated else w.shape[-1]
+    if out is None:
+        out = x.new_empty((x.shape[0], f))
+    if impl == "ref" or (kernel_path(x) and _wants_grad(x, w)):
+        # the general dispatch, a group at a time
+        start = 0
+        for g, m in enumerate(sizes):
+            if m:
+                xg = x[start:start + m]
+                out[start:start + m] = (
+                    gate_up_proj(xg, w[g], activation=activation, impl=impl)
+                    if gated else
+                    matmul(xg, w[g], activation=activation, impl=impl))
+            start += m
+        return out
+    return rowwise_matmul_groups_p(x, w, sizes, gated=gated,
+                                   activation=activation, out=out)
 
 
 def matmul_int8(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,

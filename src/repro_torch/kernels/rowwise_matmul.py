@@ -234,6 +234,53 @@ def _skinny_plan(dev, m, n, k, gated):
     return splits, kc, work, counters
 
 
+def _note(design, t, prologue, splits=None, masked=False):
+    """The record and counts (``trace.note``) of a call on the operands
+    ``t`` (:func:`rowwise_matmul_p`'s tensors by name): off the card (a
+    CPU or meta tensor) the K splits of an H100."""
+    if splits is None:
+        n, k = t["w"].shape[1], t["x"].shape[1]
+        splits = (skinny_splits(n, k, t.get("w_gate") is not None,
+                                H100.sms)[0]
+                  if design == "skinny" and n and k else 0)
+    trace.note("rowwise_matmul", design, t, t["out"].device, masked=masked,
+               prologue=prologue, splits=splits)
+
+
+def _launch(dev, design, t, vecs, vec_bits, *, prologue=None,
+            activation=None, out_dtype, eps=1e-6):
+    """Launch ``design`` on the checked operands ``t`` (by name, as
+    :func:`_note` takes them; ``out`` allocated, M and N not 0), the
+    vectors as :func:`_vector` gives them in ``vecs``, and note it."""
+    x, w, out = t["x"], t["w"], t["out"]
+    w_gate, residual = t.get("w_gate"), t.get("residual")
+    m, k = x.shape
+    n = w.shape[1]
+    splits = kc = 0
+    work = counters = None
+    if design == "skinny":
+        splits, kc, work, counters = _skinny_plan(dev, m, n, k,
+                                                  w_gate is not None)
+    err = _build.function("rk_rowwise_matmul", _ARGTYPES)(
+        x.data_ptr(), w.data_ptr(), _build.ptr(w_gate),
+        _build.ptr(vecs.get("bias")), _build.ptr(vecs.get("bias_gate")),
+        _build.ptr(residual), _build.ptr(vecs.get("gamma")),
+        _build.ptr(vecs.get("pbeta")), _build.ptr(t.get("x_scale")),
+        _build.ptr(t.get("w_scale")), _build.ptr(t.get("wg_scale")),
+        out.data_ptr(), _build.ptr(work), _build.ptr(counters),
+        x.stride(0), w.stride(0),
+        w_gate.stride(0) if w_gate is not None else 0,
+        residual.stride(0) if residual is not None else 0, out.stride(0),
+        m, n, k, KINDS.get(prologue, 0), ACTIVATIONS[activation],
+        _DT[x.dtype], _DT[residual.dtype] if residual is not None else 0,
+        _DT[out_dtype], vec_bits, splits, kc, eps, DESIGNS[design],
+        _build.stream(dev))
+    _build.check(err, "rowwise_matmul_p")
+    if trace.active():
+        _note(design, t, prologue, splits,
+              design == "wgmma" and tma_masked(x, w, w_gate))
+
+
 @trace.traced("kernel.rowwise_matmul")
 def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                      bias: Optional[torch.Tensor] = None,
@@ -248,7 +295,8 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                      gamma: Optional[torch.Tensor] = None,
                      pbeta: Optional[torch.Tensor] = None,
                      eps: float = 1e-6,
-                     out_dtype=None) -> torch.Tensor:
+                     out_dtype=None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (M, K); w: (K, N); bias: (N,) -> (M, N).
 
     int8 W8A8 mode when scales are given: x and w int8, x_scale (M, 1)
@@ -258,6 +306,8 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
     residual: (M, N) added after activation/gating, before the cast.
     prologue: 'layer' | 'rms' — normalize the x rows in-kernel
     (gamma/pbeta: (K,)); float mode only.
+    out: (M, N) rows of unit column stride in ``out_dtype``, written in
+    place and returned (a new tensor when None).
     The design is :func:`call_design`'s.
     """
     int8 = any(s is not None for s in (x_scale, w_scale, wg_scale))
@@ -273,28 +323,27 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                          "and gamma")
     out_dtype = out_dtype or (torch.float32 if int8 else x.dtype)
 
-    def note(design, splits=None, masked=False):
-        """The call's record and counts (``trace.note``): off the card (a
-        CPU or meta tensor) the K splits of an H100."""
-        if splits is None:
-            n, k = w.shape[1], x.shape[1]
-            splits = (skinny_splits(n, k, w_gate is not None, H100.sms)[0]
-                      if design == "skinny" and n and k else 0)
-        trace.note("rowwise_matmul", design, dict(
-            x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
-            residual=residual, gamma=gamma, pbeta=pbeta, x_scale=x_scale,
-            w_scale=w_scale, wg_scale=wg_scale, out=out),
-            out.device, masked=masked, prologue=prologue, splits=splits)
+    def operands():
+        return dict(x=x, w=w, w_gate=w_gate, bias=bias, bias_gate=bias_gate,
+                    residual=residual, gamma=gamma, pbeta=pbeta,
+                    x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale,
+                    out=out)
 
+    if out is not None:
+        if out.dtype != out_dtype or out.device != x.device:
+            raise TypeError(f"rowwise_matmul_p: out is {out.dtype} on "
+                            f"{out.device}, want {out_dtype} on {x.device}")
+        _rows("out", out, (x.shape[0], w.shape[1]))
     if x.device.type == "cpu":
         with trace.plain_call():
-            out = ref.pipeline_ref(
+            res = ref.pipeline_ref(
                 x, w, bias=bias, activation=activation, w_gate=w_gate,
                 bias_gate=bias_gate, residual=residual, norm_kind=prologue,
                 gamma=gamma, beta=pbeta, eps=eps, out_dtype=out_dtype,
                 x_scale=x_scale, w_scale=w_scale, wg_scale=wg_scale)
+            out = res if out is None else out.copy_(res)
         if trace.records is not None and x.dtype in _DT:
-            note(call_design(x, w, w_gate, prologue))
+            _note(call_design(x, w, w_gate, prologue), operands(), prologue)
         return out
 
     dev = _build.check_cuda("rowwise_matmul_p", x, w, w_gate, bias,
@@ -330,34 +379,69 @@ def rowwise_matmul_p(x: torch.Tensor, w: torch.Tensor, *,
                           ("gamma", gamma, k), ("pbeta", pbeta, k)):
         vecs[name], bit = _vector(name, t, size)
         vec_bits |= bit
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if not (m and n):
         return out
     if dev.type == "meta":
         # shapes alone (the dry run's): checked as for a launch, no launch
         if trace.active():
-            note(design)
+            _note(design, operands(), prologue)
         return out
-    splits = kc = 0
-    work = counters = None
-    if design == "skinny":
-        splits, kc, work, counters = _skinny_plan(dev, m, n, k,
-                                                  w_gate is not None)
-    err = _build.function("rk_rowwise_matmul", _ARGTYPES)(
-        x.data_ptr(), w.data_ptr(), _build.ptr(w_gate),
-        _build.ptr(vecs["bias"]), _build.ptr(vecs["bias_gate"]),
-        _build.ptr(residual), _build.ptr(vecs["gamma"]),
-        _build.ptr(vecs["pbeta"]), _build.ptr(x_scale), _build.ptr(w_scale),
-        _build.ptr(wg_scale), out.data_ptr(), _build.ptr(work),
-        _build.ptr(counters),
-        x.stride(0), w.stride(0),
-        w_gate.stride(0) if w_gate is not None else 0,
-        residual.stride(0) if residual is not None else 0, out.stride(0),
-        m, n, k, KINDS.get(prologue, 0), ACTIVATIONS[activation],
-        _DT[x.dtype], _DT[residual.dtype] if residual is not None else 0,
-        _DT[out_dtype], vec_bits, splits, kc, eps, DESIGNS[design],
-        _build.stream(dev))
-    _build.check(err, "rowwise_matmul_p")
-    if trace.active():
-        note(design, splits, design == "wgmma" and tma_masked(x, w, w_gate))
+    _launch(dev, design, operands(), vecs, vec_bits, prologue=prologue,
+            activation=activation, out_dtype=out_dtype, eps=eps)
+    return out
+
+
+@trace.traced("kernel.rowwise_matmul_groups")
+def rowwise_matmul_groups_p(x: torch.Tensor, w: torch.Tensor, sizes, *,
+                            gated: bool = False,
+                            activation: Optional[str] = None,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Consecutive row groups of x (R, K), each times its own weight:
+    group g, its ``sizes[g]`` rows, @ ``w[g]`` (w: (G, K, N)); with
+    ``gated`` each ``w[g]`` is a [gate | up] panel (K, 2F) and the rows
+    get ``act(x wg) * (x wi)``. -> ``out`` (R, N or F), each group's
+    rows written in place: one launch a non-empty group, as
+    :func:`rowwise_matmul_p` makes it (its design, its record), with the
+    operands checked once for all of them, which is what the dropless
+    expert layer's host time is made of. A CPU or meta tensor takes
+    :func:`rowwise_matmul_p` a group at a time."""
+    f = w.shape[-1] // 2 if gated else w.shape[-1]
+    r, k = x.shape
+    if out is None:
+        out = x.new_empty((r, f))
+    if w.dim() != 3 or w.shape[:2] != (len(sizes), k) or sum(sizes) != r:
+        raise ValueError(f"rowwise_matmul_groups_p: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, {len(sizes)} groups of "
+                         f"{sum(sizes)} rows")
+
+    def groups():
+        start = 0
+        for g, m in enumerate(sizes):
+            if m:
+                wg = w[g]
+                yield dict(x=x[start:start + m],
+                           w=wg[:, f:] if gated else wg,
+                           w_gate=wg[:, :f] if gated else None,
+                           out=out[start:start + m])
+            start += m
+
+    if x.device.type != "cuda":
+        for t in groups():
+            rowwise_matmul_p(**t, activation=activation)
+        return out
+    dev = _build.check_cuda("rowwise_matmul_groups_p", x, w, out)
+    _rows("x", x, (r, k))
+    _rows("out", out, (r, f))
+    if w.stride(-1) != 1 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("rowwise_matmul_groups_p: w of unit column stride "
+                         "and a float x, please")
+    if w.dtype != x.dtype or out.dtype != x.dtype:
+        raise TypeError(f"rowwise_matmul_groups_p: x {x.dtype}, w "
+                        f"{w.dtype}, out {out.dtype}")
+    for t in groups():
+        _launch(dev, call_design(t["x"], t["w"], t["w_gate"]), t, {}, 0,
+                activation=activation, out_dtype=x.dtype)
     return out

@@ -135,7 +135,9 @@ class PagedKVCache(NamedTuple):
 
 
 def _apply_rope(q, k, cfg: ModelConfig, positions):
-    if cfg.rope == "none":
+    # "none": absolute positions added to the embedding (lm); "nope": no
+    # positions at all (granite's NoPE attention)
+    if cfg.rope in ("none", "nope"):
         return q, k
     if cfg.rope == "mrope":
         if positions.dim() == 2:           # text only: (B,S) -> (3,B,S)

@@ -54,11 +54,12 @@ def _norm_specs(cfg: ModelConfig, stack):
 
 
 def _norm_apply(p, x, cfg: ModelConfig):
-    return ops.layernorm(x, p["g"], p.get("b"), kind=cfg.norm)
+    return ops.layernorm(x, p["g"], p.get("b"), eps=cfg.norm_eps,
+                         kind=cfg.norm)
 
 
 def _norm_spec(p, cfg: ModelConfig) -> ops.NormSpec:
-    return ops.NormSpec(cfg.norm, p["g"], p.get("b"))
+    return ops.NormSpec(cfg.norm, p["g"], p.get("b"), cfg.norm_eps)
 
 
 def init_block(gen: torch.Generator, blk: BlockDef, cfg: ModelConfig,

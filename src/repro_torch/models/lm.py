@@ -23,10 +23,13 @@ hd)``, a windowed layer's a ring of ``window`` slots, both written in
 place at decode), the encoder-decoder arch (:func:`encode` over
 ``extra={"frames": ...}``, the cross K/V cached at prefill), the MoE
 archs (their aux loss summed through :func:`forward`), RWKV6 (recurrent
-state) and the Mamba2 hybrid: zamba2's stage repeats one shared
+state) and the Mamba2 hybrids: zamba2's stage repeats one shared
 attention block (one weight copy) whose KV cache is per repeat, beside
 the per-slot recurrent state of its Mamba layers, so a paged zamba2
-cache holds page pools and per-slot state at once. A weight-only int8
+cache holds page pools and per-slot state at once; granite's repeats a
+period of Mamba2 and attention layers (``ModelConfig.layer_pattern``),
+each with its own weights and a dropless MoE, its muP scalars folded
+into the weights (:func:`fold_multipliers`). A weight-only int8
 tree (``quant.quantize_tree``) runs too: the embedding gathers int8 rows
 and dequantizes them, the projections dequantize their leaves. The
 vision-language arch (qwen2-vl) takes precomputed patch embeddings
@@ -261,6 +264,46 @@ def fuse_params(cfg: ModelConfig, params):
     return _migrate_blocks(cfg, params, block_fn)
 
 
+def fold_multipliers(cfg: ModelConfig, params):
+    """Fold the published scalars that weights can carry into a float
+    tree, IN PLACE, and return it: ``residual_multiplier`` into each
+    projection whose output meets the residual (attention's ``wo``,
+    Mamba2's ``out_proj``, the MLP's, the experts' and the shared
+    expert's down), ``attention_multiplier`` into the q columns (as
+    its ratio to the kernel's ``head_dim ** -0.5``) and
+    ``1 / logits_scaling`` into the final norm's gain. So the kernels'
+    fused residual epilogue and norm prologue stay whole, and a config
+    whose scalars are 1 takes no extra op. Fold a tree once; the
+    embedding scale is applied as the rows are read (:func:`embed`)."""
+    rm = cfg.residual_multiplier
+    qs = (cfg.attention_multiplier * cfg.head_dim ** 0.5
+          if cfg.attention_multiplier else 1.0)
+    qo = cfg.n_heads * cfg.head_dim
+
+    def block_fn(blk, p):
+        outs = []
+        if blk.mixer == "attn":
+            outs.append(p["attn"]["wo"])
+            a = p["attn"]
+            wq = a["wqkv"][..., :qo] if "wqkv" in a else a["wq"]
+            if qs != 1.0:
+                wq.mul_(qs)
+        elif blk.mixer == "mamba2":
+            outs.append(p["mamba"]["out_proj"])
+        if blk.ffn in ("mlp", "moe"):
+            outs += [p["ffn"][k] for k in ("wo", "shared_wo")
+                     if k in p["ffn"]]
+        if rm != 1.0:
+            for w in outs:
+                w.mul_(rm)
+        return p
+
+    _migrate_blocks(cfg, params, block_fn)
+    if cfg.logits_scaling != 1.0:
+        params["final_norm"]["g"].div_(cfg.logits_scaling)
+    return params
+
+
 def unfuse_params(cfg: ModelConfig, params):
     """Inverse of :func:`fuse_params`: the seed's split layout.
     ``fuse_params(cfg, unfuse_params(cfg, p))`` equals ``p``."""
@@ -388,6 +431,10 @@ def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
         x = (w["q"][tokens].float() * w["s"]).to(DTYPES[cfg.dtype])
     else:
         x = w[tokens]
+    if cfg.embedding_multiplier != 1.0:
+        # muP's embedding scale as the rows are read: a tied table is the
+        # head too, and cannot carry it
+        x = x * cfg.embedding_multiplier
     if cfg.frontend == "vision" and extra and "vis_embeds" in extra:
         ve = extra["vis_embeds"].to(x.dtype)
         x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
@@ -397,7 +444,8 @@ def embed(params, tokens, cfg: ModelConfig, extra: Optional[dict] = None):
 @trace.traced("lm.unembed")
 def unembed(params, x, cfg: ModelConfig):
     fn = _tree_map(part.gathered, params["final_norm"])
-    x = ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
+    x = ops.layernorm(x, fn["g"], fn.get("b"), eps=cfg.norm_eps,
+                      kind=cfg.norm)
     if cfg.tie_embeddings:
         # the kernel reads weights with unit column stride: the tied
         # head multiplies by a transposed copy of the table. Tied
@@ -446,7 +494,8 @@ def encode(params, frames, cfg: ModelConfig):
     x, _, _ = _run_stages(params["enc"]["stages"], cfg.enc_stages(), x,
                           cfg=cfg, mode="train", causal=False, remat=True)
     fn = _tree_map(part.gathered, params["enc"]["final_norm"])
-    return ops.layernorm(x, fn["g"], fn.get("b"), kind=cfg.norm)
+    return ops.layernorm(x, fn["g"], fn.get("b"), eps=cfg.norm_eps,
+                         kind=cfg.norm)
 
 
 def _encoder_out(params, cfg: ModelConfig, extra):

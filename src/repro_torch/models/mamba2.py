@@ -2,7 +2,7 @@
 
 The in/out projections run on the row-wise matmul and the gated RMS
 norm on the norm kernel; the causal depthwise conv and the selective
-scan are torch ops, as they are jnp in the JAX package. The scan uses
+scan are torch ops (the trace's spans ``mamba.conv`` and ``mamba.scan``), as they are jnp in the JAX package. The scan uses
 the SSD *chunked* formulation (an intra-chunk attention-like term plus
 inter-chunk state passing), walked chunk by chunk in a Python loop as
 the JAX package scans it; a decode step is a chunk of one token.
@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import ops
@@ -86,7 +87,8 @@ def _conv(x, w, b, state=None):
     """Causal depthwise conv. x: (B,S,C); w: (K,C); b: (C,). state:
     (B,K-1,C), cast to x's dtype. The products take the weights' dtype
     (the caller's fp32); the new state is the last K-1 rows of the
-    padded input, in x's dtype."""
+    padded input, in x's dtype, copied out of it (a view would keep the
+    whole padded input alive in the prefill's cache)."""
     k = w.shape[0]
     if state is None:
         xp = F.pad(x, (0, 0, k - 1, 0))
@@ -96,7 +98,7 @@ def _conv(x, w, b, state=None):
     out = xp[:, 0:sl] * w[0]
     for i in range(1, k):
         out = out + xp[:, i:i + sl] * w[i]
-    new_state = xp[:, -(k - 1):] if k > 1 else None
+    new_state = xp[:, -(k - 1):].clone() if k > 1 else None
     return out + b, new_state
 
 
@@ -171,11 +173,12 @@ def apply(params, x, *, cfg: ModelConfig, state: Optional[MambaState] = None,
     f32 = torch.float32
     zxbcdt = ops.matmul(x, params["in_proj"])
     z, xi, bc, dt = _split(cfg, zxbcdt)
-    conv_in = torch.cat([xi, bc], dim=-1)
-    conv_out, new_conv = _conv(conv_in, params["conv_w"].to(f32),
-                               params["conv_b"].to(f32),
-                               None if state is None else state.conv)
-    conv_out = F.silu(conv_out.to(f32))
+    with trace.span("mamba.conv"):
+        conv_in = torch.cat([xi, bc], dim=-1)
+        conv_out, new_conv = _conv(conv_in, params["conv_w"].to(f32),
+                                   params["conv_b"].to(f32),
+                                   None if state is None else state.conv)
+        conv_out = F.silu(conv_out.to(f32))
     xi = conv_out[..., :d_in]
     B = conv_out[..., d_in:d_in + s.d_state]
     C = conv_out[..., d_in + s.d_state:]
@@ -184,13 +187,15 @@ def apply(params, x, *, cfg: ModelConfig, state: Optional[MambaState] = None,
     dt = torch.logaddexp(dt, torch.zeros_like(dt))                # (B,S,H)
     a = -torch.exp(params["A_log"])                               # (H,)
     xh = xi.reshape(bsz, sl, n_heads, s.head_dim)
-    y, s_fin = ssd_chunked(xh, dt, a, B, C, chunk=chunk or s.chunk,
-                           s0=None if state is None else state.ssm)
+    with trace.span("mamba.scan"):
+        y, s_fin = ssd_chunked(xh, dt, a, B, C, chunk=chunk or s.chunk,
+                               s0=None if state is None else state.ssm)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(bsz, sl, d_in)
     # gated RMS norm, then the out-projection
     y = y * F.silu(z.to(f32))
-    y = ops.layernorm(y.to(x.dtype), params["norm_g"], kind="rms")
+    y = ops.layernorm(y.to(x.dtype), params["norm_g"], eps=cfg.norm_eps,
+                      kind="rms")
     out = ops.matmul(y, params["out_proj"])
     return out, MambaState(conv=new_conv.to(x.dtype), ssm=s_fin)
 

@@ -18,6 +18,19 @@ Capacity is per call: ``cap = max(int(t k / E * capacity_factor), k)``
 over the call's t = B * S tokens, assigned in token order. So in a
 serving engine's decode step the idle slots' rows compete for capacity
 with the live ones, as they do in the JAX engine.
+
+The port's own dropless path (``MoEConfig.dropless``, granite): the
+layer of one device of an expert-parallel deployment, told which
+contiguous range of experts it holds (``MoEConfig.held``). It routes
+every token over all the experts, sorts the (token, choice) pairs by
+expert, drops none, and computes only the held experts, each on its
+contiguous rows in the model dtype through the row-wise matmul: the
+[gate | up] panel with SwiGLU in one call, the gate folded into those
+rows, then down in one (``ops.matmul_groups``). Each token's rows are
+summed over its choices by one reduction (a fixed order, no atomics);
+a pair routed to an expert held elsewhere adds nothing here. The
+shared expert, ungated and of its own width, runs on the side.
+Slicing by expert reads the counts to the host, once a layer.
 """
 from __future__ import annotations
 
@@ -28,15 +41,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import partitioning as part
-from repro_torch.core import quant
+from repro_torch.core import quant, trace
 from repro_torch.core.params import randn
 from repro_torch.core.types import ModelConfig
+from repro_torch.kernels import ops
 
 MODEL_AXIS_FOR_PADDING = 16
+# tokens a block of the dropless combine: its (block, k, d) gather stays
+# small beside a long prefill's activations
+COMBINE_TOKENS = 8192
 
 
 def padded_experts(cfg: ModelConfig) -> int:
     e = cfg.moe.n_experts
+    if cfg.moe.dropless:
+        return e
     m = MODEL_AXIS_FOR_PADDING
     return -(-e // m) * m if e >= m else e
 
@@ -55,6 +74,16 @@ def init(gen: torch.Generator, cfg: ModelConfig, stack: Optional[int],
         t = randn(gen, lead + shape) / math.sqrt(shape[-2])
         return t.to(dtype=dtype, device=device)
 
+    if mo.dropless:
+        # the held experts' [gate | up] panels, pre-fused as the dense
+        # MLP's ``wgi``
+        params = {"router": w(d, e), "wgi": w(mo.n_held, d, 2 * f),
+                  "wo": w(mo.n_held, f, d)}
+        if mo.n_shared:
+            fs = mo.shared_width
+            params["shared_wgi"] = w(d, 2 * fs)
+            params["shared_wo"] = w(fs, d)
+        return params
     params = {"router": w(d, e), "wi": w(e, d, f), "wg": w(e, d, f),
               "wo": w(e, f, d)}
     if mo.n_shared:
@@ -71,6 +100,14 @@ def logical_specs(cfg: ModelConfig, stack: Optional[int]):
     """The logical axis names of :func:`init`'s leaves: the stacked
     expert dim is ``experts`` (expert parallel over ``model``)."""
     ll = () if stack is None else ("layers",)
+    if cfg.moe.dropless:
+        specs = {"router": ll + ("embed", None),
+                 "wgi": ll + ("experts", "embed", None),
+                 "wo": ll + ("experts", None, "embed")}
+        if cfg.moe.n_shared:
+            specs.update({"shared_wgi": ll + ("embed", "ffn"),
+                          "shared_wo": ll + ("ffn", "embed")})
+        return specs
     specs = {"router": ll + ("embed", None),
              "wi": ll + ("experts", "embed", None),
              "wg": ll + ("experts", "embed", None),
@@ -262,10 +299,91 @@ def _apply_ep(params, x, *, cfg: ModelConfig, mesh):
             _aux_loss(gate_idx, probs, cfg))
 
 
+def _read_later(t: torch.Tensor):
+    """Start copying ``t`` to the host without making the host wait for
+    the work queued after it: -> a function that waits for the copy
+    alone and returns the host copy (a CPU tensor is returned as is)."""
+    if t.device.type != "cuda":
+        return lambda: t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host
+    return wait
+
+
+def _apply_dropless(params, x, *, cfg: ModelConfig):
+    """The dropless layer of the held experts (module docstring). The
+    host reads the experts' row counts once; the shared expert is queued
+    before that read, so the card runs it while the host waits for the
+    counts and then queues the experts."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    t, k = b * s, mo.top_k
+    xf = x.reshape(t, d)
+    with trace.span("moe.route"):
+        gate_vals, gate_idx, probs = _route(xf, params["router"], cfg,
+                                            mo.n_experts)
+    with trace.span("moe.dispatch"):
+        # the (token, choice) pairs sorted by held expert, the pairs
+        # held elsewhere last; each pair's row of the experts' output,
+        # the zero row after the held rows for a pair held elsewhere
+        first, _stop = mo.held_range
+        eid = gate_idx.reshape(t * k) - first
+        held = (eid >= 0) & (eid < mo.n_held)
+        key = torch.where(held, eid, torch.full_like(eid, mo.n_held))
+        order = torch.sort(key, stable=True).indices
+        counts = torch.bincount(key, minlength=mo.n_held + 1)[:mo.n_held]
+        read_counts = _read_later(counts)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(t * k, device=order.device)
+        pos = torch.where(held, rank, counts.sum()).reshape(t, k)
+        # every pair's row in that order (the held ones first): queued
+        # before the read, as the card's work while the host waits
+        xs = xf[torch.div(order, k, rounding_mode="floor")]
+        gate = gate_vals.reshape(t * k)[order]
+    shared = None
+    if mo.n_shared:
+        with trace.span("moe.shared"):
+            shared = ops.matmul(ops.gate_up_proj(
+                xf, params["shared_wgi"], activation="silu"),
+                params["shared_wo"])
+    with trace.span("moe.dispatch"):
+        sizes = read_counts().tolist()
+        r = sum(sizes)
+    trace.count("moe.rows_routed", t * k)
+    trace.count("moe.rows_held", r)
+    with trace.span("moe.experts"):
+        h = ops.matmul_groups(xs[:r], params["wgi"], sizes,
+                              activation="silu", gated=True)
+        # the gate scales the rows before down: (g h) W = g (h W)
+        h.mul_(gate[:r, None].to(h.dtype))
+        y = xs.new_empty((r + 1, d))
+        y[r].zero_()
+        ops.matmul_groups(h, params["wo"], sizes, out=y[:r])
+        del h, xs
+    trace.count("moe.expert_calls", 2 * sum(1 for c in sizes if c))
+    with trace.span("moe.combine"):
+        out = torch.empty((t, d), dtype=torch.float32, device=x.device)
+        for t0 in range(0, t, COMBINE_TOKENS):
+            blk = slice(t0, t0 + COMBINE_TOKENS)
+            rows_sum = y[pos[blk]].sum(1, dtype=torch.float32)
+            out[blk] = rows_sum if shared is None else rows_sum + shared[blk]
+    # the aux loss is a training term: a serving call skips its ops
+    aux = _aux_loss(gate_idx, probs, cfg) if torch.is_grad_enabled() else 0.0
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
 def apply(params, x, *, cfg: ModelConfig):
     """x: (B, S, d) -> (out, aux_loss). Weight-only int8 expert leaves
     dequantize here: the expert einsums take the (E, d, f) leaves
     directly, with no ``ops.matmul`` in between."""
+    if cfg.moe.dropless:
+        return _apply_dropless(params, x, cfg=cfg)
     if any(quant.is_quantized(params[k]) for k in ("wi", "wg", "wo")):
         params = dict(params)
         for k in ("wi", "wg", "wo"):

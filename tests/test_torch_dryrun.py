@@ -44,6 +44,7 @@ from repro.models import lm as jlm
 from repro_torch import configs
 from repro_torch.core import partitioning as part
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.types import jax_fields
 from repro_torch.launch import dryrun, specs
 from repro_torch.models import lm
 from repro_torch.train import step as tsl
@@ -73,10 +74,10 @@ def test_registry_matches_jax():
     assert list(configs.ARCHS) == list(jconfigs.ARCHS)
     assert list(configs.REDUCED) == list(jconfigs.REDUCED)
     for arch in configs.ARCHS:
-        assert dataclasses.asdict(configs.ARCHS[arch]) == \
+        assert jax_fields(configs.ARCHS[arch]) == \
             dataclasses.asdict(jconfigs.ARCHS[arch])
         assert configs.get_config(arch) is configs.ARCHS[arch]
-        assert dataclasses.asdict(configs.REDUCED[arch]()) == \
+        assert jax_fields(configs.REDUCED[arch]()) == \
             dataclasses.asdict(jconfigs.REDUCED[arch]())
     for mine, theirs in ((configs.SHAPES, jconfigs.SHAPES),
                          (configs.SMOKE_SHAPES, jconfigs.SMOKE_SHAPES)):
