@@ -366,6 +366,11 @@ REPLACES = {
     "wkv": "src/repro/kernels/wkv.py:66",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+# the kernels whose launches each run counts: the four above, then the
+# SSD scan (csrc/ssd.cu), which replaces no TPU kernel (the JAX package
+# scans in jnp): two launches a Mamba2 layer, its chunks' C B^T and the
+# scan
+KERNELS = (*REPLACES, "ssd")
 # calls of at most this many rows are timed with their weights cold in
 # L2: copies rotated past the 50 MB L2
 COLD_M = 16
@@ -527,67 +532,68 @@ COUNTS = ("fused", "unfused", "prefill", "decode", "vit", "fused64",
 DEVICE_MS_KEYS = ("vit", "gprefill", "gdecode", "wprefill", "wdecode",
                   "zprefill", "zdecode", "qprefill", "qdecode", "pprefill",
                   "pdecode", "vprefill", "vdecode", "vtrain")
-# the exact launches (rowwise_matmul, flash_attention, layernorm, wkv) of
-# each fused run the model phases check, restated by hand as PERF.md §2
-# lists them; :func:`want_launches` also holds each against the count
-# the config and ``rowwise_matmul.norm_prologue_fits`` give. A norm
+# the exact launches (rowwise_matmul, flash_attention, layernorm, wkv,
+# ssd) of each fused run the model phases check, restated by hand as
+# PERF.md §2 lists them; :func:`want_launches` also holds each against
+# the count the config and ``rowwise_matmul.norm_prologue_fits`` give. A norm
 # panel splits (one more layernorm launch) on the designs of many rows,
 # and on the skinny design past SKINNY_NORM_MAX_K
 LAUNCHES = {
-    "swin-t": (53, 12, 25, 0),                  # B=8, fp32 and bf16
-    "vit-b16": (50, 12, 25, 0),                 # B=8
-    "deepseek-7b prefill": (121, 30, 61, 0),    # 4 x 512 and 1 x 333
-    "deepseek-7b step": (121, 0, 61, 0),        # B=4 and B=1, K = 4096
-    "gemma3-27b/8 prefill": (33, 8, 17, 0),     # fp32, 8 layers
-    "gemma3-27b/8 step": (33, 0, 17, 0),        # K = 5376
-    "gemma3-27b/20 prefill": (81, 20, 41, 0),   # bf16, 20 layers
-    "gemma3-27b/20 step": (81, 0, 41, 0),
-    "whisper-base encoder": (24, 6, 13, 0),     # 4 x 1500 frames
-    "whisper-base prefill": (67, 18, 32, 0),    # 4 x 64, the encoder's too
-    "whisper-base prefill 1x16": (67, 18, 20, 0),   # 16 rows: skinny fp32
-    "whisper-base step": (37, 0, 7, 0),         # K = 512: the norm stays
+    "swin-t": (53, 12, 25, 0, 0),                # B=8, fp32 and bf16
+    "vit-b16": (50, 12, 25, 0, 0),               # B=8
+    "deepseek-7b prefill": (121, 30, 61, 0, 0),  # 4 x 512 and 1 x 333
+    "deepseek-7b step": (121, 0, 61, 0, 0),      # B=4 and B=1, K = 4096
+    "gemma3-27b/8 prefill": (33, 8, 17, 0, 0),   # fp32, 8 layers
+    "gemma3-27b/8 step": (33, 0, 17, 0, 0),      # K = 5376
+    "gemma3-27b/20 prefill": (81, 20, 41, 0, 0),  # bf16, 20 layers
+    "gemma3-27b/20 step": (81, 0, 41, 0, 0),
+    "whisper-base encoder": (24, 6, 13, 0, 0),   # 4 x 1500 frames
+    "whisper-base prefill": (67, 18, 32, 0, 0),  # 4 x 64, the encoder's too
+    "whisper-base prefill 1x16": (67, 18, 20, 0, 0),  # 16 rows: skinny fp32
+    "whisper-base step": (37, 0, 7, 0, 0),       # K = 512: the norm stays
     # paged serving: a bucketed prefill launches as the dense prefill at
     # its bucket ("... prefill"), a paged step as the dense step; a
     # chunk (256 or 512 rows) and a verify panel (16 or 8 rows) attend
     # in torch ops, as JAX does in jnp: no attention launch
-    "deepseek-7b chunk": (121, 0, 61, 0),
-    "deepseek-7b verify": (121, 0, 61, 0),
-    "gemma3-27b/8 chunk": (33, 0, 17, 0),
-    "gemma3-27b/8 verify": (33, 0, 17, 0),
-    "gemma3-27b/20 chunk": (81, 0, 41, 0),
-    "gemma3-27b/20 verify": (81, 0, 41, 0),
+    "deepseek-7b chunk": (121, 0, 61, 0, 0),
+    "deepseek-7b verify": (121, 0, 61, 0, 0),
+    "gemma3-27b/8 chunk": (33, 0, 17, 0, 0),
+    "gemma3-27b/8 verify": (33, 0, 17, 0, 0),
+    "gemma3-27b/20 chunk": (81, 0, 41, 0, 0),
+    "gemma3-27b/20 verify": (81, 0, 41, 0, 0),
     # tensor-parallel serving: gemma3-27b cut to 12 layers (bf16), each
     # rank's calls as one device's, the norms split at K = 5376
-    "gemma3-27b/12 prefill": (49, 12, 25, 0),
-    "gemma3-27b/12 chunk": (49, 0, 25, 0),
-    "gemma3-27b/12 verify": (49, 0, 25, 0),
-    "gemma3-27b/12 step": (49, 0, 25, 0),
+    "gemma3-27b/12 prefill": (49, 12, 25, 0, 0),
+    "gemma3-27b/12 chunk": (49, 0, 25, 0, 0),
+    "gemma3-27b/12 verify": (49, 0, 25, 0, 0),
+    "gemma3-27b/12 step": (49, 0, 25, 0, 0),
     # RWKV6-3B: a prefill (4 x 512, 1 x 333, the engine's exact lengths)
     # and a step (B=4, B=1): 10 matmuls, 3 norms and the recurrence a
     # layer, the head and the final norm
-    "rwkv6-3b prefill": (321, 0, 97, 32),
-    "rwkv6-3b step": (321, 0, 97, 32),
-    # zamba2-1.2b: a Mamba2 layer 2 / 0 / 2 (in_proj, out_proj; norm1,
-    # the gated RMS norm), a shared-block repeat 4 / 1 / 2 (its qkv and
-    # mlp1 norms split at K = 2048 on every design), the head 1 / 0 / 1
-    "zamba2-1.2b prefill": (89, 6, 77, 0),      # 4 x 512, 1 x 333, engine
-    "zamba2-1.2b step": (89, 0, 77, 0),         # B=4, B=2 and B=1
+    "rwkv6-3b prefill": (321, 0, 97, 32, 0),
+    "rwkv6-3b step": (321, 0, 97, 32, 0),
+    # zamba2-1.2b: a Mamba2 layer 2 / 0 / 2 / 0 / 2 (in_proj, out_proj;
+    # norm1, the gated RMS norm; the SSD scan's cb and scan launches, at
+    # decode too), a shared-block repeat 4 / 1 / 2 (its qkv and mlp1 norms
+    # split at K = 2048 on every design), the head 1 / 0 / 1
+    "zamba2-1.2b prefill": (89, 6, 77, 0, 64),   # 4 x 512, 1 x 333, engine
+    "zamba2-1.2b step": (89, 0, 77, 0, 64),      # B=4, B=2 and B=1
     # MoE: a layer 2 / 1 / 2 (qkv with its norm split, wo; norm2 before
     # the experts, which launch no kernel), the head 1 / 0 / 1
-    "qwen2-moe-a2.7b prefill": (49, 24, 49, 0),     # 24 layers
-    "qwen2-moe-a2.7b step": (49, 0, 49, 0),
-    "phi3.5-moe/8 prefill": (17, 8, 17, 0),         # 8 layers
-    "phi3.5-moe/8 step": (17, 0, 17, 0),
+    "qwen2-moe-a2.7b prefill": (49, 24, 49, 0, 0),  # 24 layers
+    "qwen2-moe-a2.7b step": (49, 0, 49, 0, 0),
+    "phi3.5-moe/8 prefill": (17, 8, 17, 0, 0),   # 8 layers
+    "phi3.5-moe/8 step": (17, 0, 17, 0, 0),
     # qwen2-vl-2b: a layer 4 / 1 / 2 (its qkv and gate|up norms split at
     # K = 1536 on every design), the head 1 / 0 / 1; a train step at B=4
     # x 512 with remat: the forward's, then each layer's once more as
     # the backward recomputes it (the head and final norm are not
     # recomputed); the backward itself launches no kernel
-    "qwen2-vl-2b prefill": (113, 28, 57, 0),    # 4 x 512, 1 x 333, engine
-    "qwen2-vl-2b step": (113, 0, 57, 0),
-    "qwen2-vl-2b train step": (225, 56, 113, 0),
+    "qwen2-vl-2b prefill": (113, 28, 57, 0, 0),  # 4 x 512, 1 x 333, engine
+    "qwen2-vl-2b step": (113, 0, 57, 0, 0),
+    "qwen2-vl-2b train step": (225, 56, 113, 0, 0),
 }
-NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 class Case:
@@ -861,7 +867,7 @@ def prologue_splits(rows, k, dtype, panels):
 def want_launches(key, derived):
     """``LAUNCHES[key]`` by kernel, after checking it against the count
     ``derived`` from the config and the split rule."""
-    want = dict(zip(REPLACES, LAUNCHES[key]))
+    want = dict(zip(KERNELS, LAUNCHES[key]))
     if derived != want:
         raise AssertionError(f"{key}: launches restated as {want}, the "
                              f"config and the split rule give {derived}")
@@ -877,7 +883,7 @@ def swin_counts(cfg, batch, dtype):
         norms += prologue_splits(batch * res * res, c, dtype, 2 * depth)
         res, c = res // 2, c * 2
     return {"rowwise_matmul": 53, "flash_attention": 12, "layernorm": norms,
-            "wkv": 0}
+            "wkv": 0, "ssd": 0}
 
 
 def swin_cases(cfg, batch, dtype, gen, device):
@@ -1808,7 +1814,7 @@ def int8_path(cases):
         return outs
     outs, counts = counted(drive)
     want = {"rowwise_matmul": sum(c.counts["fused"] for c in swin),
-            "flash_attention": 0, "layernorm": 0, "wkv": 0}
+            "flash_attention": 0, "layernorm": 0, "wkv": 0, "ssd": 0}
     finite = all(torch.isfinite(o).all().item() for o in outs)
     # the path's device time by matmul design, from the profiler
     from torch.profiler import ProfilerActivity, profile
@@ -1882,7 +1888,6 @@ def run_cases(cases, dtype_name, tol, timed=True):
 # ------------------------------ model phases ----------------------------
 
 
-KERNELS = ("rowwise_matmul", "flash_attention", "layernorm", "wkv")
 # the launch records of the last counted() call (attention_modes)
 _COUNTED_RECORDS: list = []
 
@@ -3434,7 +3439,7 @@ def dense_phase(smi):
         with runtime.use_pipeline_fusion(False):
             (unfused, _), ucounts = counted(lambda: model.prefill(prompts))
     want = {"rowwise_matmul": 7 * layers + 1, "flash_attention": layers,
-            "layernorm": 2 * layers + 1, "wkv": 0}
+            "layernorm": 2 * layers + 1, "wkv": 0, "ssd": 0}
     err, ok = err_ok(unfused, fused, LOGIT_TOL)
     say("dense-unfused", f"B=4 S=512 prefill logits against fused: "
                          f"max_abs_err={err:.4g} tol={LOGIT_TOL}*max(1,"
@@ -3549,9 +3554,11 @@ def lm_counts(cfg, rows, dtype, *, attention):
     an MoE FFN's standalone norm2 (its router and experts launch no
     kernel); an RWKV6 time-mix's seven matmuls (wr, wk, wv, wg, the
     decay LoRA's two, wo), its two standalone norms (norm1, its ln) and
-    the recurrence, and the channel-mix's three matmuls and norm2; then
+    the recurrence, and the channel-mix's three matmuls and norm2; a
+    Mamba2 mixer's SSD scan (two launches, prefill and step alike); then
     the head and the final norm."""
-    mm = attn = norms = wkv = 0
+    from repro_torch.kernels.ssd import LAUNCHES as SSD_LAUNCHES
+    mm = attn = norms = wkv = ssd = 0
     for stage in cfg.stages():
         for blk in stage.body:
             r = stage.repeat
@@ -3562,6 +3569,7 @@ def lm_counts(cfg, rows, dtype, *, attention):
             elif blk.mixer == "mamba2":
                 mm += 2 * r
                 norms += 2 * r
+                ssd += len(SSD_LAUNCHES) * r
             elif blk.mixer == "rwkv6":
                 mm += 7 * r
                 norms += 2 * r
@@ -3573,7 +3581,7 @@ def lm_counts(cfg, rows, dtype, *, attention):
                 mm += 3 * r if blk.ffn == "rwkv6_cmix" else 0
                 norms += r
     return {"rowwise_matmul": mm + 1, "flash_attention": attn,
-            "layernorm": norms + 1, "wkv": wkv}
+            "layernorm": norms + 1, "wkv": wkv, "ssd": ssd}
 
 
 def paged_launches(key, cfg, dtype):
@@ -3670,7 +3678,7 @@ def gemma_phase(smi):
             (unfused, _), ucounts = counted(lambda: model.prefill(prompts))
     want = {"rowwise_matmul": 7 * cfg.n_layers + 1,
             "flash_attention": cfg.n_layers,
-            "layernorm": 2 * cfg.n_layers + 1, "wkv": 0}
+            "layernorm": 2 * cfg.n_layers + 1, "wkv": 0, "ssd": 0}
     err, ok = err_ok(unfused, fused, LOGIT_TOL)
     say("gemma-unfused", f"B=2 S=2048 prefill logits against fused: "
                          f"max_abs_err={err:.4g} tol={LOGIT_TOL}*max(1,"
@@ -3791,7 +3799,7 @@ def whisper_counts(cfg, batch, s, dtype, *, prefill):
     counts = {"rowwise_matmul": 6 * dec + 1, "flash_attention": 0,
               "layernorm": dec + 1 + prologue_splits(rows, d, dtype,
                                                      2 * dec),
-              "wkv": 0}
+              "wkv": 0, "ssd": 0}
     if prefill:
         counts["rowwise_matmul"] += 4 * enc + dec
         counts["flash_attention"] = enc + 2 * dec
@@ -3849,7 +3857,7 @@ def whisper_phase(smi):
         "flash_attention": cfg.n_enc_layers,
         "layernorm": 1 + prologue_splits(4 * cfg.cross_len, cfg.d_model,
                                          f32, 2 * cfg.n_enc_layers),
-        "wkv": 0})
+        "wkv": 0, "ssd": 0})
     say("whisper", f"encoder over B=4 x {cfg.cross_len} frames: launches "
                    f"{ecounts}, attention by mode {emodes}")
     if ecounts != want:
@@ -3880,7 +3888,7 @@ def whisper_phase(smi):
     enc, dec = cfg.n_enc_layers, cfg.n_layers
     want = {"rowwise_matmul": 6 * enc + 10 * dec + 1,
             "flash_attention": enc + 2 * dec,
-            "layernorm": 2 * enc + 3 * dec + 2, "wkv": 0}
+            "layernorm": 2 * enc + 3 * dec + 2, "wkv": 0, "ssd": 0}
     err, ok = err_ok(unfused[..., :cfg.vocab], fused[..., :cfg.vocab],
                      LOGIT_TOL)
     say("whisper-unfused", f"B=4 S=64 prefill logits against fused: "
@@ -4067,10 +4075,87 @@ def lm_profile(arch, batch, seq, dtypes, layers=0):
     return profile.profile_lm(args, "cuda", torch.cuda.get_device_name(0))
 
 
+# the SSD scan's calls on the main path: granite-4.0-h-small's prefill at
+# B=8 (the benchmark mix's least, mean and longest lengths) and
+# zamba2-1.2b's at B=4 x 512
+SSD_SHAPES = {"granite-4.0-h-small": (8, (407, 1872, 5526)),
+              "zamba2-1.2b": (4, (512,))}
+# the kernel against the plain version (both fp32, other orders of the
+# sums, every decay factor at most 1), as max|diff| / max(1, max|plain|)
+SSD_TOL = 1e-4
+
+
+def ssd_readings(smi):
+    """The SSD scan (``ssd_p``: its two launches a call) at the main
+    path's shapes, on inputs in the mixer's ranges (x, B, C the conv's
+    silu output, dt log-uniform over [1e-3, 0.1], A_log uniform over [0,
+    log 16]: Mamba2's own init): ms a call (CUDA events), the bound (the
+    launch records' operations at the fp32 FFMA peak; the call's operands
+    and outputs once), the plain version's ms, and y's and the state's
+    error against the plain version."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import roofline
+    from repro_torch.models import mamba2
+
+    out = {}
+    for arch, (b, lengths) in SSD_SHAPES.items():
+        cfg = get_config(arch)
+        sc, d_in, h, _ = mamba2._dims(cfg)
+        p, n = sc.head_dim, sc.d_state
+        for s in lengths:
+            gen = torch.Generator(device="cuda").manual_seed(s)
+            conv = F.silu(_rand(gen, (b, s, d_in + 2 * n), torch.float32,
+                                "cuda"))
+            xh = conv[..., :d_in].view(b, s, h, p)
+            B, C = conv[..., d_in:d_in + n], conv[..., d_in + n:]
+            u = torch.rand((b, s, h), generator=gen, device="cuda")
+            dt = torch.exp(math.log(1e-3) + u * math.log(100))
+            a = -torch.exp(torch.rand(h, generator=gen, device="cuda")
+                           * math.log(16))
+            D = _rand(gen, (h,), torch.float32, "cuda")
+            args = (xh, dt, a, B, C, D)
+
+            def run():
+                return ssd.ssd_p(*args, chunk=sc.chunk)
+
+            def plain():
+                return ssd.ssd_plain(*args, chunk=sc.chunk)
+            with roofline.recording() as recs:
+                y, st = run()
+            yp, sp = plain()
+            (ey, oky), (es, oks) = err_ok(y, yp, SSD_TOL), err_ok(st, sp,
+                                                                 SSD_TOL)
+            flops = sum(roofline.price(r)[0] for r in recs)
+            bound_ms, by = bound(flops, nbytes(xh, dt, a, B, C, D, y, st),
+                                 "fp32")
+            ms, plain_ms = cuda_time(run), cuda_time(plain)
+            name = f"{arch} B={b} x {s}"
+            out[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                         "plain_ms": plain_ms, "flops": flops,
+                         "err_y": ey, "err_state": es}
+            say("ssd", f"{name} (H {h}, P {p}, N {n}, chunk {sc.chunk}): "
+                       f"kernel {ms:.4f} ms a call ({len(recs)} launches), "
+                       f"bound {bound_ms:.4f} ms ({by}, {flops / 1e9:.2f} "
+                       f"GFLOP; {bound_ms / ms:.1%} of it), plain "
+                       f"{plain_ms:.4f} ms; max_abs_err y {ey:.3g}, state "
+                       f"{es:.3g} (tol {SSD_TOL}*max(1,max|plain|)) | {smi}")
+            if not (oky and oks):
+                raise AssertionError(f"ssd {name}: y {ey}, state {es}")
+            del conv, xh, B, C, dt, y, st, yp, sp, args
+            torch.cuda.empty_cache()
+    return out
+
+
 def zamba2_phase(smi):
     """zamba2-1.2b at full width and depth (38 layers: 32 Mamba2 and 6
     repeats of the shared block): serving checks in fp32 and bf16, the
-    engine at exact lengths, the weight-only int8 tree, rates."""
+    engine at exact lengths, the weight-only int8 tree, rates; then the
+    SSD scan's line (:func:`ssd_readings`)."""
     import gc
 
     import torch
@@ -4135,6 +4220,7 @@ def zamba2_phase(smi):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     with runtime.use_impl("ref"):
         rates["plain_fp32"] = lm_rates(model, prompts)
+    out["ssd"] = ssd_readings(smi)
     out.update(rates=rates, peak_memory_gib=peak_gb,
                seconds=time.perf_counter() - t_phase)
     say("throughput", "zamba2-1.2b prefill tokens/s at B=4 x 512: "
@@ -6615,7 +6701,7 @@ def tooling_phase(smi):
             for op, nbytes, fl, n in rec["top_glue"]:
                 say("tooling-a", f"{arch} glue {op}: {n} calls, "
                                  f"{nbytes / 1e9:.4f} GB, {fl:.4g} FLOPs")
-            want = dict(zip(REPLACES, LAUNCHES[literal]))
+            want = dict(zip(KERNELS, LAUNCHES[literal]))
             if counts != want or launched != sum(counts.values()) or \
                     len(cost.records) != launched:
                 raise AssertionError(f"tooling-a {arch}: launches {counts} "
@@ -6723,6 +6809,12 @@ def kernel_line(rows, name, key, launches, path, dtype="fp32",
             "path": path}
 
 
+def with_cases(counts):
+    """A run's launches of the kernels that have per-call cases (every
+    one but the SSD scan, whose calls its ``ssd`` lines time)."""
+    return {k: counts[k] for k in REPLACES}
+
+
 def check_listed(tabs, key, counts):
     """The launches the ``key`` cases of an LM table list, per dtype,
     against the model's run ``counts`` ({"fp32": ..., "bf16": ...})."""
@@ -6732,7 +6824,7 @@ def check_listed(tabs, key, counts):
         # the bf16 RWKV6 model runs WKV in fp32: no bf16 wkv cases
         if dt == "bf16" and key in ("prefill", "decode"):
             listed["wkv"] = counts[dt]["wkv"]
-        if listed != counts[dt]:
+        if listed != with_cases(counts[dt]):
             raise AssertionError(f"the {key} {dt} cases list {listed} "
                                  f"launches, the model ran {counts[dt]}")
 
@@ -6986,7 +7078,7 @@ def main() -> int:
         unfused, _ = check_forward(
             "swin-unfused", model, images,
             {"rowwise_matmul": 53, "flash_attention": 0, "layernorm": 25,
-             "wkv": 0},
+             "wkv": 0, "ssd": 0},
             LOGIT_TOL)
     err, ok = err_ok(unfused, fused, LOGIT_TOL)
     say("swin-unfused", f"against fused: max_abs_err={err:.4g}")
@@ -7007,7 +7099,8 @@ def main() -> int:
                       "rowwise_matmul": 50, "flash_attention": 12,
                       "layernorm": 1 + prologue_splits(
                           vit_rows, VIT_CONFIG.embed_dim, torch.float32,
-                          2 * VIT_CONFIG.depth), "wkv": 0}), LOGIT_TOL)
+                          2 * VIT_CONFIG.depth), "wkv": 0, "ssd": 0}),
+                  LOGIT_TOL)
 
     # 7. bf16 forward, then throughput at B=64
     model16 = SwinTransformer(CONFIG, device=dev, dtype=torch.bfloat16,
@@ -7022,7 +7115,7 @@ def main() -> int:
     with runtime.use_pipeline_fusion(False):
         check_forward("swin-bf16-unfused", model16, images.to(torch.bfloat16),
                       {"rowwise_matmul": 53, "flash_attention": 0,
-                       "layernorm": 25, "wkv": 0}, BF16_TOL)
+                       "layernorm": 25, "wkv": 0, "ssd": 0}, BF16_TOL)
     big = torch.from_numpy(rng.standard_normal(
         (64, CONFIG.img_size, CONFIG.img_size, 3)).astype(np.float32)).to(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -7091,7 +7184,7 @@ def main() -> int:
     listed = {name: mesh_tables.get(f"mtrain fp32 {name}", {}).get(
         "launches", 0) for name in REPLACES}
     for rank in mesh["ranks"]:
-        if listed != rank["data2"]["launches"][0]:
+        if listed != with_cases(rank["data2"]["launches"][0]):
             raise AssertionError(f"the mtrain cases list {listed} launches, "
                                  f"a rank's step ran "
                                  f"{rank['data2']['launches'][0]}")
@@ -7132,19 +7225,19 @@ def main() -> int:
         listed = {name: tp_tables.get(f"{key} bf16 {name}", {}).get(
             "launches", 0) for name in REPLACES}
         ran = tp["t2"]["gemma-bf16"][0]["probe_launches"][call]
-        if listed != ran:
+        if listed != with_cases(ran):
             raise AssertionError(f"the {key} bf16 cases list {listed} "
                                  f"launches, a rank ran {ran}")
     # the train step's cases (fp32 only) against the step's launches
     listed = {name: vl_tables.get(f"vtrain fp32 {name}", {}).get(
         "launches", 0) for name in REPLACES}
-    if listed != train["step_launches"]:
+    if listed != with_cases(train["step_launches"]):
         raise AssertionError(f"the vtrain cases list {listed} launches, a "
                              f"train step ran {train['step_launches']}")
     # the Swin-T cases against the fused forward's launches
     listed = {name: sum(r["fused"] for r in rows if r["kernel"] == name
                         and r["dtype"] == "fp32") for name in REPLACES}
-    if listed != main_counts:
+    if listed != with_cases(main_counts):
         raise AssertionError(f"the Swin-T cases list {listed} launches, "
                              f"the forward ran {main_counts}")
 

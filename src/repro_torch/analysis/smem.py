@@ -7,7 +7,8 @@ block shapes. The port's kernels are CUDA C++ built for the H100, whose
 budget is per block: 232,448 bytes of shared memory (static plus
 dynamic), and 65,536 registers an SM shared by the blocks the kernel's
 ``__launch_bounds__`` promise to fit. This pass holds every kernel
-instantiation the four pickers can choose to that budget.
+instantiation the four pickers and the SSD scan can choose to that
+budget.
 
 On the CPU (:func:`kernel_models`, :func:`audit_models`,
 :func:`crosscheck_plan`), from a model of each kernel's shared memory
@@ -65,6 +66,14 @@ WKV_L = 16
 WKV_W = 16
 WKV_THREADS = 128
 WKV_HEAD_DIMS = (16, 32, 64)
+# csrc/ssd.cu:63-66 (THREADS, RT, LMAX, PITCH), the scan's two blocks an
+# SM (its __launch_bounds__)
+SSD_THREADS = 256
+SSD_RT = 64
+SSD_LMAX = 256
+SSD_PITCH = SSD_RT + 4
+SSD_HEAD_DIMS = (16, 32, 64)
+SSD_STATE_DIMS = (16, 64, 128)
 
 _SIZE = {"fp32": 4, "bf16": 2, "int8": 1}
 
@@ -98,6 +107,21 @@ def wkv_smem_bytes(p: int, dtype: str) -> int:
     return _align(_align(2 * stage, 4) + floats, 4)
 
 
+def ssd_cb_smem_bytes(n: int) -> int:
+    """``cb_smem_bytes<N>()`` (ssd.cu): the B^T and C^T tiles, N rows of
+    PITCH floats each."""
+    return 2 * n * SSD_PITCH * 4
+
+
+def ssd_scan_smem_bytes(p: int, n: int) -> int:
+    """``sizeof(ScanSmem<P, N>)`` (ssd.cu): the state, two x tiles, two
+    A / W tiles (pitch max(N, PITCH)) of a K-step (32, or 16 at N 16),
+    the chunk's cs and dt; floats only, so no padding."""
+    ks = 32 if n % 32 == 0 else 16
+    return 4 * (n * p + 2 * ks * p + 2 * ks * max(n, SSD_PITCH)
+                + 2 * SSD_LMAX)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelModel:
     """One kernel instantiation as the model sees it. ``name`` is the
@@ -115,7 +139,8 @@ class KernelModel:
 
 
 def kernel_models() -> List[KernelModel]:
-    """Every kernel instantiation the four pickers can choose."""
+    """Every kernel instantiation the four pickers and the SSD scan's
+    launcher can choose."""
     out: List[KernelModel] = []
     for dt in ("bf16", "int8"):
         for gated in (False, True):
@@ -173,6 +198,14 @@ def kernel_models() -> List[KernelModel]:
         for p in WKV_HEAD_DIMS:
             out.append(KernelModel(f"wkv_kernel_step<{dt},{p}>", "wkv.cu",
                                    4 * p, 1, 0, 0))
+    for n in SSD_STATE_DIMS:
+        out.append(KernelModel(f"ssd_cb_kernel<{n}>", "ssd.cu", SSD_THREADS,
+                               1, ssd_cb_smem_bytes(n), 0))
+    for p in SSD_HEAD_DIMS:
+        for n in SSD_STATE_DIMS:
+            out.append(KernelModel(f"ssd_scan_kernel<{p},{n}>", "ssd.cu",
+                                   SSD_THREADS, 2, ssd_scan_smem_bytes(p, n),
+                                   0))
     return out
 
 
@@ -295,7 +328,8 @@ QUERIES = {"rowwise_matmul_wgmma.cu": "rk_query_wgmma",
            "rowwise_matmul_skinny.cu": "rk_query_skinny",
            "flash_attention.cu": "rk_query_attention",
            "layernorm.cu": "rk_query_layernorm",
-           "wkv.cu": "rk_query_wkv"}
+           "wkv.cu": "rk_query_wkv",
+           "ssd.cu": "rk_query_ssd"}
 _FIELDS = ("threads", "min_blocks", "dynamic", "static", "registers",
            "local_bytes", "max_dynamic", "max_threads")
 
@@ -383,6 +417,8 @@ PLAN_CONSTANTS = {
                      "CTA_ELEMS": LN_CTA_ELEMS,
                      "STAGE_BYTES": LN_STAGE_BYTES},
     "wkv.cu": {"L": WKV_L, "W": WKV_W, "THREADS": WKV_THREADS},
+    "ssd.cu": {"THREADS": SSD_THREADS, "RT": SSD_RT, "LMAX": SSD_LMAX,
+               "PITCH": SSD_PITCH},
 }
 
 

@@ -51,6 +51,7 @@ from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels.rowwise_matmul import (norm_prologue_fits,
                                                 rowwise_matmul_groups_p,
                                                 rowwise_matmul_p)
+from repro_torch.kernels.ssd import ssd_p, ssd_plain
 from repro_torch.kernels.wkv import wkv_p
 
 
@@ -353,6 +354,26 @@ def wkv(r, k, v, lw, u, *, s0=None, chunk: int = 16,
                                else s0.to(torch.float32))
         return y.to(r.dtype), s_fin
     return _dispatch(impl, kernel, plain, r, k, v, lw, u, s0)
+
+
+def ssd(xh, dt, a, B, C, D, *, chunk: int, s0=None,
+        impl: Optional[str] = None):
+    """Mamba2's SSD scan with the skip term -> (y = SSD(x, dt, a, B, C;
+    s0) + D x (B, S, H, P), final state (B, H, P, N)), both fp32. Under
+    ``use_impl("ref")`` or for CPU tensors the plain
+    ``ssd.ssd_plain`` (the chunked scan in torch ops); for CUDA tensors
+    the kernel, prefill and decode step alike. Its gradient on the kernel
+    path is the plain version's."""
+    impl = impl or runtime.resolve_impl()
+    if impl == "ref" or not kernel_path(xh):
+        return ssd_plain(xh, dt, a, B, C, D, chunk=chunk, s0=s0)
+
+    def kernel(xh, dt, a, B, C, D, s0):
+        return ssd_p(xh, dt, a, B, C, D, chunk=chunk, s0=s0)
+
+    def plain(xh, dt, a, B, C, D, s0):
+        return ssd_plain(xh, dt, a, B, C, D, chunk=chunk, s0=s0)
+    return _dispatch(impl, kernel, plain, xh, dt, a, B, C, D, s0)
 
 
 def patch_embed(img, w, b=None, *, patch: int = 4,

@@ -16,8 +16,8 @@ fields of JAX's ``HLOCost``:
     convolutions, SDPA); a kernel launch's from its record
     (:func:`plain_flops`): the FLOPs of the dots its plain version runs
     (a matmul 2MNK, attention's two products over the whole Sq x Skv, a
-    norm none, WKV its chunked scan's), which are the dots JAX's HLO of
-    the same call holds;
+    norm none, WKV and SSD their chunked scans'), which are the dots
+    JAX's HLO of the same call holds;
   * ``bytes`` — the HLO traffic model: each op's operand bytes plus its
     result bytes (a broadcast operand at its real size; an op writing
     in place its written bytes once). Ops that only change metadata are
@@ -144,6 +144,15 @@ def plain_flops(record: dict) -> int:
         ln = min(16, s)
         return -(-s // ln) * b * h * (4 * ln * ln * p + 4 * ln * p * p
                                       + 2 * ln * p) if s else 0
+    if kernel == "ssd":
+        # ssd.ssd_plain: per chunk of L tokens (the last padded), C B^T
+        # (2 L^2 N) for the cb launch; the intra product (2 L^2 H P), the
+        # inter term and the state update (2 L H P N each) for the scan
+        b, s, n = t["B"][0]
+        ln = record["chunk"]
+        per = (2 * ln * ln * n if record["design"] == "cb" else
+               2 * ln * t["x"][0][2] * t["x"][0][3] * (ln + 2 * n))
+        return -(-s // ln) * b * per
     raise ValueError(f"no plain FLOPs for kernel {kernel!r}")
 
 

@@ -135,6 +135,21 @@ def price(record: dict) -> Tuple[int, int, str]:
         chunks = [min(16, s - t0) for t0 in range(0, s, 16)]
         flops = b * h * sum(4 * n * p * (n + p) for n in chunks)
         dt = dtype_name(t["r"][1])
+    elif kernel == "ssd":
+        bsz, s, n = t["B"][0]
+        # per chunk of c real tokens (the chunk as run, the last ragged):
+        # its c (c + 1) / 2 causal pairs, C . B over N (the cb launch);
+        # the intra term over them and the inter and state terms, P x N a
+        # token each, in every head (the scan)
+        ln = record["chunk"]
+        pairs = sum(c * (c + 1) // 2 for c in
+                    (min(ln, s - t0) for t0 in range(0, s, ln)))
+        if record["design"] == "cb":
+            flops = 2 * bsz * pairs * n
+        else:
+            h, p = t["x"][0][2:]
+            flops = 2 * bsz * h * p * (pairs + 2 * s * n)
+        dt = dtype_name(t["B"][1])
     else:
         raise ValueError(f"no pricing for kernel {kernel!r}")
     return flops, nbytes, dt

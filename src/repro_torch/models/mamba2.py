@@ -1,11 +1,14 @@
 """Mamba2 (SSD) mixer — zamba2's backbone.
 
 The in/out projections run on the row-wise matmul and the gated RMS
-norm on the norm kernel; the causal depthwise conv and the selective
-scan are torch ops (the trace's spans ``mamba.conv`` and ``mamba.scan``), as they are jnp in the JAX package. The scan uses
-the SSD *chunked* formulation (an intra-chunk attention-like term plus
-inter-chunk state passing), walked chunk by chunk in a Python loop as
-the JAX package scans it; a decode step is a chunk of one token.
+norm on the norm kernel; the causal depthwise conv is torch ops (the
+trace's span ``mamba.conv``), as it is jnp in the JAX package. The scan
+uses the SSD *chunked* formulation (an intra-chunk attention-like term
+plus inter-chunk state passing): :func:`ssd_chunked` walks it chunk by
+chunk in a Python loop as the JAX package scans it, and is the plain
+version of ``ops.ssd``, which runs it with the skip term ``D x`` as one
+kernel on the card (``csrc/ssd.cu``, the span ``mamba.scan``); a decode
+step is a chunk of one token.
 
 Recurrence (per head h, head dim P, state dim N, scalar decay):
     S_t = exp(dt_t * a_h) * S_{t-1} + dt_t * x_t (outer) B_t
@@ -188,9 +191,9 @@ def apply(params, x, *, cfg: ModelConfig, state: Optional[MambaState] = None,
     a = -torch.exp(params["A_log"])                               # (H,)
     xh = xi.reshape(bsz, sl, n_heads, s.head_dim)
     with trace.span("mamba.scan"):
-        y, s_fin = ssd_chunked(xh, dt, a, B, C, chunk=chunk or s.chunk,
-                               s0=None if state is None else state.ssm)
-    y = y + params["D"][None, None, :, None] * xh
+        y, s_fin = ops.ssd(xh, dt, a, B, C, params["D"],
+                           chunk=chunk or s.chunk,
+                           s0=None if state is None else state.ssm)
     y = y.reshape(bsz, sl, d_in)
     # gated RMS norm, then the out-projection
     y = y * F.silu(z.to(f32))

@@ -459,10 +459,10 @@ def test_operand_audit_fires_on_hidden_host_copies(engine):
 
 def test_every_kernel_fits_the_h100():
     models = smem.kernel_models()
-    assert len(models) == 50
-    assert len({m.name for m in models}) == 50
+    assert len(models) == 62
+    assert len({m.name for m in models}) == 62
     res = smem.audit_models(models)
-    assert res.ok and res.checked == 50
+    assert res.ok and res.checked == 62
     biggest = max(models, key=lambda m: m.smem)
     assert biggest.name == "layernorm_kernel_cta_wide<fp32,true>"
     assert biggest.smem == 227 * 1024 - 1024 + 256 <= smem.BUDGET
@@ -522,6 +522,33 @@ def test_persistent_constants_match_the_source():
         assert smem.crosscheck_plan(plan, model).ok
 
 
+def test_ssd_models_match_the_source():
+    """The SSD kernels' constants are ``ssd.cu``'s, read from its source;
+    their shared memory by hand from its structs: the C B^T kernel's two
+    N x PITCH tiles (PITCH 68); the scan's state (N x P), two x tiles
+    (K-step x P), two A / W tiles (K-step x max(N, PITCH)) and the
+    chunk's cs and dt, the K-step 32 (16 at N 16). Two scan
+    blocks fit an SM (its launch bounds), granite's (P 64, N 128)
+    included."""
+    src = _source_constants("ssd.cu")
+    assert {k: src[k] for k in smem.PLAN_CONSTANTS["ssd.cu"]} == \
+        smem.PLAN_CONSTANTS["ssd.cu"]
+    models = {m.name: m for m in smem.kernel_models() if m.source == "ssd.cu"}
+    assert len(models) == 12
+    assert models["ssd_cb_kernel<128>"].dynamic == 2 * 128 * 68 * 4
+    assert models["ssd_scan_kernel<64,128>"].dynamic == 4 * (
+        128 * 64 + 2 * 32 * 64 + 2 * 32 * 128 + 2 * 256) == 83968
+    assert models["ssd_scan_kernel<64,64>"].dynamic == 4 * (
+        64 * 64 + 2 * 32 * 64 + 2 * 32 * 68 + 2 * 256)
+    assert models["ssd_scan_kernel<32,16>"].dynamic == 4 * (
+        16 * 32 + 2 * 16 * 32 + 2 * 16 * 68 + 2 * 256)
+    for m in models.values():
+        assert m.threads == 256 and m.static == 0
+        if m.name.startswith("ssd_scan"):
+            assert m.min_blocks == 2
+            assert 2 * (m.dynamic + 1024) <= 228 * 1024
+
+
 PTXAS = """== wkv.cu
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115wkv_kernel_stepIfLi16EEEvNS_7WkvArgsE' for 'sm_90a'
@@ -561,7 +588,7 @@ def test_audit_build_clean_and_seeded():
     ptxas = [smem.PtxasEntry(m.source, f"k{i}", 32, m.static)
              for i, m in enumerate(models)]
     res = smem.audit_build(built, ptxas)
-    assert res.ok and res.checked == 2 * 50 + len(smem.QUERIES)
+    assert res.ok and res.checked == 2 * 62 + len(smem.QUERIES)
     wg = models[0]
     for seeded, code in (
             (_built(wg, dynamic=wg.dynamic + 8), "RWA402"),

@@ -7,12 +7,16 @@ out):
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 fp32 tolerance 1e-4 against max(1, max|plain|): only the order of the
-fp32 sums differs. bf16: 3e-2, the output (and the WKV y) is rounded to
+fp32 sums differs (the SSD scan: its 64-row tiles, the causal blocks and
+the state carried at chunk ends, every decay factor at most 1; held to
+the per-step scan in float64 and to the chunked scan in fp32). bf16: 3e-2, the output (and the WKV y) is rounded to
 bf16 (8-bit mantissa) where the plain version keeps fp32 (attention also
 rounds its probabilities to bf16 before the PV product, as JAX does). int8: 1e-5,
 the int32 sums are exact (the plain version multiplies in float64 on
 the card), so only the fp32 dequant and activations differ.
 """
+import math
+
 import pytest
 import torch
 
@@ -24,10 +28,11 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_p
 from repro_torch.kernels.layernorm import layernorm_p
 from repro_torch.kernels import rowwise_matmul as rm
+from repro_torch.kernels import ssd
 from repro_torch.kernels import wkv as wk
 from repro_torch.kernels.rowwise_matmul import rowwise_matmul_p
 from repro_torch.kernels.wkv import wkv_p
-from repro_torch.models import lm, rwkv6, vision
+from repro_torch.models import lm, mamba2, rwkv6, vision
 
 pytestmark = pytest.mark.cuda
 
@@ -837,6 +842,118 @@ def test_wkv_chunk_refuses_unaligned_rows(dev, monkeypatch):
         wkv_p(x, x, x, x, torch.ones(2, 64, device=dev))
 
 
+def _ssd_inputs(dev, shape, *, with_s0, strong=False, seed=6):
+    """x, B and C as the mixer hands them over: column views of one conv
+    output (silu applied); dt log-uniform over [1e-3, 0.1] and A_log
+    uniform over [0, log 16] (Mamba2's own init), or with ``strong`` dt
+    = softplus(N(1, 1)), decays to e^-70 a token."""
+    b, s, h, p, n, _chunk = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d_in = h * p
+    conv = torch.nn.functional.silu(
+        torch.randn(b, s, d_in + 2 * n, generator=g)).to(dev)
+    xh = conv[..., :d_in].view(b, s, h, p)
+    B, C = conv[..., d_in:d_in + n], conv[..., d_in + n:]
+    if strong:
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g)
+                                          + 1)
+    else:
+        dt = torch.exp(math.log(1e-3) + torch.rand(b, s, h, generator=g)
+                       * math.log(100))
+    a = -torch.exp(torch.rand(h, generator=g) * math.log(16))
+    D = torch.randn(h, generator=g)
+    s0 = torch.randn(b, h, p, n, generator=g) if with_s0 else None
+    return [xh, dt.to(dev), a.to(dev), B, C, D.to(dev),
+            None if s0 is None else s0.to(dev)]
+
+
+def _ssd_check(dev, shape, *, with_s0, strong=False):
+    """The kernel (two launches) against the per-step scan in float64 and
+    the chunked scan in fp32, y and the final state each."""
+    chunk = shape[-1]
+    xh, dt, a, B, C, D, s0 = _ssd_inputs(dev, shape, with_s0=with_s0,
+                                         strong=strong)
+    before = trace.launches("ssd")
+    y, st = ssd.ssd_p(xh, dt, a, B, C, D, chunk=chunk, s0=s0)
+    assert trace.launches("ssd") == before + 2
+    assert y.dtype == st.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    f64 = [None if t is None else t.double()
+           for t in (xh, dt, a, B, C, s0)]
+    ry, rs = mamba2.ssd_ref(*f64[:5], s0=f64[5])
+    _close(y, ry + D.double()[None, None, :, None] * xh.double())
+    _close(st, rs)
+    py, ps = ssd.ssd_plain(xh, dt, a, B, C, D, chunk=chunk, s0=s0)
+    _close(y, py)
+    _close(st, ps)
+    return (xh, dt, a, B, C, D, s0), (y, st)
+
+
+# (B, S, H, P, N, chunk): granite-4.0-h-small's mixer at the benchmark
+# mix's least and longest B=8 batches, zamba2-1.2b's at B=4 x 512 and a
+# ragged 1 x 333, their reduced configs (P 16, N 16, chunk 8; P 32, N
+# 16), a decode step (S = 1) of each full config, and the other (P, N)
+SSD_SHAPES = [(8, 407, 128, 64, 128, 256), (8, 5526, 128, 64, 128, 256),
+              (4, 512, 64, 64, 64, 128), (1, 333, 64, 64, 64, 128),
+              (2, 45, 8, 16, 16, 8), (2, 21, 4, 32, 16, 128),
+              (8, 1, 128, 64, 128, 256), (4, 1, 64, 64, 64, 128),
+              (2, 70, 3, 16, 64, 128), (2, 130, 2, 16, 128, 128),
+              (2, 300, 3, 32, 64, 256), (1, 257, 2, 32, 128, 256),
+              (2, 200, 2, 64, 16, 256), (1, 9, 2, 16, 16, 8)]
+
+
+@pytest.mark.parametrize("with_s0", [False, True], ids=["zeros", "s0"])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_kernel(dev, shape, with_s0):
+    _ssd_check(dev, shape, with_s0=with_s0)
+
+
+@pytest.mark.parametrize("shape", [(8, 407, 128, 64, 128, 256),
+                                   (2, 300, 3, 32, 64, 128),
+                                   (2, 45, 8, 16, 16, 8)], ids=str)
+def test_ssd_kernel_strong_decay(dev, shape):
+    """Decays down to e^-70 a token (log decays summed to -10^4 over a
+    chunk): every factor the kernel takes stays at most 1, so nothing
+    overflows, and the scan holds to the float64 one."""
+    _ssd_check(dev, shape, with_s0=True, strong=True)
+
+
+def test_ssd_kernel_views_copies_and_repeats(dev):
+    """The conv output's column views and contiguous copies of them give
+    the same bits, and a call repeats bitwise."""
+    shape = (2, 300, 4, 64, 128, 256)
+    args, (y, st) = _ssd_check(dev, shape, with_s0=True)
+    copies = [t if t is None else t.contiguous() for t in args]
+    for again in (ssd.ssd_p(*copies[:6], chunk=256, s0=copies[6]),
+                  ssd.ssd_p(*args[:6], chunk=256, s0=args[6])):
+        assert torch.equal(again[0], y) and torch.equal(again[1], st)
+
+
+@pytest.mark.parametrize("split", [1, 200, 256, 333])
+def test_ssd_kernel_state_continues(dev, split):
+    """A prefix, then the rest (a decode step at split 333) from the
+    prefix's final state, equals the scan over the whole."""
+    shape = (2, 334, 4, 64, 128, 256)
+    xh, dt, a, B, C, D, s0 = _ssd_inputs(dev, shape, with_s0=True)
+    y, st = ssd.ssd_p(xh, dt, a, B, C, D, chunk=256, s0=s0)
+    y1, s1 = ssd.ssd_p(xh[:, :split], dt[:, :split], a, B[:, :split],
+                       C[:, :split], D, chunk=256, s0=s0)
+    y2, s2 = ssd.ssd_p(xh[:, split:], dt[:, split:], a, B[:, split:],
+                       C[:, split:], D, chunk=256, s0=s1)
+    _close(torch.cat([y1, y2], 1), y)
+    _close(s2, st)
+
+
+def test_ssd_kernel_refuses_unaligned_rows(dev):
+    """x, B and C are read 16 bytes at a time: a view off that alignment
+    raises rather than run anything else."""
+    xh, dt, a, B, C, D, _ = _ssd_inputs(dev, (1, 40, 2, 16, 16, 8),
+                                        with_s0=False)
+    off = torch.randn(1, 40, 17, device=dev)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd.ssd_p(xh, dt, a, off, C, D, chunk=8)
+
+
 def test_rwkv_prefill_and_decode_on_kernels(dev):
     """Reduced RWKV6 with its decay LoRA, token-shift mixes and ``w0``
     spread (some channels clamp at -3.5, some at -1e-6): a ragged
@@ -936,9 +1053,10 @@ def test_hybrid_and_moe_on_kernels(dev, arch):
     (every Mamba ``conv`` and ``ssm``, the KV) agree. Launches a call:
     zamba2 2 matmuls and 2 norms a Mamba layer, 4, 1 attention at
     prefill and 2 norms (split or kept: ``norm_prologue_fits``) a
-    shared-block repeat; MoE 2 matmuls, 2 norms (1 where the qkv norm
-    stays in the prologue) and 1 attention at prefill a layer; the head
-    and the final norm."""
+    shared-block repeat, and the SSD scan's 2 a Mamba layer (prefill
+    and step); MoE 2 matmuls, 2 norms (1 where the qkv norm stays in the
+    prologue) and 1 attention at prefill a layer; the head and the final
+    norm."""
     cfg = get_reduced(arch)
     g = torch.Generator(device="cpu").manual_seed(5)
     model = lm.LanguageModel(cfg, device=dev, dtype=torch.float32,
@@ -956,18 +1074,18 @@ def test_hybrid_and_moe_on_kernels(dev, arch):
                 for t in vecs:
                     t.add_(0.3 * torch.randn(t.shape, generator=g).to(dev))
     toks = torch.randint(0, cfg.vocab, (2, 24), generator=g).to(dev)
-    counts = ("rowwise_matmul", "flash_attention", "layernorm")
+    counts = ("rowwise_matmul", "flash_attention", "layernorm", "ssd")
     d, L = cfg.d_model, cfg.n_layers
 
     def want(rows, prefill):
         split = 0 if rm.norm_prologue_fits(rows, d, torch.float32) else 1
         if cfg.moe is not None:
-            return [2 * L + 1, L if prefill else 0, L * (1 + split) + 1]
+            return [2 * L + 1, L if prefill else 0, L * (1 + split) + 1, 0]
         attn = sum(st.repeat for st in cfg.stages()
                    for b in st.body if b.mixer == "attn")
         mamba = L - attn
         return [2 * mamba + 4 * attn + 1, attn if prefill else 0,
-                2 * mamba + 2 * split * attn + 1]
+                2 * mamba + 2 * split * attn + 1, 2 * mamba]
     with torch.no_grad():
         before = _counts(counts)
         got, cache = model.prefill(toks[:, :21], alloc=24)

@@ -229,6 +229,30 @@ def test_meta_prefill_takes_the_persistent_design():
                if k.startswith("launch.")) == 212
 
 
+def test_meta_prefill_takes_the_ssd_kernel(monkeypatch, trace_on):
+    """granite-4.0-h-small's prefill of B=8 x 407 tokens (the benchmark
+    mix's least) on meta tensors: each of its 36 Mamba2 layers takes the
+    SSD kernel's two launches (cb, scan), 72 in all. Its dropless expert
+    layer reads its counts to the host, which a meta tensor cannot: a
+    stand-in of the layer's shape takes its place."""
+    from repro_torch.models import moe
+    monkeypatch.setattr(moe, "_apply_dropless",
+                        lambda params, x, cfg: (torch.zeros_like(x), 0.0))
+    cfg = get_config("granite-4.0-h-small")
+    params = lm.init_lm(cfg, None, device="meta", dtype=torch.bfloat16)
+    tok = torch.zeros((8, 407), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        trace.take()
+        lm.prefill(params, tok, cfg)
+        _, counters = trace.take()
+    mamba = cfg.layer_pattern.count("M") * cfg.n_layers // len(
+        cfg.layer_pattern)
+    assert mamba == 36
+    assert counters["launch.ssd.cb"] == counters["launch.ssd.scan"] == mamba
+    assert sum(n for k, n in counters.items()
+               if k.startswith("launch.ssd.")) == 2 * mamba
+
+
 @pytest.mark.cuda
 def test_cuda_profiler_session_counts_launches():
     """On the card, under a CUDA-activity profiler session alone (as the
